@@ -8,23 +8,31 @@ Run from the repository root with no arguments:
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit (``nvidia-smi``);
   2. build every CUDA kernel from the repository's sources;
-  3. kernels: each kernel against its plain PyTorch version on the card,
-     bit-equal, at the main path's sizes, timed with CUDA events;
+  3. kernels: each of the six against its plain PyTorch version on the
+     card, bit-equal, at the main paths' sizes, timed with CUDA events;
   4. the engine's sync contract on a 2^24-long chain;
-  5. the main path, ``rooted_spanning_tree(g, 0, method="gconn_euler")``
-     with the default device and kernels: on ``chain(256)`` and
-     ``rmat(6, edge_factor=4)``, rounds 1 and 2 and the same tree as the
-     port's run on the CPU, components as the union-find oracle's; then
-     on ``grid2d(4096)`` (16.8M
-     vertices, road-network regime) and ``rmat(20, edge_factor=16)``
-     (kron_g500-logn20 analogue): launch counts set to 0 just before and
-     read just after, trees validated, and every output and count held
-     bit-equal against the same call with ``use_kernel=False``;
+  5. the paths, each driven through its entry point with the launch
+     counts set to 0 just before and read just after:
+     a. the chain kernels' own entry points, ``ops.pointer_jump_k`` and
+        ``ops.list_rank_k``, as the reference's kernel benchmark rows
+        call them, at 2^24 elements;
+     b. ``rooted_spanning_tree(g, 0, method=m)`` for the three methods
+        ``gconn_euler``, ``bfs`` and ``pr_rst``: first on ``chain(256)`` and
+        ``rmat(6, edge_factor=4)`` (the step counts of the table1/smoke_*
+        rows, the same tree as the port's run on the CPU, a valid tree,
+        and for gconn_euler the union-find oracle's components); then on
+        ``grid2d(4096)`` (16.8M vertices, road-network regime) and
+        ``rmat(20, edge_factor=16)`` (kron_g500-logn20 analogue) with the
+        default device and kernels: trees validated, every output and
+        count bit-equal to the same call with ``use_kernel=False``,
+        launches matched to the syncs, end-to-end times, and one line per
+        graph comparing the three methods (the paper's Fig. 1 and Fig. 2);
   6. one JSON line listing the kernels, then the result line
      ``{"ok": true, "device": {...}}`` as the last line.
 
-``--profile-out`` also writes a ``torch.profiler`` table of one main-path
-run per graph to FILE. Without a CUDA card, or outside the
+``--profile-out`` also writes ``torch.profiler`` tables to FILE: one
+gconn_euler and one pr_rst run per graph and one bfs run on
+``rmat(20, edge_factor=16)``. Without a CUDA card, or outside the
 repository, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -45,9 +53,26 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 NON_TENSOR_OPS_PER_S = 67e12
 
+GRID_SIDE = 4096
+RMAT_SCALE = 20
 N_JUMPS = 5
 TIMED_RUNS = 7
 E2E_RUNS = 5
+# A method whose first run on a graph takes longer than this is timed by
+# that run and the plain run of the bit-equality check alone.
+SLOW_RUN_MS = 5000.0
+METHODS = ("gconn_euler", "bfs", "pr_rst")
+# The outputs held bit-equal, and the counts, of each method.
+FIELDS = {"gconn_euler": ("parent", "rep", "forest_mask"),
+          "bfs": ("parent", "dist"),
+          "pr_rst": ("parent",)}
+COUNTS = {"gconn_euler": ("steps", "compress_syncs", "rank_syncs"),
+          "bfs": ("steps",),
+          "pr_rst": ("steps", "compress_syncs")}
+# The table1/smoke_* rows of BENCH_rst.json: steps per method.
+SMOKE_STEPS = {"chain(256)": {"gconn_euler": 1, "bfs": 255, "pr_rst": 1},
+               "rmat(6, edge_factor=4)": {"gconn_euler": 2, "bfs": 3,
+                                          "pr_rst": 2}}
 
 
 def fail(msg: str):
@@ -110,16 +135,35 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
-    from repro_torch.core import (components_reference, compress_full,
-                                  connected_components, count_components,
-                                  rooted_spanning_tree, validate_rst)
+    from repro_torch.core import (bfs_rst, components_reference,
+                                  compress_full, connected_components,
+                                  count_components, reroot,
+                                  rooted_spanning_tree, tree_depth,
+                                  validate_rst)
     from repro_torch.core.euler import _tour_successors
     from repro_torch.core.rst import forest_edges
     from repro_torch.data import graphs
     from repro_torch.kernels import build
+    from repro_torch.kernels.frontier_relax.ops import frontier_relax
+    from repro_torch.kernels.frontier_relax.ref import INF32
     from repro_torch.kernels.hook_edges.ops import hook_edges
-    from repro_torch.kernels.list_rank.ops import list_rank_double_k
-    from repro_torch.kernels.pointer_jump.ops import pointer_jump_double_k
+    from repro_torch.kernels.list_rank.ops import list_rank_double_k, list_rank_k
+    from repro_torch.kernels.pointer_jump.ops import (pointer_jump_double_k,
+                                                      pointer_jump_k)
+
+    counters = {"pointer_jump_double": pointer_jump_double_k,
+                "list_rank_double": list_rank_double_k,
+                "hook_edges": hook_edges, "frontier_relax": frontier_relax,
+                "pointer_jump_k": pointer_jump_k, "list_rank_k": list_rank_k}
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        return {name: c.launches for name, c in counters.items()}
 
     # 1. The card.
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -175,10 +219,49 @@ def main() -> int:
           "input": "relabelled random forest (chain_*: the 2^24 chain)",
           **kernel_line(rows["pointer_jump_double"]), **{
               f"{label}_{k}": v for label in pj for k, v in pj[label].items()}})
-    del below, perm, ids
+
+    # The chain variants, on the same two tables: pointer_jump_k follows
+    # each table; list_rank_k ranks it as a successor table whose roots
+    # end their lists.
+    pjk, lrk, err_pjk, err_lrk = {}, {}, 0, 0
+    for label, table in (("chain", chain), ("forest", forest)):
+        err_pjk = max(err_pjk, max_abs_err(
+            torch, pointer_jump_k(table, n_jumps=N_JUMPS, use_kernel=True),
+            pointer_jump_k(table, n_jumps=N_JUMPS, use_kernel=False)))
+        pjk[label] = {
+            "kernel_ms": cuda_ms(torch, lambda: pointer_jump_k(
+                table, n_jumps=N_JUMPS, use_kernel=True)),
+            "plain_ms": cuda_ms(torch, lambda: pointer_jump_k(
+                table, n_jumps=N_JUMPS, use_kernel=False))}
+        succ = torch.where(table == ids, -1, table)
+        dist = (succ != -1).to(torch.int32)
+        got = list_rank_k(succ, dist, n_steps=N_JUMPS, use_kernel=True)
+        want = list_rank_k(succ, dist, n_steps=N_JUMPS, use_kernel=False)
+        err_lrk = max(err_lrk, max_abs_err(torch, got[0], want[0]),
+                      max_abs_err(torch, got[1], want[1]))
+        lrk[label] = {
+            "kernel_ms": cuda_ms(torch, lambda: list_rank_k(
+                succ, dist, n_steps=N_JUMPS, use_kernel=True)),
+            "plain_ms": cuda_ms(torch, lambda: list_rank_k(
+                succ, dist, n_steps=N_JUMPS, use_kernel=False))}
+    check(err_pjk == 0, f"pointer_jump_k differs from plain by {err_pjk}")
+    check(err_lrk == 0, f"list_rank_k differs from plain by {err_lrk}")
+    for name, res, err, nbytes, ops in (
+            ("pointer_jump_k", pjk, err_pjk, 8 * n_tab, N_JUMPS * n_tab),
+            ("list_rank_k", lrk, err_lrk, 16 * n_tab, 3 * N_JUMPS * n_tab)):
+        b_ms, b_by = bound(nbytes, ops)
+        rows[name] = dict(ms=res["forest"]["kernel_ms"],
+                          plain_ms=res["forest"]["plain_ms"], library_ms=None,
+                          bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        emit({"kernel": name, "n": n_tab, "n_steps": N_JUMPS,
+              "input": "relabelled random forest (chain_*: the 2^24 chain)",
+              **kernel_line(rows[name]), **{
+                  f"{label}_{k}": v for label in res
+                  for k, v in res[label].items()}})
+    del below, perm, succ, dist, got, want
 
     t0 = time.perf_counter()
-    grid = graphs.grid2d(4096, device=dev)
+    grid = graphs.grid2d(GRID_SIDE, device=dev)
     grid_build_s = time.perf_counter() - t0
     n = grid.n_nodes
     rep, forest_mask, _ = connected_components(grid, use_kernel=False)
@@ -230,6 +313,46 @@ def main() -> int:
           **kernel_line(rows["hook_edges"])})
     del rand_rep, got, want
 
+    # frontier_relax at a mid-BFS state. On grid2d(4096) from corner 0 the
+    # BFS distance is row + col, so level L's state is every vertex with
+    # row + col <= L set and the rest INF32. On rmat(20, 16), the state
+    # after two BFS levels of the plain path.
+    t0 = time.perf_counter()
+    rmat = graphs.rmat(RMAT_SCALE, edge_factor=16, device=dev)
+    rmat_build_s = time.perf_counter() - t0
+    level = GRID_SIDE - 1
+    verts = torch.arange(n, dtype=torch.int32, device=dev)
+    manhattan = verts // GRID_SIDE + verts % GRID_SIDE
+    grid_dist = torch.where(manhattan <= level, manhattan, INF32)
+    _, rmat_dist, rmat_level = bfs_rst(rmat, 0, max_levels=2,
+                                       use_kernel=False)
+    rmat_level += 1
+    fr = {}
+    err = 0
+    for label, g, d, lvl in (("grid", grid, grid_dist, level),
+                             ("rmat", rmat, rmat_dist, rmat_level)):
+        def run(use_kernel, g=g, d=d, lvl=lvl):
+            return frontier_relax(d, g.src, g.dst, lvl, use_kernel=use_kernel)
+        got, want = run(True), run(False)
+        err = max(err, max_abs_err(torch, got, want))
+        nb, nops = 9 * g.n_half_edges + 4 * g.n_nodes, 3 * g.n_half_edges
+        b_ms, b_by = bound(nb, nops)
+        fr[label] = dict(ms=cuda_ms(torch, lambda: run(True)),
+                         plain_ms=cuda_ms(torch, lambda: run(False)),
+                         library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                         frontier_edges=int(got.sum()), level=int(lvl))
+    check(err == 0, f"frontier_relax differs from plain by {err}")
+    rows["frontier_relax"] = {**{k: v for k, v in fr["grid"].items()
+                                 if k not in ("frontier_edges", "level")},
+                              "max_abs_err": err}
+    emit({"kernel": "frontier_relax", "n_half_edges": e, "n_nodes": n,
+          "input": "grid2d(4096) edges at BFS level 4095 from vertex 0 "
+                   "(rmat_*: rmat(20, 16) after 2 levels)",
+          **kernel_line(rows["frontier_relax"]),
+          "frontier_edges": fr["grid"]["frontier_edges"],
+          **{f"rmat_{k}": v for k, v in kernel_line(fr["rmat"]).items()}})
+    del verts, manhattan, grid_dist, rmat_dist, got, want
+
     # 4. The engine's sync contract: ⌈log2(d)/k⌉ + 1 checks.
     engine = {"phase": "engine", "chain": n_tab}
     for k, want_syncs in ((5, 6), (1, 25)):
@@ -239,129 +362,195 @@ def main() -> int:
               f"want {want_syncs}")
         engine[f"syncs_k{k}"] = syncs
     emit(engine)
-    del chain, forest, out
+    del chain, forest, out, ids
 
-    # 5. The main path. First two small graphs: the rounds of the
+    # 5a. The chain kernels' own entry points, as the reference's
+    # kernels/pointer_jump_*_x5 and list_rank_*_x5 rows call them: a
+    # random table, and one list over every element.
+    launches = dict.fromkeys(counters, 0)
+    p_rand = torch.randint(0, n_tab, (n_tab,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    succ = torch.arange(1, n_tab + 1, dtype=torch.int32, device=dev)
+    succ[-1] = -1
+    d0 = torch.ones(n_tab, dtype=torch.int32, device=dev)
+    d0[-1] = 0
+    zero_counts()
+    out_p = pointer_jump_k(p_rand)
+    out_s, out_d = list_rank_k(succ, d0)
+    ops_path = read_counts()
+    check(ops_path["pointer_jump_k"] == 1 and ops_path["list_rank_k"] == 1,
+          f"the chain kernels' entry points launched {ops_path}")
+    check(torch.equal(out_p, pointer_jump_k(p_rand, use_kernel=False))
+          and torch.equal(out_s, list_rank_k(succ, d0, use_kernel=False)[0])
+          and torch.equal(out_d, list_rank_k(succ, d0, use_kernel=False)[1]),
+          "the chain kernels' entry points differ from the plain path")
+    for name in launches:
+        launches[name] += ops_path[name]
+    emit({"path": "ops.pointer_jump_k, ops.list_rank_k", "n": n_tab,
+          "launches": {k: v for k, v in ops_path.items() if v}})
+    del p_rand, succ, d0, out_p, out_s, out_d
+
+    # 5b. The three methods on two small graphs: the step counts of the
     # table1/smoke_* rows, and the card's tree against the port's run on
-    # the CPU and against the union-find oracle.
-    for label, g, want_rounds in (
-            ("chain(256)", graphs.chain(256, device=dev), 1),
-            ("rmat(6, edge_factor=4)", graphs.rmat(6, edge_factor=4,
-                                                   device=dev), 2)):
-        r = rooted_spanning_tree(g, 0, method="gconn_euler")
-        c = rooted_spanning_tree(g, 0, method="gconn_euler", device="cpu")
-        check(r.steps == want_rounds,
-              f"{label}: rounds {r.steps}, want {want_rounds}")
-        for field in ("parent", "rep", "forest_mask"):
-            check(torch.equal(getattr(r, field).cpu(), getattr(c, field)),
-                  f"{label}: {field} differs from the run on the CPU")
-        check((r.steps, r.compress_syncs, r.rank_syncs)
-              == (c.steps, c.compress_syncs, c.rank_syncs),
-              f"{label}: counts differ from the run on the CPU")
-        oracle = components_reference(g)
-        check(np.array_equal(oracle[r.rep.cpu().numpy()], oracle)
-              and count_components(r.rep) == len(set(oracle.tolist())),
-              f"{label}: components differ from the union-find oracle")
-        check(validate_rst(g, r.parent, 0)["all_ok"],
-              f"{label}: invalid tree")
-    t0 = time.perf_counter()
-    rmat = graphs.rmat(20, edge_factor=16, device=dev)
-    rmat_build_s = time.perf_counter() - t0
+    # the CPU (and, for gconn_euler, the union-find oracle).
+    for label, g in (("chain(256)", graphs.chain(256, device=dev)),
+                     ("rmat(6, edge_factor=4)",
+                      graphs.rmat(6, edge_factor=4, device=dev))):
+        for method in METHODS:
+            r = rooted_spanning_tree(g, 0, method=method)
+            c = rooted_spanning_tree(g, 0, method=method, device="cpu")
+            want_steps = SMOKE_STEPS[label][method]
+            check(r.steps == want_steps,
+                  f"{label} {method}: steps {r.steps}, want {want_steps}")
+            for field in FIELDS[method]:
+                check(torch.equal(getattr(r, field).cpu(), getattr(c, field)),
+                      f"{label} {method}: {field} differs from the CPU run")
+            check(all(getattr(r, k) == getattr(c, k)
+                      for k in COUNTS[method]),
+                  f"{label} {method}: counts differ from the CPU run")
+            check(validate_rst(g, r.parent, 0)["all_ok"],
+                  f"{label} {method}: invalid tree")
+            if method == "gconn_euler":
+                oracle = components_reference(g)
+                check(np.array_equal(oracle[r.rep.cpu().numpy()], oracle)
+                      and count_components(r.rep) == len(set(oracle.tolist())),
+                      f"{label}: components differ from the union-find "
+                      "oracle")
+    emit({"phase": "small graphs", "steps": SMOKE_STEPS})
+
+    # 5c. The three methods on the two large graphs.
     cases = (("grid2d(4096)", grid, grid_build_s),
              ("rmat(20, edge_factor=16)", rmat, rmat_build_s))
 
-    counters = (pointer_jump_double_k, list_rank_double_k, hook_edges)
-
-    def counts():
-        return [c.launches for c in counters]
-
-    torch.cuda.synchronize()
-    for c in counters:
-        c.launches = 0
-    results, deltas = [], []
-    for _, g, _ in cases:
-        before = counts()
-        results.append(rooted_spanning_tree(g, 0, method="gconn_euler"))
+    def timed(g, method, use_kernel):
         torch.cuda.synchronize()
-        deltas.append([a - b for a, b in zip(counts(), before)])
-    launches = dict(zip(("pointer_jump_double", "list_rank_double",
-                         "hook_edges"), counts()))
+        t = time.perf_counter()
+        r = rooted_spanning_tree(g, 0, method=method, use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t) * 1e3
+
+    def expected_launches(method, r):
+        want = dict.fromkeys(counters, 0)
+        if method == "gconn_euler":
+            want.update(pointer_jump_double=N_JUMPS * r.compress_syncs,
+                        list_rank_double=N_JUMPS * r.rank_syncs,
+                        hook_edges=r.steps + 1)
+        elif method == "bfs":
+            want.update(frontier_relax=r.steps + 1)
+        else:
+            want.update(pointer_jump_double=N_JUMPS * r.compress_syncs)
+        return want
+
+    summary = {}
+    for label, g, build_s in cases:
+        summary[label] = {}
+        for method in METHODS:
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            r, first_ms = timed(g, method, None)
+            got = read_counts()
+            for name in launches:
+                launches[name] += got[name]
+            want = expected_launches(method, r)
+            check(got == want, f"{label} {method}: launches {got}, "
+                               f"want {want} from the syncs")
+            verdict = validate_rst(g, r.parent, 0)
+            check(verdict["all_ok"], f"{label} {method}: invalid tree "
+                                     f"{verdict}")
+            p, plain_first_ms = timed(g, method, False)
+            for field in FIELDS[method]:
+                check(torch.equal(getattr(r, field), getattr(p, field)),
+                      f"{label} {method}: {field} differs from the plain "
+                      "path")
+            check(all(getattr(r, k) == getattr(p, k)
+                      for k in COUNTS[method]),
+                  f"{label} {method}: counts differ from the plain path")
+            del p
+            if first_ms <= SLOW_RUN_MS:
+                kernel_ms, plain_ms = [], []
+                for i in range(E2E_RUNS):       # in turns: k p p k k p ...
+                    for use_kernel in ((None, False) if i % 2 == 0
+                                       else (False, None)):
+                        (kernel_ms if use_kernel is None else plain_ms
+                         ).append(timed(g, method, use_kernel)[1])
+                timing = "5 interleaved runs"
+            else:
+                kernel_ms, plain_ms = [first_ms], [plain_first_ms]
+                timing = "the counted run and the bit-equality check's run"
+            depth = tree_depth(r.parent)
+            summary[label][method] = (statistics.median(kernel_ms), depth,
+                                      r.steps)
+            emit({"graph": label, "method": method, "n": g.n_nodes,
+                  "half_edges": g.n_half_edges,
+                  "generate_s": round(build_s, 3), "steps": r.steps,
+                  **{k: getattr(r, k) for k in COUNTS[method][1:]},
+                  "tree_depth": depth,
+                  "launches": {k: v for k, v in got.items() if v},
+                  "timed_by": timing,
+                  "e2e_ms_median": statistics.median(kernel_ms),
+                  "e2e_ms": kernel_ms,
+                  "plain_e2e_ms_median": statistics.median(plain_ms),
+                  "plain_e2e_ms": plain_ms,
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                  "valid": verdict["all_ok"], "card": card})
+            del r
+
+        # PR-RST's doubling tables: the levels each ancestor_tables call
+        # built (one call per round, then the final re-root).
+        used = []
+        build_tables = reroot.ancestor_tables
+
+        def recording(p, levels):
+            out = build_tables(p, levels)
+            used.append(out[3])
+            return out
+        reroot.ancestor_tables = recording
+        try:
+            rooted_spanning_tree(g, 0, method="pr_rst")
+        finally:
+            reroot.ancestor_tables = build_tables
+        gc_ms = summary[label]["gconn_euler"][0]
+        emit({"compare": label, "card": card,
+              **{m: {"e2e_ms_median": ms, "tree_depth": depth, "steps": st}
+                 for m, (ms, depth, st) in summary[label].items()},
+              "bfs/gconn_euler": summary[label]["bfs"][0] / gc_ms,
+              "pr_rst/gconn_euler": summary[label]["pr_rst"][0] / gc_ms,
+              "pr_rst_table_levels_per_round": used})
     check(all(v > 0 for v in launches.values()),
-          f"a kernel of the main path never launched: {launches}")
-
-    for (label, g, build_s), r, (pj_n, lr_n, he_n) in zip(cases, results,
-                                                          deltas):
-        check((pj_n, lr_n, he_n) == (N_JUMPS * r.compress_syncs,
-                                     N_JUMPS * r.rank_syncs, r.steps + 1),
-              f"{label}: launches {(pj_n, lr_n, he_n)} do not match syncs "
-              f"{(r.compress_syncs, r.rank_syncs, r.steps)}")
-        verdict = validate_rst(g, r.parent, 0)
-        check(verdict["all_ok"], f"{label}: invalid tree {verdict}")
-        p = rooted_spanning_tree(g, 0, method="gconn_euler",
-                                 use_kernel=False)
-        for field in ("parent", "rep", "forest_mask"):
-            check(torch.equal(getattr(r, field), getattr(p, field)),
-                  f"{label}: {field} differs from the plain path")
-        check((r.steps, r.compress_syncs, r.rank_syncs)
-              == (p.steps, p.compress_syncs, p.rank_syncs),
-              f"{label}: counts differ from the plain path")
-
-        def run(use_kernel, g=g):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            rooted_spanning_tree(g, 0, method="gconn_euler",
-                                 use_kernel=use_kernel)
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t) * 1e3
-
-        kernel_ms, plain_ms = [], []
-        torch.cuda.reset_peak_memory_stats()
-        for i in range(E2E_RUNS):       # in turns: k p p k k p ...
-            for use_kernel in ((None, False) if i % 2 == 0 else (False, None)):
-                (kernel_ms if use_kernel is None else plain_ms).append(
-                    run(use_kernel))
-        emit({"graph": label, "n": g.n_nodes, "half_edges": g.n_half_edges,
-              "generate_s": round(build_s, 3), "rounds": r.steps,
-              "compress_syncs": r.compress_syncs,
-              "rank_syncs": r.rank_syncs,
-              "launches": {"pointer_jump_double": pj_n,
-                           "list_rank_double": lr_n, "hook_edges": he_n},
-              "e2e_ms_median": statistics.median(kernel_ms),
-              "e2e_ms": kernel_ms,
-              "plain_e2e_ms_median": statistics.median(plain_ms),
-              "plain_e2e_ms": plain_ms,
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-              "valid": verdict["all_ok"], "card": card})
+          f"a kernel of the paths never launched: {launches}")
 
     if args.profile_out is not None:
         from torch.profiler import ProfilerActivity, profile
         tables = [card]
-        for label, g, _ in cases:
+        runs = [(label, g, m) for label, g, _ in cases
+                for m in ("gconn_euler", "pr_rst")]
+        runs.append((cases[1][0], rmat, "bfs"))
+        for label, g, method in runs:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                rooted_spanning_tree(g, 0, method="gconn_euler")
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t) * 1e3
-            tables.append(f"{label} gconn_euler, profiled run: {wall_ms:.3f} "
+                _, wall_ms = timed(g, method, None)
+            tables.append(f"{label} {method}, profiled run: {wall_ms:.3f} "
                           "ms wall\n" + prof.key_averages().table(
                               sort_by="cuda_time_total", row_limit=40))
         args.profile_out.parent.mkdir(parents=True, exist_ok=True)
         args.profile_out.write_text("\n\n".join(tables) + "\n")
 
     # 6. Results.
+    kdir = "src/repro_torch/kernels"
+    tdir = "src/repro/kernels"
     sources = {
-        "pointer_jump_double": ("src/repro_torch/kernels/pointer_jump/csrc/"
-                                "pointer_jump.cu",
-                                "src/repro/kernels/pointer_jump/"
-                                "pointer_jump.py:45"),
-        "list_rank_double": ("src/repro_torch/kernels/list_rank/csrc/"
-                             "list_rank.cu",
-                             "src/repro/kernels/list_rank/list_rank.py:47"),
-        "hook_edges": ("src/repro_torch/kernels/hook_edges/csrc/"
-                       "hook_edges.cu",
-                       "src/repro/kernels/hook_edges/hook_edges.py:30"),
+        "pointer_jump_double": (f"{kdir}/pointer_jump/csrc/pointer_jump.cu",
+                                f"{tdir}/pointer_jump/pointer_jump.py:45"),
+        "list_rank_double": (f"{kdir}/list_rank/csrc/list_rank.cu",
+                             f"{tdir}/list_rank/list_rank.py:47"),
+        "hook_edges": (f"{kdir}/hook_edges/csrc/hook_edges.cu",
+                       f"{tdir}/hook_edges/hook_edges.py:30"),
+        "frontier_relax": (f"{kdir}/frontier_relax/csrc/frontier_relax.cu",
+                           f"{tdir}/frontier_relax/frontier_relax.py:26"),
+        "pointer_jump_k": (f"{kdir}/pointer_jump/csrc/pointer_jump.cu",
+                           f"{tdir}/pointer_jump/pointer_jump.py:33"),
+        "list_rank_k": (f"{kdir}/list_rank/csrc/list_rank.cu",
+                        f"{tdir}/list_rank/list_rank.py:27"),
     }
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

@@ -1,9 +1,10 @@
 """Rooted-spanning-tree entry point.
 
 ``rooted_spanning_tree(graph, root, method=...)`` returns the parent array
-plus the step and sync counts the paper's analysis turns on. This slice of
-the port carries the paper's headline pipeline, ``"gconn_euler"``:
-connectivity → spanning forest → Euler-tour rooting.
+plus the step and sync counts the paper's analysis turns on, for the
+paper's three strategies: ``"gconn_euler"`` (connectivity → spanning
+forest → Euler-tour rooting, the headline pipeline), ``"bfs"`` (the
+edge-centric baseline) and ``"pr_rst"`` (path-reversal rounds).
 """
 from __future__ import annotations
 
@@ -12,10 +13,12 @@ from typing import Literal
 
 import torch
 
+from repro_torch.core.bfs import bfs_rst
 from repro_torch.core.compress import rank_to_root
 from repro_torch.core.connectivity import connected_components
 from repro_torch.core.euler import euler_tour_root
 from repro_torch.core.graph import Graph, resolve_device
+from repro_torch.core.pr_rst import pr_rst
 
 Method = Literal["bfs", "gconn_euler", "pr_rst"]
 METHODS: tuple[str, ...] = ("bfs", "gconn_euler", "pr_rst")
@@ -25,11 +28,12 @@ METHODS: tuple[str, ...] = ("bfs", "gconn_euler", "pr_rst")
 class RSTResult:
     parent: torch.Tensor                    # int32[n]
     method: str
-    steps: int                              # parallel step count (rounds)
-    rep: torch.Tensor | None = None         # int32[n] component reps
-    forest_mask: torch.Tensor | None = None  # bool[2M] spanning-forest edges
-    compress_syncs: int | None = None       # connectivity's compress checks
-    rank_syncs: int | None = None           # Euler list-ranking checks
+    steps: int                              # parallel steps (levels, rounds)
+    dist: torch.Tensor | None = None        # bfs: int32[n] hop distances
+    rep: torch.Tensor | None = None         # gconn: int32[n] component reps
+    forest_mask: torch.Tensor | None = None  # gconn: bool[2M] forest edges
+    compress_syncs: int | None = None       # gconn, pr_rst: compress checks
+    rank_syncs: int | None = None           # gconn: list-ranking checks
 
 
 def forest_edges(graph: Graph, forest_mask: torch.Tensor):
@@ -77,25 +81,34 @@ def gconn_euler_rst(graph: Graph, root, *,
 
 def rooted_spanning_tree(graph: Graph, root, method: Method = "gconn_euler",
                          *, use_kernel: bool | None = None,
-                         device: str | torch.device | None = None
-                         ) -> RSTResult:
+                         device: str | torch.device | None = None,
+                         **kwargs) -> RSTResult:
     """Build a rooted spanning tree with the chosen strategy.
 
     Runs on ``device``: the card unless the caller passes another (it
     raises when the card is wanted and missing). The graph is moved there
     if it lies elsewhere. ``use_kernel`` follows
-    ``repro_torch.kernels.kernel_wanted``.
+    ``repro_torch.kernels.kernel_wanted``. ``kwargs`` go to the method:
+    ``max_levels`` for ``bfs_rst``; ``max_rounds``, ``alternate_hooking``
+    and ``n_jumps`` for ``pr_rst``; ``gconn_euler`` takes none.
+
+    Steps: BFS levels (the tree's depth), or rounds minus one. ``bfs``
+    spans only the root's component.
     """
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; choose from {METHODS}")
     graph = graph.to(resolve_device(device))
-    if method == "gconn_euler":
-        return gconn_euler_rst(graph, root, use_kernel=use_kernel)
     if method == "bfs":
-        raise NotImplementedError(
-            "method='bfs' is not ported yet (ROADMAP.md §1 item 7)")
+        parent, dist, levels = bfs_rst(graph, root, use_kernel=use_kernel,
+                                       **kwargs)
+        return RSTResult(parent=parent, method=method, steps=levels,
+                         dist=dist)
     if method == "pr_rst":
-        raise NotImplementedError(
-            "method='pr_rst' is not ported yet (ROADMAP.md §1 item 8)")
-    raise ValueError(f"unknown method {method!r}; choose from {METHODS}")
+        parent, rounds, syncs = pr_rst(graph, root, use_kernel=use_kernel,
+                                       return_syncs=True, **kwargs)
+        return RSTResult(parent=parent, method=method, steps=rounds,
+                         compress_syncs=syncs)
+    return gconn_euler_rst(graph, root, use_kernel=use_kernel, **kwargs)
 
 
 def tree_depth(parent: torch.Tensor) -> int:

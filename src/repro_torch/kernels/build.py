@@ -22,7 +22,7 @@ import subprocess
 
 _PKG = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
-KERNELS = ("pointer_jump", "list_rank", "hook_edges")
+KERNELS = ("pointer_jump", "list_rank", "hook_edges", "frontier_relax")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

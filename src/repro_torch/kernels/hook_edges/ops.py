@@ -11,9 +11,9 @@ import torch
 from repro_torch.kernels import build, check_int32_cuda, kernel_wanted
 from repro_torch.kernels.hook_edges.ref import hook_edges_ref
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p]
+_ARGTYPES = {"hook_edges": [ctypes.c_void_p] * 5 + [
+    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p]}
 
 
 def hook_edges(src: torch.Tensor, dst: torch.Tensor, rep: torch.Tensor,
@@ -34,7 +34,8 @@ def hook_edges(src: torch.Tensor, dst: torch.Tensor, rep: torch.Tensor,
     tgt, val = torch.empty_like(src), torch.empty_like(src)
     if e == 0:
         return tgt, val
-    fn = build.function("hook_edges", "hook_edges", _ARGTYPES)
+    fn = build.function("hook_edges", "hook_edges",
+                        _ARGTYPES["hook_edges"])
     rc = fn(src.data_ptr(), dst.data_ptr(), rep.data_ptr(), tgt.data_ptr(),
             val.data_ptr(), e, n_nodes, int(bool(use_min)), src.device.index,
             torch.cuda.current_stream(src.device).cuda_stream)

@@ -1,1 +1,2 @@
-"""k-step pointer doubling (``ops.pointer_jump_double_k``)."""
+"""Pointer jumping: k doubling steps (``ops.pointer_jump_double_k``) and
+k + 1 hops against a fixed table (``ops.pointer_jump_k``)."""

@@ -1,6 +1,9 @@
-// k pointer-doubling steps `t = t[t]` over a whole int32 parent table.
+// Two entries over a whole int32 parent table:
+//   pointer_jump_double: k doubling steps `t = t[t]`;
+//   pointer_jump_chain:  `n_jumps + 1` hops against one fixed table,
+//                        out[i] = p^(n_jumps+1)(i).
 //
-// Replaces the TPU kernel `_pointer_jump_double_kernel` /
+// pointer_jump_double replaces the TPU kernel `_pointer_jump_double_kernel` /
 // `pointer_jump_double_pallas` in src/repro/kernels/pointer_jump/pointer_jump.py.
 // That kernel holds the whole table in VMEM and runs the k steps in one
 // grid=1 launch. On the H100 blocks run in no order, so a step that reads
@@ -31,6 +34,16 @@ __global__ void pointer_jump_double_step(const int32_t* __restrict__ in,
   if (i < n) out[i] = __ldg(in + __ldg(in + i));
 }
 
+__global__ void pointer_jump_chain_kernel(const int32_t* __restrict__ p,
+                                          int32_t* __restrict__ out,
+                                          int64_t n, int n_jumps) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int32_t idx = __ldg(p + i);
+  for (int j = 0; j < n_jumps; ++j) idx = __ldg(p + idx);
+  out[i] = idx;
+}
+
 }  // namespace
 
 extern "C" const char* kernel_error_string(int code) {
@@ -57,4 +70,26 @@ extern "C" int pointer_jump_double(const void* table, void* out, void* scratch,
     src = dst;
   }
   return cudaSuccess;
+}
+
+// pointer_jump_chain replaces the TPU kernel `_pointer_jump_kernel` /
+// `pointer_jump_pallas` in the same file: the paper's literal "several jumps
+// per thread". Each block there reads its tile and the whole VMEM-resident
+// table; here one launch runs one thread per element, each following
+// `idx = p[idx]` n_jumps times from idx = p[i]. The table is never written,
+// so no step waits for another and no grid-wide barrier is needed. Bound:
+// memory, 8n bytes (p read once, out written once); each hop is a dependent
+// random 4-byte gather, so the kernel is latency-bound in practice, and one
+// element per thread with many blocks in flight keeps gathers outstanding.
+//
+// table, out: distinct int32[n] on `device`, entries of table in [0, n).
+// One launch. Returns cudaGetLastError() after it (0 on success).
+extern "C" int pointer_jump_chain(const void* table, void* out, int64_t n,
+                                  int n_jumps, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const auto blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  pointer_jump_chain_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(table), static_cast<int32_t*>(out), n, n_jumps);
+  return cudaGetLastError();
 }

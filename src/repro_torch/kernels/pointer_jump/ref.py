@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the pointer_jump doubling kernel."""
+"""Plain PyTorch versions of the pointer_jump kernels."""
 from __future__ import annotations
 
 import torch
@@ -9,3 +9,12 @@ def pointer_jump_double_ref(p: torch.Tensor, n_jumps: int) -> torch.Tensor:
     for _ in range(n_jumps):
         p = p[p]
     return p
+
+
+def pointer_jump_ref(p: torch.Tensor, n_jumps: int) -> torch.Tensor:
+    """Apply ``idx = p[idx]`` ``n_jumps`` times, starting from ``idx = p``:
+    ``n_jumps + 1`` hops against the fixed table ``p``."""
+    idx = p
+    for _ in range(n_jumps):
+        idx = p[idx]
+    return idx

@@ -1,5 +1,5 @@
-"""The port on the card: each CUDA kernel against its plain version, and the
-GConn + Euler slice on the card against the same call on the CPU.
+"""The port on the card: each CUDA kernel against its plain version, and
+the three RST flavors on the card against the same call on the CPU.
 
 Every test here needs a CUDA card (the kernels have no CPU mode) and skips
 without one. The file imports no JAX, so it also runs on a machine that has
@@ -13,12 +13,17 @@ import torch
 from repro_torch.core import (compress_full, rooted_spanning_tree,
                               tour_numbering, validate_rst, wyllie_rank)
 from repro_torch.data import graphs
+from repro_torch.kernels.frontier_relax.ops import frontier_relax
+from repro_torch.kernels.frontier_relax.ref import INF32, frontier_relax_ref
 from repro_torch.kernels.hook_edges.ops import hook_edges
 from repro_torch.kernels.hook_edges.ref import hook_edges_ref
-from repro_torch.kernels.list_rank.ops import list_rank_double_k
-from repro_torch.kernels.list_rank.ref import list_rank_double_ref
-from repro_torch.kernels.pointer_jump.ops import pointer_jump_double_k
-from repro_torch.kernels.pointer_jump.ref import pointer_jump_double_ref
+from repro_torch.kernels.list_rank.ops import list_rank_double_k, list_rank_k
+from repro_torch.kernels.list_rank.ref import (list_rank_double_ref,
+                                               list_rank_steps_ref)
+from repro_torch.kernels.pointer_jump.ops import (pointer_jump_double_k,
+                                                  pointer_jump_k)
+from repro_torch.kernels.pointer_jump.ref import (pointer_jump_double_ref,
+                                                  pointer_jump_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -132,3 +137,76 @@ def test_gconn_euler_on_card_matches_cpu(cuda, name, kwargs):
     tn, tc = tour_numbering(r.parent), tour_numbering(c.parent)
     for field in ("pre", "size", "last", "comp"):
         assert torch.equal(getattr(tn, field).cpu(), getattr(tc, field))
+
+
+@pytest.mark.parametrize("n,e", [(1, 1), (3000, 9001), (1 << 20, (1 << 22) + 3)])
+@pytest.mark.parametrize("level", [0, 3])
+def test_frontier_relax_kernel(cuda, n, e, level):
+    g = torch.Generator(device=cuda).manual_seed(n + level)
+    dist = torch.randint(0, 5, (n,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    dist[torch.rand(n, generator=g, device=cuda) < 0.5] = INF32
+    src, dst = (torch.randint(0, n, (e,), generator=g, device=cuda,
+                              dtype=torch.int32) for _ in range(2))
+    before = frontier_relax.launches
+    mask = frontier_relax(dist, src, dst, level, use_kernel=True)
+    torch.cuda.synchronize()
+    assert frontier_relax.launches - before == 1
+    assert mask.dtype == torch.bool
+    assert torch.equal(mask, frontier_relax_ref(dist, src, dst, level))
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("k", [0, 1, 5])
+def test_pointer_jump_chain_kernel(cuda, n, k):
+    p = _forest(n, n + 1, cuda)
+    before = pointer_jump_k.launches
+    out = pointer_jump_k(p, n_jumps=k, use_kernel=True)
+    torch.cuda.synchronize()
+    assert pointer_jump_k.launches - before == 1
+    assert torch.equal(out, pointer_jump_ref(p, k))
+
+
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("k", [0, 1, 5])
+def test_list_rank_chain_kernel(cuda, n, k):
+    succ = _lists(n, n + 2, cuda)
+    dist = torch.randint(0, 5, (n,), device=cuda, dtype=torch.int32)
+    before = list_rank_k.launches
+    s, d = list_rank_k(succ, dist, n_steps=k, use_kernel=True)
+    torch.cuda.synchronize()
+    assert list_rank_k.launches - before == 1
+    rs, rd = list_rank_steps_ref(succ, dist, k)
+    assert torch.equal(s, rs) and torch.equal(d, rd)
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("grid2d", dict(side=16)), ("rmat", dict(scale=8, edge_factor=4))])
+def test_bfs_on_card_matches_cpu(cuda, name, kwargs):
+    g = getattr(graphs, name)(**kwargs, device=cuda)
+    before = frontier_relax.launches
+    r = rooted_spanning_tree(g, 3, "bfs")
+    torch.cuda.synchronize()
+    assert frontier_relax.launches - before == r.steps + 1
+    c = rooted_spanning_tree(g.to("cpu"), 3, "bfs", device="cpu")
+    assert torch.equal(r.parent.cpu(), c.parent)
+    assert torch.equal(r.dist.cpu(), c.dist)
+    assert r.steps == c.steps
+    assert validate_rst(g, r.parent, 3)["all_ok"]
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("grid2d", dict(side=16)), ("rmat", dict(scale=8, edge_factor=4))])
+@pytest.mark.parametrize("alternate_hooking", [False, True])
+def test_pr_rst_on_card_matches_cpu(cuda, name, kwargs, alternate_hooking):
+    g = getattr(graphs, name)(**kwargs, device=cuda)
+    before = pointer_jump_double_k.launches
+    r = rooted_spanning_tree(g, 3, "pr_rst",
+                             alternate_hooking=alternate_hooking)
+    torch.cuda.synchronize()
+    assert pointer_jump_double_k.launches - before == 5 * r.compress_syncs
+    c = rooted_spanning_tree(g.to("cpu"), 3, "pr_rst", device="cpu",
+                             alternate_hooking=alternate_hooking)
+    assert torch.equal(r.parent.cpu(), c.parent)
+    assert (r.steps, r.compress_syncs) == (c.steps, c.compress_syncs)
+    assert validate_rst(g, r.parent, 3)["all_ok"]

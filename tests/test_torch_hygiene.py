@@ -98,11 +98,14 @@ def test_kernel_build_needs_nvcc_and_stays_under_build(monkeypatch,
 @pytest.mark.parametrize("name,symbol", [
     ("pointer_jump", "pointer_jump_double"),
     ("list_rank", "list_rank_double"),
-    ("hook_edges", "hook_edges")])
+    ("hook_edges", "hook_edges"),
+    ("pointer_jump", "pointer_jump_chain"),
+    ("list_rank", "list_rank_chain"),
+    ("frontier_relax", "frontier_relax")])
 def test_ctypes_signatures_match_the_c_entries(name, symbol):
-    """Each wrapper's ``argtypes`` has one entry per parameter of its C
-    entry, pointers and the stream as ``c_void_p`` (a narrower type would
-    cut a 64-bit pointer)."""
+    """Each C entry's ``argtypes`` (``ops._ARGTYPES[symbol]``) has one
+    entry per parameter, pointers and the stream as ``c_void_p`` (a
+    narrower type would cut a 64-bit pointer)."""
     import ctypes
     import importlib
     import re
@@ -112,7 +115,7 @@ def test_ctypes_signatures_match_the_c_entries(name, symbol):
     assert m, f"no C entry {symbol} in {build.source(name)}"
     params = [p.strip() for p in m.group(1).split(",")]
     argtypes = importlib.import_module(
-        f"repro_torch.kernels.{name}.ops")._ARGTYPES
+        f"repro_torch.kernels.{name}.ops")._ARGTYPES[symbol]
     assert len(argtypes) == len(params)
     for param, ctype in zip(params, argtypes):
         if "*" in param:

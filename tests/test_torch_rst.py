@@ -21,7 +21,7 @@ from repro.core.graph import Graph as JaxGraph
 from repro.core.rst import tree_depth as jax_tree_depth
 from repro.core.validate import validate_rst as jax_validate
 from repro.data import graphs as jax_graphs
-from repro_torch.core import (Graph, components_reference,
+from repro_torch.core import (METHODS, Graph, components_reference,
                               connected_components, count_components,
                               rooted_spanning_tree, tour_numbering,
                               tree_depth, validate_rst)
@@ -193,9 +193,14 @@ def test_single_vertex_and_edgeless_graphs():
 
 
 def test_other_methods_are_not_ported_yet():
+    """Every method of METHODS runs through the entry point; any other
+    name raises, and ``gconn_euler`` takes no method keyword."""
     g = _port(jax_graphs.chain(8))
-    for method in ("bfs", "pr_rst"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rooted_spanning_tree(g, 0, method, device="cpu")
+    for method in METHODS:
+        r = rooted_spanning_tree(g, 0, method, device="cpu")
+        assert r.method == method
+        assert r.parent.tolist() == [0, 0, 1, 2, 3, 4, 5, 6]
     with pytest.raises(ValueError, match="unknown method"):
         rooted_spanning_tree(g, 0, "dfs", device="cpu")
+    with pytest.raises(TypeError, match="max_rounds"):
+        rooted_spanning_tree(g, 0, "gconn_euler", device="cpu", max_rounds=1)
