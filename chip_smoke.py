@@ -8,8 +8,10 @@ Run from the repository root with no arguments:
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit (``nvidia-smi``);
   2. build every CUDA kernel from the repository's sources;
-  3. kernels: each of the six against its plain PyTorch version on the
-     card, bit-equal, at the main paths' sizes, timed with CUDA events;
+  3. kernels: each of the seven against its plain PyTorch version on the
+     card, bit-equal, at the main paths' sizes, timed with CUDA events
+     (segment_table: min and max, int32 at 2^24 and float32 at an odd n
+     with one NaN);
   4. the engine's sync contract on a 2^24-long chain;
   5. the paths, each driven through its entry point with the launch
      counts set to 0 just before and read just after:
@@ -27,17 +29,36 @@ Phases, in order; any failure raises and the script exits non-zero:
         count bit-equal to the same call with ``use_kernel=False``,
         launches matched to the syncs, end-to-end times, and one line per
         graph comparing the three methods (the paper's Fig. 1 and Fig. 2);
+     c. ``biconnectivity(g, 0, rst_flavor=m)`` on ``chain(256)`` and
+        ``rmat(6, edge_factor=4)`` for the three flavors: the table3/smoke_*
+        counts and the same result as the port's CPU run;
+     d. biconnectivity on the two large graphs for the three flavors (bfs
+        on ``grid2d(4096)`` through ``bcc_from_parent`` on the paths
+        phase's BFS tree): every field and count bit-equal to
+        ``use_kernel=False``, segment_table launches equal to ``seg_syncs``,
+        grid2d(4096)'s known answer (one block, no articulation point, no
+        bridge), the same articulation points, bridges and block count from
+        every flavor, end-to-end times, the articulation scatter's time,
+        and one line per graph;
+     e. tree queries on ``grid2d(4096)``'s gconn_euler tree:
+        ``build_tables``, then one batch of 2^20 seeded random pairs through
+        ``lca``, ``connected``, ``is_ancestor``, ``depth_of``,
+        ``path_agg("add")`` and ``subtree_agg("min"/"max")`` (the last two
+        through segment_table), held against the plain path and, on the
+        first 4096 pairs, against the port's CPU run; ms per batch;
   6. one JSON line listing the kernels, then the result line
      ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--profile-out`` also writes ``torch.profiler`` tables to FILE: one
-gconn_euler and one pr_rst run per graph and one bfs run on
-``rmat(20, edge_factor=16)``. Without a CUDA card, or outside the
-repository, the script exits non-zero and prints no result.
+gconn_euler and one pr_rst run per graph, one bfs run on
+``rmat(20, edge_factor=16)`` and one gconn_euler ``biconnectivity`` per
+graph. Without a CUDA card, or outside the repository, the script exits
+non-zero and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -73,6 +94,15 @@ COUNTS = {"gconn_euler": ("steps", "compress_syncs", "rank_syncs"),
 SMOKE_STEPS = {"chain(256)": {"gconn_euler": 1, "bfs": 255, "pr_rst": 1},
                "rmat(6, edge_factor=4)": {"gconn_euler": 2, "bfs": 3,
                                           "pr_rst": 2}}
+# The table3/smoke_* rows: n_bcc, articulation points, bridges, aux rounds
+# and seg syncs, the same for every flavor.
+SMOKE_BCC = {"chain(256)": (255, 254, 255, 0, 16),
+             "rmat(6, edge_factor=4)": (3, 2, 2, 2, 12)}
+BCC_FIELDS = ("articulation", "bridge", "edge_bcc", "pre", "size", "low",
+              "high")
+BCC_COUNTS = ("n_bcc", "rst_steps", "aux_rounds", "seg_syncs")
+QUERY_PAIRS = 1 << 20
+CPU_QUERY_PAIRS = 4096
 
 
 def fail(msg: str):
@@ -135,11 +165,15 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
-    from repro_torch.core import (bfs_rst, components_reference,
+    from repro_torch.core import (BCCResult, QueryTables, bcc_from_parent,
+                                  bcc_from_tour, bfs_rst, biconnectivity,
+                                  components_reference,
                                   compress_full, connected_components,
-                                  count_components, reroot,
-                                  rooted_spanning_tree, tree_depth,
-                                  validate_rst)
+                                  count_components, queries, reroot,
+                                  rooted_spanning_tree, tour_numbering,
+                                  tree_depth, validate_rst)
+    from repro_torch.core.bcc import _articulation
+    from repro_torch.core.queries import build_tables as build_query_tables
     from repro_torch.core.euler import _tour_successors
     from repro_torch.core.rst import forest_edges
     from repro_torch.data import graphs
@@ -150,11 +184,13 @@ def main() -> int:
     from repro_torch.kernels.list_rank.ops import list_rank_double_k, list_rank_k
     from repro_torch.kernels.pointer_jump.ops import (pointer_jump_double_k,
                                                       pointer_jump_k)
+    from repro_torch.kernels.segment_table.ops import segment_table
 
     counters = {"pointer_jump_double": pointer_jump_double_k,
                 "list_rank_double": list_rank_double_k,
                 "hook_edges": hook_edges, "frontier_relax": frontier_relax,
-                "pointer_jump_k": pointer_jump_k, "list_rank_k": list_rank_k}
+                "pointer_jump_k": pointer_jump_k, "list_rank_k": list_rank_k,
+                "segment_table": segment_table}
 
     def zero_counts():
         torch.cuda.synchronize()
@@ -353,6 +389,51 @@ def main() -> int:
           **{f"rmat_{k}": v for k, v in kernel_line(fr["rmat"]).items()}})
     del verts, manhattan, grid_dist, rmat_dist, got, want
 
+    # segment_table at the BCC path's shapes: int32 at grid2d(4096)'s n
+    # (2^24, 24 levels) and rmat(20, 16)'s (2^20, 20 levels), min and max;
+    # and float32 at an odd n with one NaN, which must propagate.
+    st = {}
+    err = 0
+    for label, size in (("grid", n), ("rmat", rmat.n_nodes)):
+        vals = torch.randint(-2**31, 2**31 - 1, (size,), generator=gen,
+                             device=dev, dtype=torch.int32)
+        lv = (size - 1).bit_length()
+        for op in ("min", "max"):
+            err = max(err, max_abs_err(
+                torch, segment_table(vals, levels=lv, op=op, use_kernel=True),
+                segment_table(vals, levels=lv, op=op, use_kernel=False)))
+        st[label] = dict(
+            ms=cuda_ms(torch, lambda: segment_table(
+                vals, levels=lv, op="min", use_kernel=True)),
+            plain_ms=cuda_ms(torch, lambda: segment_table(
+                vals, levels=lv, op="min", use_kernel=False)),
+            library_ms=None,
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(4 * size * (lv + 2), lv * size))))
+    n_odd = (1 << 20) + 1
+    fvals = torch.randn(n_odd, generator=gen, device=dev)
+    fvals[n_odd // 3] = float("nan")
+    lv = (n_odd - 1).bit_length()
+    for op in ("min", "max"):
+        got = segment_table(fvals, levels=lv, op=op, use_kernel=True)
+        want = segment_table(fvals, levels=lv, op=op, use_kernel=False)
+        nan = want.isnan()
+        check(torch.equal(got.isnan(), nan) and int(nan.sum()) > 0,
+              f"segment_table float32 {op}: NaN not where the plain "
+              "version has it")
+        check(torch.equal(got[~nan].view(torch.int32),
+                          want[~nan].view(torch.int32)),
+              f"segment_table float32 {op} differs from plain")
+    check(err == 0, f"segment_table differs from plain by {err}")
+    rows["segment_table"] = {**st["grid"], "max_abs_err": err}
+    emit({"kernel": "segment_table", "n": n, "levels": (n - 1).bit_length(),
+          "input": "random int32 at grid2d(4096)'s n, op min (rmat_*: "
+                   "rmat(20, 16)'s n); float32 with one NaN at n = 2^20 + 1 "
+                   "checked, min and max",
+          **kernel_line(rows["segment_table"]),
+          **{f"rmat_{k}": v for k, v in kernel_line(st["rmat"]).items()}})
+    del vals, fvals, got, want, nan
+
     # 4. The engine's sync contract: ⌈log2(d)/k⌉ + 1 checks.
     engine = {"phase": "engine", "chain": n_tab}
     for k, want_syncs in ((5, 6), (1, 25)):
@@ -393,9 +474,10 @@ def main() -> int:
     # 5b. The three methods on two small graphs: the step counts of the
     # table1/smoke_* rows, and the card's tree against the port's run on
     # the CPU (and, for gconn_euler, the union-find oracle).
-    for label, g in (("chain(256)", graphs.chain(256, device=dev)),
-                     ("rmat(6, edge_factor=4)",
-                      graphs.rmat(6, edge_factor=4, device=dev))):
+    small = (("chain(256)", graphs.chain(256, device=dev)),
+             ("rmat(6, edge_factor=4)", graphs.rmat(6, edge_factor=4,
+                                                    device=dev)))
+    for label, g in small:
         for method in METHODS:
             r = rooted_spanning_tree(g, 0, method=method)
             c = rooted_spanning_tree(g, 0, method=method, device="cpu")
@@ -441,7 +523,7 @@ def main() -> int:
             want.update(pointer_jump_double=N_JUMPS * r.compress_syncs)
         return want
 
-    summary = {}
+    summary, bfs_parent, gconn_parent = {}, {}, {}
     for label, g, build_s in cases:
         summary[label] = {}
         for method in METHODS:
@@ -493,6 +575,10 @@ def main() -> int:
                   "plain_e2e_ms": plain_ms,
                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                   "valid": verdict["all_ok"], "card": card})
+            if method == "bfs":
+                bfs_parent[label] = r.parent
+            elif method == "gconn_euler":
+                gconn_parent[label] = r.parent
             del r
 
         # PR-RST's doubling tables: the levels each ancestor_tables call
@@ -516,6 +602,185 @@ def main() -> int:
               "bfs/gconn_euler": summary[label]["bfs"][0] / gc_ms,
               "pr_rst/gconn_euler": summary[label]["pr_rst"][0] / gc_ms,
               "pr_rst_table_levels_per_round": used})
+    # 5d. Biconnectivity on the small graphs: the table3/smoke_* counts,
+    # and the card's result against the port's CPU run.
+    for label, g in small:
+        for method in METHODS:
+            b = biconnectivity(g, 0, rst_flavor=method)
+            c = biconnectivity(g, 0, rst_flavor=method, device="cpu")
+            counts = (b.n_bcc, int(b.articulation.sum()),
+                      int(b.bridge.sum()) // 2, b.aux_rounds, b.seg_syncs)
+            check(counts == SMOKE_BCC[label]
+                  and b.rst_steps == SMOKE_STEPS[label][method],
+                  f"{label} {method}: bcc counts {counts}, steps "
+                  f"{b.rst_steps}, want {SMOKE_BCC[label]}")
+            for field in BCC_FIELDS:
+                check(torch.equal(getattr(b, field).cpu(), getattr(c, field)),
+                      f"{label} {method}: bcc {field} differs from the CPU "
+                      "run")
+            check(all(getattr(b, k) == getattr(c, k) for k in BCC_COUNTS),
+                  f"{label} {method}: bcc counts differ from the CPU run")
+    emit({"phase": "bcc small graphs", "counts": SMOKE_BCC})
+
+    # 5e. Biconnectivity at full width. BFS on grid2d(4096) (15 s) is not
+    # run again: its tree from 5b goes through bcc_from_parent.
+    def timed_call(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    for label, g, _ in cases:
+        per = {}
+        for method in METHODS:
+            if method == "bfs" and label == cases[0][0]:
+                steps = summary[label]["bfs"][2]
+
+                def run(use_kernel, parent=bfs_parent[label], g=g,
+                        steps=steps):
+                    return BCCResult(rst_steps=steps, method="bfs",
+                                     **bcc_from_parent(g, parent,
+                                                       use_kernel=use_kernel))
+                entry = "bcc_from_parent(g, bfs parent)"
+            else:
+                def run(use_kernel, g=g, method=method):
+                    return biconnectivity(g, 0, rst_flavor=method,
+                                          use_kernel=use_kernel)
+                entry = "biconnectivity(g, 0, rst_flavor)"
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            r, first_ms = timed_call(lambda: run(None))
+            got = read_counts()
+            for name in launches:
+                launches[name] += got[name]
+            need = ["pointer_jump_double", "list_rank_double", "hook_edges",
+                    "segment_table"]
+            if entry.startswith("biconnectivity") and method == "bfs":
+                need.append("frontier_relax")
+            check(got["segment_table"] == r.seg_syncs
+                  and all(got[k] > 0 for k in need),
+                  f"{label} bcc {method}: launches {got}, seg_syncs "
+                  f"{r.seg_syncs}")
+            p, plain_first_ms = timed_call(lambda: run(False))
+            for field in BCC_FIELDS:
+                check(torch.equal(getattr(r, field), getattr(p, field)),
+                      f"{label} bcc {method}: {field} differs from the plain "
+                      "path")
+            check(all(getattr(r, k) == getattr(p, k) for k in BCC_COUNTS),
+                  f"{label} bcc {method}: counts differ from the plain path")
+            del p
+            if first_ms <= SLOW_RUN_MS:
+                kernel_ms, plain_ms = [], []
+                for i in range(E2E_RUNS):
+                    for use_kernel in ((None, False) if i % 2 == 0
+                                       else (False, None)):
+                        (kernel_ms if use_kernel is None else plain_ms
+                         ).append(timed_call(lambda: run(use_kernel))[1])
+            else:
+                kernel_ms, plain_ms = [first_ms], [plain_first_ms]
+            per[method] = dict(
+                entry=entry, e2e_ms_median=statistics.median(kernel_ms),
+                e2e_ms=kernel_ms,
+                plain_e2e_ms_median=statistics.median(plain_ms),
+                plain_e2e_ms=plain_ms, n_bcc=r.n_bcc,
+                articulation=int(r.articulation.sum()),
+                bridges=int(r.bridge.sum()) // 2, rst_steps=r.rst_steps,
+                aux_rounds=r.aux_rounds, seg_syncs=r.seg_syncs,
+                launches={k: v for k, v in got.items() if v},
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            if method == METHODS[0]:
+                first = r
+            else:
+                check(torch.equal(r.articulation, first.articulation)
+                      and torch.equal(r.bridge, first.bridge)
+                      and r.n_bcc == first.n_bcc,
+                      f"{label} bcc {method}: articulation, bridges or "
+                      f"n_bcc differ from {METHODS[0]}")
+            del r
+        if label == cases[0][0]:
+            check(all(v["n_bcc"] == 1 and v["articulation"] == 0
+                      and v["bridges"] == 0 for v in per.values()),
+                  f"{label}: not one block without cut vertices or bridges")
+        # The children-to-parent scatters of the articulation readout, on
+        # the gconn_euler tree: a hub's children all land on the hub.
+        tn = tour_numbering(gconn_parent[label])
+        rep = bcc_from_tour(g, gconn_parent[label], tn)["rep"]
+        nonroot = tn.parent != torch.arange(g.n_nodes, device=dev,
+                                            dtype=torch.int32)
+        hub = int(torch.bincount(tn.parent[nonroot].long()).max())
+        art_ms = cuda_ms(torch, lambda: _articulation(tn.parent, rep))
+        emit({"bcc": label, "card": card, "n": g.n_nodes,
+              "half_edges": g.n_half_edges, **per,
+              "articulation_scatter_ms": art_ms, "most_children": hub})
+        del first, tn, rep, nonroot
+    del bfs_parent
+
+    # 5f. Tree queries on grid2d(4096)'s gconn_euler tree.
+    label, g = cases[0][0], grid
+    tn = tour_numbering(gconn_parent[label])
+    zero_counts()
+    tables, build_ms = timed_call(lambda: build_query_tables(tn))
+    qgen = torch.Generator(device=dev).manual_seed(13)
+    u = torch.randint(0, n, (QUERY_PAIRS,), generator=qgen, device=dev,
+                      dtype=torch.int32)
+    v = torch.randint(0, n, (QUERY_PAIRS,), generator=qgen, device=dev,
+                      dtype=torch.int32)
+    pay_f = torch.randn(n, generator=qgen, device=dev)
+    pay_i = torch.randint(-100, 100, (n,), generator=qgen, device=dev,
+                          dtype=torch.int32)
+    batch = {
+        "lca": lambda t, a, b, pf, pi: queries.lca(t, a, b),
+        "connected": lambda t, a, b, pf, pi: queries.connected(t, a, b),
+        "is_ancestor": lambda t, a, b, pf, pi: queries.is_ancestor(t, a, b),
+        "depth_of": lambda t, a, b, pf, pi: queries.depth_of(t, a),
+        "path_agg_add": lambda t, a, b, pf, pi: queries.path_agg(
+            t, a, b, pi, "add"),
+        "subtree_agg_min": lambda t, a, b, pf, pi: queries.subtree_agg(
+            t, a, pf, "min"),
+        "subtree_agg_max": lambda t, a, b, pf, pi: queries.subtree_agg(
+            t, a, pf, "max"),
+    }
+    answers = {k: f(tables, u, v, pay_f, pay_i) for k, f in batch.items()}
+    got = read_counts()
+    for name in launches:
+        launches[name] += got[name]
+    check(got["segment_table"] == 2 * (n - 1).bit_length(),
+          f"queries: launches {got}")
+    for op in ("min", "max"):
+        check(torch.equal(answers[f"subtree_agg_{op}"],
+                          queries.subtree_agg(tables, u, pay_f, op,
+                                              use_kernel=False)),
+              f"queries: subtree_agg {op} differs from the plain path")
+    w = answers["lca"]
+    check(bool(answers["connected"].all() & (w >= 0).all()
+               & queries.is_ancestor(tables, w, u).all()
+               & queries.is_ancestor(tables, w, v).all()),
+          "queries: an lca is not a common ancestor")
+    cpu_tables = QueryTables(*(getattr(tables, f.name).cpu()
+                               for f in dataclasses.fields(QueryTables)
+                               if f.name != "build_syncs"),
+                             build_syncs=tables.build_syncs)
+    k = CPU_QUERY_PAIRS
+    for name, f in batch.items():
+        check(torch.equal(answers[name][:k].cpu(),
+                          f(cpu_tables, u[:k].cpu(), v[:k].cpu(),
+                            pay_f.cpu(), pay_i.cpu())),
+              f"queries: {name} differs from the CPU run")
+    del cpu_tables
+    q_ms = {name: cuda_ms(torch, lambda f=f: f(tables, u, v, pay_f, pay_i))
+            for name, f in batch.items()}
+    q_plain_ms = {f"subtree_agg_{op}": cuda_ms(
+        torch, lambda op=op: queries.subtree_agg(tables, u, pay_f, op,
+                                                 use_kernel=False))
+        for op in ("min", "max")}
+    emit({"queries": label, "card": card, "pairs": QUERY_PAIRS,
+          "build_syncs": tables.build_syncs, "levels": tables.levels,
+          "build_ms": build_ms, "ms_per_batch": q_ms,
+          "plain_ms_per_batch": q_plain_ms,
+          "launches": {k: v for k, v in got.items() if v}})
+    del tables, tn, u, v, pay_f, pay_i, answers, w
+
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the paths never launched: {launches}")
 
@@ -525,10 +790,15 @@ def main() -> int:
         runs = [(label, g, m) for label, g, _ in cases
                 for m in ("gconn_euler", "pr_rst")]
         runs.append((cases[1][0], rmat, "bfs"))
+        runs += [(label, g, "biconnectivity gconn_euler")
+                 for label, g, _ in cases]
         for label, g, method in runs:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                _, wall_ms = timed(g, method, None)
+                if method.startswith("biconnectivity"):
+                    _, wall_ms = timed_call(lambda g=g: biconnectivity(g, 0))
+                else:
+                    _, wall_ms = timed(g, method, None)
             tables.append(f"{label} {method}, profiled run: {wall_ms:.3f} "
                           "ms wall\n" + prof.key_averages().table(
                               sort_by="cuda_time_total", row_limit=40))
@@ -551,6 +821,8 @@ def main() -> int:
                            f"{tdir}/pointer_jump/pointer_jump.py:33"),
         "list_rank_k": (f"{kdir}/list_rank/csrc/list_rank.cu",
                         f"{tdir}/list_rank/list_rank.py:27"),
+        "segment_table": (f"{kdir}/segment_table/csrc/segment_table.cu",
+                          f"{tdir}/segment_table/segment_table.py:37"),
     }
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

@@ -10,7 +10,11 @@ GConn + Euler path needs:
   * ``roots_of(p)``       — alias of ``compress_full``;
   * ``compress_scoped``   — compress the active rows, freeze the rest;
   * ``reduce_to_root`` / ``rank_to_root`` — doubling with a payload combine;
-  * ``wyllie_rank(s, v)`` — list ranking with the same amortization.
+  * ``wyllie_rank(s, v)`` — list ranking with the same amortization;
+  * ``segment_reduce``    — min/max over index ranges from a doubling
+                            sparse table (⌈log2 n⌉ levels, no sync);
+  * ``segment_reduce_scoped`` — the same for the active queries only,
+                            building levels up to the longest of them.
 
 A "sync" is one host read of a convergence flag (``.item()`` through
 ``bool``); on CUDA it is the device round-trip the paper counts. ``syncs``
@@ -18,7 +22,8 @@ counts loop bodies exactly as the reference does.
 
 ``use_kernel`` (``None`` | ``True`` | ``False``) follows
 ``repro_torch.kernels.kernel_wanted``: ``jump_k`` runs the pointer_jump
-kernel and ``wyllie_rank`` the list_rank kernel on CUDA tensors.
+kernel, ``wyllie_rank`` the list_rank kernel and ``segment_reduce`` the
+segment_table kernel on CUDA tensors.
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ import torch
 
 from repro_torch.kernels.list_rank.ops import list_rank_double_k
 from repro_torch.kernels.pointer_jump.ops import pointer_jump_double_k
+from repro_torch.kernels.segment_table.ops import segment_table
+from repro_torch.kernels.segment_table.ref import segment_table_ref
 
 NO_SUCC = -1
 
@@ -145,3 +152,97 @@ def wyllie_rank(succ: torch.Tensor, valid: torch.Tensor, *,
                                   use_kernel=use_kernel)
         syncs += 1
     return (d, syncs) if return_syncs else d
+
+
+def _table_levels(n: int) -> int:
+    """Doubling levels of a sparse table over n values: ⌈log2 n⌉, at least 1."""
+    return max(1, (n - 1).bit_length())
+
+
+def _check_idempotent(op: str) -> None:
+    if op not in ("min", "max"):
+        raise ValueError(f"segment_reduce needs an idempotent op, got {op!r}")
+
+
+def segment_reduce(values: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                   op: str = "min", *,
+                   use_kernel: bool | None = None) -> torch.Tensor:
+    """Idempotent range reduction: out[q] = op over values[lo[q] .. hi[q]].
+
+    Level k of the doubling (sparse) table holds op over
+    ``values[i : i + 2^k]``; the ⌈log2 n⌉ levels are built with no
+    convergence sync (the segment_table kernel on the card), and each query
+    folds the two power-of-two windows covering [lo, hi], which overlap,
+    hence the idempotency requirement. With ``values`` in preorder,
+    subtree(v) is the query ``[pre[v], last[v]]`` (DESIGN.md §4).
+
+    Args:
+      values: int32 or float32 [n].
+      lo, hi: int32[q] inclusive bounds, ``0 <= lo <= hi < n``.
+      op: "min" or "max"; any other op raises.
+      use_kernel: see the module docstring.
+
+    Returns:
+      [q] reductions, of the dtype of ``values``.
+    """
+    _check_idempotent(op)
+    levels = _table_levels(values.numel())
+    table = segment_table(values, levels=levels, op=op,
+                          use_kernel=use_kernel)
+    return _fold_queries(table, lo, hi, levels, _COMBINE[op])
+
+
+def _fold_queries(table: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                  levels: int, combine) -> torch.Tensor:
+    """Fold the two power-of-two windows covering each [lo, hi] query.
+
+    ``k = floor(log2(hi - lo + 1))``, integer-exact, capped at ``levels``
+    and 0 for empty queries. Rows past the end of ``table`` read row 0 (the
+    values), as the reference's unbuilt rows do. Indices are clamped into
+    [0, n), as the reference's gathers clamp.
+    """
+    n = table.shape[1]
+    length = hi - lo + 1
+    pow2 = torch.bitwise_left_shift(
+        torch.ones(levels + 1, dtype=length.dtype, device=length.device),
+        torch.arange(levels + 1, dtype=length.dtype, device=length.device))
+    k = torch.clamp(torch.searchsorted(pow2, length, right=True,
+                                       out_int32=True) - 1, min=0)
+    span = torch.bitwise_left_shift(torch.ones_like(k), k)
+    row = torch.where(k < table.shape[0], k, 0).long() * n
+    flat = table.reshape(-1)
+    a = flat[row + torch.clamp(lo, 0, n - 1).long()]
+    b = flat[row + torch.clamp(torch.maximum(hi - span + 1, lo), 0,
+                               n - 1).long()]
+    return combine(a, b)
+
+
+def segment_reduce_scoped(values: torch.Tensor, lo: torch.Tensor,
+                          hi: torch.Tensor, active: torch.Tensor,
+                          op: str = "min", *, return_syncs: bool = False):
+    """``segment_reduce`` for the ``active`` queries only.
+
+    One host read of the longest active query, then only the levels that
+    cover it: ``built = min(⌈log2 max_len⌉, levels)`` doubling steps
+    instead of ⌈log2 n⌉, which is what makes a dirty small component cheap
+    in a large graph (DESIGN.md §10). No kernel path, as in the reference:
+    the level count depends on the data.
+
+    Args:
+      values, lo, hi, op: as ``segment_reduce``.
+      active: bool[q]; inactive queries return a defined but arbitrary
+        value (a fold over the levels built).
+      return_syncs: also return ``built`` (int).
+
+    Returns:
+      [q] reductions (exact where ``active``), or ``(out, built)``.
+    """
+    _check_idempotent(op)
+    levels = _table_levels(values.numel())
+    max_len = 1
+    if lo.numel():
+        max_len = int(torch.max(torch.where(active, hi - lo + 1, 1)))
+    built = min((max_len - 1).bit_length(), levels) if max_len > 1 else 0
+    table = segment_table_ref(values, levels=built, op=op)
+    out = _fold_queries(table, lo, hi, levels, _COMBINE[op])
+    return (out, built) if return_syncs else out

@@ -26,9 +26,11 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core.compress import NO_SUCC, roots_of, wyllie_rank
+from repro_torch.core.graph import resolve_device
 
 INT32_MIN = torch.iinfo(torch.int32).min
 
@@ -158,6 +160,20 @@ class TourNumbering:
     comp: torch.Tensor
     parent: torch.Tensor
 
+    @staticmethod
+    def from_reference_arrays(pre, size, last, comp, parent,
+                              device=None) -> "TourNumbering":
+        """Rebuild a numbering from another implementation's arrays (for
+        example ``np.asarray`` of each field of ``repro``'s numbering)."""
+        dev = resolve_device(device)
+        return TourNumbering(*(_int32(a, dev)
+                               for a in (pre, size, last, comp, parent)))
+
+
+def _int32(a, device: torch.device) -> torch.Tensor:
+    """An int32 tensor on ``device`` from an array-like."""
+    return torch.from_numpy(np.asarray(a).astype(np.int32)).to(device)
+
 
 def tour_numbering(parent: torch.Tensor, *, use_kernel: bool | None = None,
                    return_syncs: bool = False):
@@ -189,9 +205,6 @@ def tour_numbering(parent: torch.Tensor, *, use_kernel: bool | None = None,
                                 return_syncs=True)
     d_up, d_down = d[:n], d[n:]
 
-    comp_size = torch.bincount(comp, minlength=n).to(torch.int32)
-    size = torch.where(nonroot, (d_down - d_up + 1) // 2, comp_size)
-
     # Dense preorder: sort by (component, discovery position); earlier
     # discovery = larger distance-to-end, and roots sort first in their
     # block. Packed as comp·2^32 + (key − INT32_MIN), key ∈ [INT32_MIN, 0].
@@ -200,6 +213,15 @@ def tour_numbering(parent: torch.Tensor, *, use_kernel: bool | None = None,
     order = torch.sort(packed, stable=True).indices
     pre = torch.empty(n, dtype=torch.int32, device=dev)
     pre[order] = verts
+
+    # A root's size is its component's vertex count, read off ``comp`` in
+    # preorder, which is sorted. (A histogram of ``comp`` gives the same,
+    # but on a connected graph all its n atomics land on one bin.)
+    comp_sorted = comp[order]
+    comp_size = (torch.searchsorted(comp_sorted, verts, right=True,
+                                    out_int32=True)
+                 - torch.searchsorted(comp_sorted, verts, out_int32=True))
+    size = torch.where(nonroot, (d_down - d_up + 1) // 2, comp_size)
 
     tn = TourNumbering(pre=pre, size=size, last=pre + size - 1, comp=comp,
                        parent=par)

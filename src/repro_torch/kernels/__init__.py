@@ -13,6 +13,8 @@ Kernels:
                   the chain variant, (k + 1)-hop prefix sums in one launch.
   hook_edges      per half-edge hook proposal (tgt, val) under min/max hooking.
   frontier_relax  the BFS frontier-expansion mask of one level.
+  segment_table   the [levels + 1, n] min/max doubling sparse table (one
+                  launch per level).
 
 ``build.py`` compiles the sources with ``nvcc`` on first use and loads them
 through ``ctypes``.

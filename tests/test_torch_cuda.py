@@ -1,17 +1,20 @@
 """The port on the card: each CUDA kernel against its plain version, and
-the three RST flavors on the card against the same call on the CPU.
+the three RST flavors, biconnectivity and the tree queries on the card
+against the same call on the CPU and with ``use_kernel=False``.
 
 Every test here needs a CUDA card (the kernels have no CPU mode) and skips
 without one. The file imports no JAX, so it also runs on a machine that has
 only PyTorch: ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
-Tolerance: bit-equal (every output is int32 or bool).
+Tolerance: bit-equal (every output is int32 or bool, or a float32 min/max
+table, where a NaN must sit where the plain version has one).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (compress_full, rooted_spanning_tree,
-                              tour_numbering, validate_rst, wyllie_rank)
+from repro_torch.core import (biconnectivity, build_tables, compress_full,
+                              queries, rooted_spanning_tree, tour_numbering,
+                              validate_rst, wyllie_rank)
 from repro_torch.data import graphs
 from repro_torch.kernels.frontier_relax.ops import frontier_relax
 from repro_torch.kernels.frontier_relax.ref import INF32, frontier_relax_ref
@@ -24,6 +27,8 @@ from repro_torch.kernels.pointer_jump.ops import (pointer_jump_double_k,
                                                   pointer_jump_k)
 from repro_torch.kernels.pointer_jump.ref import (pointer_jump_double_ref,
                                                   pointer_jump_ref)
+from repro_torch.kernels.segment_table.ops import segment_table
+from repro_torch.kernels.segment_table.ref import segment_table_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -210,3 +215,72 @@ def test_pr_rst_on_card_matches_cpu(cuda, name, kwargs, alternate_hooking):
     assert torch.equal(r.parent.cpu(), c.parent)
     assert (r.steps, r.compress_syncs) == (c.steps, c.compress_syncs)
     assert validate_rst(g, r.parent, 3)["all_ok"]
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 64, 1001, 1 << 20, (1 << 20) + 3])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_segment_table_kernel(cuda, n, dtype, op):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    if dtype == torch.int32:
+        values = torch.randint(-1000, 1000, (n,), generator=gen,
+                               device=cuda, dtype=dtype)
+    else:
+        values = torch.randn(n, generator=gen, device=cuda)
+        values[n // 2] = float("nan")
+    levels = max(1, (n - 1).bit_length())
+    before = segment_table.launches
+    got = segment_table(values, levels=levels, op=op, use_kernel=True)
+    torch.cuda.synchronize()
+    assert segment_table.launches - before == levels
+    want = segment_table_ref(values, levels=levels, op=op)
+    nan = want.isnan()
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(got[~nan], want[~nan])
+
+
+def test_segment_table_kernel_rejects_int64(cuda):
+    with pytest.raises(ValueError, match="int32 or float32"):
+        segment_table(torch.arange(8, device=cuda), levels=3, op="min",
+                      use_kernel=True)
+
+
+BCC_FIELDS = ("articulation", "bridge", "edge_bcc", "pre", "size", "low",
+              "high")
+BCC_COUNTS = ("n_bcc", "rst_steps", "aux_rounds", "seg_syncs")
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("chain", dict(n=256)), ("grid2d", dict(side=16)),
+    ("rmat", dict(scale=8, edge_factor=4))])
+@pytest.mark.parametrize("flavor", ["gconn_euler", "bfs", "pr_rst"])
+def test_biconnectivity_on_card_matches_plain_and_cpu(cuda, name, kwargs,
+                                                      flavor):
+    g = getattr(graphs, name)(**kwargs, device=cuda)
+    before = segment_table.launches
+    r = biconnectivity(g, 0, rst_flavor=flavor)
+    torch.cuda.synchronize()
+    assert segment_table.launches - before == r.seg_syncs
+    p = biconnectivity(g, 0, rst_flavor=flavor, use_kernel=False)
+    c = biconnectivity(g.to("cpu"), 0, rst_flavor=flavor, device="cpu")
+    for f in BCC_FIELDS:
+        assert torch.equal(getattr(r, f), getattr(p, f)), f
+        assert torch.equal(getattr(r, f).cpu(), getattr(c, f)), f
+    for k in BCC_COUNTS:
+        assert getattr(r, k) == getattr(p, k) == getattr(c, k), k
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_subtree_agg_kernel_matches_plain(cuda, op):
+    g = graphs.grid2d(32, device=cuda)
+    tab = build_tables(tour_numbering(rooted_spanning_tree(g, 5).parent))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    payload = torch.randn(g.n_nodes, generator=gen, device=cuda)
+    v = torch.randint(-1, g.n_nodes + 1, (4096,), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    before = segment_table.launches
+    got = queries.subtree_agg(tab, v, payload, op)
+    torch.cuda.synchronize()
+    assert segment_table.launches - before == (g.n_nodes - 1).bit_length()
+    assert torch.equal(got, queries.subtree_agg(tab, v, payload, op,
+                                                use_kernel=False))

@@ -101,7 +101,8 @@ def test_kernel_build_needs_nvcc_and_stays_under_build(monkeypatch,
     ("hook_edges", "hook_edges"),
     ("pointer_jump", "pointer_jump_chain"),
     ("list_rank", "list_rank_chain"),
-    ("frontier_relax", "frontier_relax")])
+    ("frontier_relax", "frontier_relax"),
+    ("segment_table", "segment_table")])
 def test_ctypes_signatures_match_the_c_entries(name, symbol):
     """Each C entry's ``argtypes`` (``ops._ARGTYPES[symbol]``) has one
     entry per parameter, pointers and the stream as ``c_void_p`` (a
