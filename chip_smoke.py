@@ -8,10 +8,12 @@ Run from the repository root with no arguments:
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit (``nvidia-smi``);
   2. build every CUDA kernel from the repository's sources;
-  3. kernels: each of the seven against its plain PyTorch version on the
-     card, bit-equal, at the main paths' sizes, timed with CUDA events
-     (segment_table: min and max, int32 at 2^24 and float32 at an odd n
-     with one NaN);
+  3. kernels: each of the eight against its plain PyTorch version on the
+     card, at the main paths' sizes, timed with CUDA events: the seven
+     graph kernels bit-equal (segment_table: min and max, int32 at 2^24 and
+     float32 at an odd n with one NaN); embed_bag at DIEN's serve_bulk
+     user profile in float32 and bf16 and at the item table's size, within
+     1e-6 (float32) and 2e-2 (bf16), beside ``F.embedding_bag``;
   4. the engine's sync contract on a 2^24-long chain;
   5. the paths, each driven through its entry point with the launch
      counts set to 0 just before and read just after:
@@ -46,14 +48,24 @@ Phases, in order; any failure raises and the script exits non-zero:
         ``path_agg("add")`` and ``subtree_agg("min"/"max")`` (the last two
         through segment_table), held against the plain path and, on the
         first 4096 pairs, against the port's CPU run; ms per batch;
+     g. DIEN serving at the full config (embed 18, T 100, GRU 108, MLP
+        200-80, 10^6 items), the graphs freed first, through
+        ``build_cell`` for ``serve_p99`` (512 rows), ``serve_bulk``
+        (262,144 rows) and ``retrieval_cand`` (one user against 1,000,448
+        candidates): one embed_bag launch a call, the scores within 1e-6 of
+        ``use_kernel=False``, finite (serve: in [0, 1]; retrieval returns
+        logits, 1,007,616 of them with the padding), the first 64 within
+        1e-4 of the port's CPU run, the median of 5 interleaved runs, rows
+        or candidates a second, peak memory, one line per shape;
   6. one JSON line listing the kernels, then the result line
      ``{"ok": true, "device": {...}}`` as the last line.
 
 ``--profile-out`` also writes ``torch.profiler`` tables to FILE: one
 gconn_euler and one pr_rst run per graph, one bfs run on
-``rmat(20, edge_factor=16)`` and one gconn_euler ``biconnectivity`` per
-graph. Without a CUDA card, or outside the repository, the script exits
-non-zero and prints no result.
+``rmat(20, edge_factor=16)``, one gconn_euler ``biconnectivity`` per
+graph and one DIEN forward at ``serve_p99`` and at ``serve_bulk``.
+Without a CUDA card, or outside the repository, the script exits non-zero
+and prints no result.
 """
 from __future__ import annotations
 
@@ -103,6 +115,16 @@ BCC_FIELDS = ("articulation", "bridge", "edge_bcc", "pre", "size", "low",
 BCC_COUNTS = ("n_bcc", "rst_steps", "aux_rounds", "seg_syncs")
 QUERY_PAIRS = 1 << 20
 CPU_QUERY_PAIRS = 4096
+# DIEN's serving shapes (repro_torch.configs.RECSYS_SHAPES, full config).
+DIEN_SHAPES = ("serve_p99", "serve_bulk", "retrieval_cand")
+DIEN_RETRIEVAL_SCORES = 1_007_616   # 1,000,448 candidates in blocks of 8192
+DIEN_CPU_ROWS = 64
+# Float tolerances (abs and rel): the reference's own for embed_bag
+# (tests/test_kernels.py); kernel and plain DIEN differ only in embed_bag's
+# sum order; the card against the CPU differs in every matmul's.
+EMBED_TOL = {"float32": 1e-6, "bfloat16": 2e-2}
+DIEN_KERNEL_TOL = 1e-6
+DIEN_CPU_TOL = 1e-4
 
 
 def fail(msg: str):
@@ -154,6 +176,19 @@ def max_abs_err(torch, got, want) -> int:
     return int((got.long() - want.long()).abs().max()) if got.numel() else 0
 
 
+def allclose_err(torch, got, want, tol: float, what: str) -> float:
+    """Max abs difference of two float tensors, held to
+    |got - want| <= tol + tol * |want| everywhere (fails otherwise)."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: shape/dtype {tuple(got.shape)} {got.dtype} vs "
+          f"{tuple(want.shape)} {want.dtype}")
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    check(bool((diff <= tol + tol * want.abs()).all()),
+          f"{what}: differs by up to {float(diff.max())} (tolerance {tol})")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-out", type=pathlib.Path, default=None)
@@ -185,12 +220,17 @@ def main() -> int:
     from repro_torch.kernels.pointer_jump.ops import (pointer_jump_double_k,
                                                       pointer_jump_k)
     from repro_torch.kernels.segment_table.ops import segment_table
+    from repro_torch.kernels.embed_bag.ops import embed_bag
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import synthetic_batches
+    from repro_torch.models.dien import params_from_reference
+    from repro_torch.train.step import build_cell
 
     counters = {"pointer_jump_double": pointer_jump_double_k,
                 "list_rank_double": list_rank_double_k,
                 "hook_edges": hook_edges, "frontier_relax": frontier_relax,
                 "pointer_jump_k": pointer_jump_k, "list_rank_k": list_rank_k,
-                "segment_table": segment_table}
+                "segment_table": segment_table, "embed_bag": embed_bag}
 
     def zero_counts():
         torch.cuda.synchronize()
@@ -433,6 +473,70 @@ def main() -> int:
           **kernel_line(rows["segment_table"]),
           **{f"rmat_{k}": v for k, v in kernel_line(st["rmat"]).items()}})
     del vals, fvals, got, want, nan
+
+    # embed_bag at DIEN's shapes: the user profile of serve_bulk (262,144
+    # bags of 8 from the 100,000 x 18 user table, 7.2 MB, which L2 holds)
+    # in float32 and bf16, and the same bags from a table of the item
+    # table's size (1,000,000 x 18, 72 MB, which it does not). DIEN calls
+    # it with mean and no weights (the timed call); the weighted sum and
+    # mean are checked too, and F.embedding_bag is timed as the yardstick.
+    spec = get_arch("dien")
+    cfg = spec.make_config()
+    bags, hot, dim = (spec.shapes["serve_bulk"]["batch"], cfg.user_hot,
+                      cfg.embed_dim)
+    eb, eb_err = {}, dict.fromkeys(EMBED_TOL, 0.0)
+    for label, rows_v in (("user", cfg.n_user_feats), ("item", cfg.n_items)):
+        idx = torch.randint(0, rows_v, (bags, hot), generator=gen,
+                            device=dev, dtype=torch.int32)
+        wts = torch.rand((bags, hot), generator=gen, device=dev)
+        table32 = torch.randn((rows_v, dim), generator=gen,
+                              device=dev) * 0.05
+        for dtype in (torch.float32, torch.bfloat16):
+            if label == "item" and dtype == torch.bfloat16:
+                continue
+            table = table32.to(dtype)
+            dname = str(dtype).removeprefix("torch.")
+            for mean in (True, False):
+                for w in (None, wts):
+                    got = embed_bag(idx, table, w, mean=mean, use_kernel=True)
+                    want = embed_bag(idx, table, w, mean=mean,
+                                     use_kernel=False)
+                    eb_err[dname] = max(eb_err[dname], allclose_err(
+                        torch, got, want, EMBED_TOL[dname],
+                        f"embed_bag {label} {dname} mean={mean} "
+                        f"weighted={w is not None}"))
+            idx_long = idx.long()
+            lib = torch.nn.functional.embedding_bag(idx_long, table,
+                                                    mode="mean")
+            allclose_err(torch, embed_bag(idx, table, mean=True), lib,
+                         EMBED_TOL[dname], f"embed_bag {label} {dname} "
+                         "against F.embedding_bag")
+            esize = table.element_size()
+            gathered = bags * hot * dim * esize
+            b_ms, b_by = bound(
+                idx.numel() * 4 + bags * dim * esize
+                + min(table.numel() * esize, gathered), 2 * bags * hot * dim)
+            eb[f"{label}_{dname}"] = dict(
+                ms=cuda_ms(torch, lambda: embed_bag(idx, table, mean=True,
+                                                    use_kernel=True)),
+                plain_ms=cuda_ms(torch, lambda: embed_bag(
+                    idx, table, mean=True, use_kernel=False)),
+                library_ms=cuda_ms(
+                    torch, lambda: torch.nn.functional.embedding_bag(
+                        idx_long, table, mode="mean")),
+                bound_ms=b_ms, bound_by=b_by)
+    rows["embed_bag"] = {**eb["user_float32"],
+                         "max_abs_err": eb_err["float32"]}
+    emit({"kernel": "embed_bag", "bags": bags, "hot": hot, "dim": dim,
+          "user_rows": cfg.n_user_feats, "item_rows": cfg.n_items,
+          "input": "random idx, mean, no weights (serve_bulk's user profile; "
+                   "bf16_*: the same in bf16; item_*: the item table's "
+                   "size); weighted sum and mean checked",
+          **kernel_line(rows["embed_bag"]),
+          "bf16_max_abs_err": eb_err["bfloat16"],
+          **{f"{case}_{k}": v for case in ("user_bfloat16", "item_float32")
+             for k, v in kernel_line(eb[case]).items()}})
+    del idx, idx_long, wts, table32, table, got, want, lib
 
     # 4. The engine's sync contract: ⌈log2(d)/k⌉ + 1 checks.
     engine = {"phase": "engine", "chain": n_tab}
@@ -781,29 +885,110 @@ def main() -> int:
           "launches": {k: v for k, v in got.items() if v}})
     del tables, tn, u, v, pay_f, pay_i, answers, w
 
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the paths never launched: {launches}")
-
     if args.profile_out is not None:
         from torch.profiler import ProfilerActivity, profile
-        tables = [card]
+
+        def profiled(what, fn):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _, wall_ms = timed_call(fn)
+            return (f"{what}, profiled run: {wall_ms:.3f} ms wall\n"
+                    + prof.key_averages().table(sort_by="cuda_time_total",
+                                                row_limit=40))
+        profiles = [card]
         runs = [(label, g, m) for label, g, _ in cases
                 for m in ("gconn_euler", "pr_rst")]
         runs.append((cases[1][0], rmat, "bfs"))
-        runs += [(label, g, "biconnectivity gconn_euler")
-                 for label, g, _ in cases]
         for label, g, method in runs:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                if method.startswith("biconnectivity"):
-                    _, wall_ms = timed_call(lambda g=g: biconnectivity(g, 0))
-                else:
-                    _, wall_ms = timed(g, method, None)
-            tables.append(f"{label} {method}, profiled run: {wall_ms:.3f} "
-                          "ms wall\n" + prof.key_averages().table(
-                              sort_by="cuda_time_total", row_limit=40))
+            profiles.append(profiled(f"{label} {method}", lambda g=g, m=method:
+                                     rooted_spanning_tree(g, 0, method=m)))
+        for label, g, _ in cases:
+            profiles.append(profiled(f"{label} biconnectivity gconn_euler",
+                                     lambda g=g: biconnectivity(g, 0)))
+
+    # 5g. DIEN serving at the full config, through build_cell, after the
+    # graphs are freed: serve_bulk holds hs [262144, 100, 108] (11.3 GB)
+    # and behavior (3.8 GB). Float32 matmuls stay in full float32.
+    del grid, rmat, cases, small, g, gconn_parent, summary
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    emit({"phase": "dien", "matmul_allow_tf32":
+          torch.backends.cuda.matmul.allow_tf32,
+          "float32_matmul_precision": torch.get_float32_matmul_precision()})
+    for name in DIEN_SHAPES:
+        shape = spec.shapes[name]
+        step, params, inputs = build_cell(spec, name)
+        plain, plain_params, _ = build_cell(spec, name, use_kernel=False)
+        del plain_params
+        _, batch = next(synthetic_batches(spec, shape, cfg, seed=0))
+        batch = {k: batch[k] for k in inputs}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        scores, first_ms = timed_call(lambda: step(params, batch))
+        got = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        for k in launches:
+            launches[k] += got[k]
+        check(got == {**dict.fromkeys(counters, 0), "embed_bag": 1},
+              f"dien {name}: launches {got}, want embed_bag once")
+        err = allclose_err(torch, scores, plain(params, batch),
+                           DIEN_KERNEL_TOL, f"dien {name} against plain")
+        check(bool(torch.isfinite(scores).all()), f"dien {name}: non-finite")
+        if shape["kind"] == "serve":
+            n_rows = shape["batch"]
+            check(scores.shape == (n_rows,) and float(scores.min()) >= 0
+                  and float(scores.max()) <= 1,
+                  f"dien {name}: scores not in [0, 1] or shape "
+                  f"{tuple(scores.shape)}")
+            cpu_batch = {k: v[:DIEN_CPU_ROWS].cpu() for k, v in batch.items()}
+        else:
+            n_rows = shape["n_candidates"]
+            check(scores.shape == (DIEN_RETRIEVAL_SCORES,),
+                  f"dien {name}: {tuple(scores.shape)} scores, want "
+                  f"{DIEN_RETRIEVAL_SCORES}")
+            cpu_batch = {k: (v[:DIEN_CPU_ROWS] if k.startswith("cand")
+                             else v).cpu() for k, v in batch.items()}
+        cpu_step, _, _ = build_cell(spec, name, device="cpu")
+        cpu_scores = cpu_step(params_from_reference(params.to_reference(),
+                                                    device="cpu"), cpu_batch)
+        cpu_err = allclose_err(torch, scores[:DIEN_CPU_ROWS].cpu(),
+                               cpu_scores[:DIEN_CPU_ROWS], DIEN_CPU_TOL,
+                               f"dien {name} against the CPU run")
+        kernel_ms, plain_ms = [], []
+        for i in range(E2E_RUNS):
+            for use_kernel in ((True, False) if i % 2 == 0
+                               else (False, True)):
+                fn = step if use_kernel else plain
+                (kernel_ms if use_kernel else plain_ms).append(
+                    timed_call(lambda: fn(params, batch))[1])
+        ms = statistics.median(kernel_ms)
+        rate = "rows_per_s" if shape["kind"] == "serve" else "candidates_per_s"
+        emit({"dien": name, "card": card, "batch": shape["batch"],
+              **({"n_candidates": n_rows} if shape["kind"] == "retrieval"
+                 else {}),
+              "scores": scores.numel(),
+              "launches": {k: v for k, v in got.items() if v},
+              "max_abs_err_vs_plain": err,
+              f"max_abs_err_vs_cpu_first_{DIEN_CPU_ROWS}": cpu_err,
+              "score_min": float(scores.min()),
+              "score_max": float(scores.max()),
+              "first_call_ms": first_ms, "ms_median": ms, "ms": kernel_ms,
+              "plain_ms_median": statistics.median(plain_ms),
+              "plain_ms": plain_ms, rate: n_rows / (ms / 1e3),
+              "peak_mem_gb": peak_gb})
+        if shape["kind"] == "serve" and args.profile_out is not None:
+            profiles.append(profiled(f"dien {name} forward",
+                                     lambda: step(params, batch)))
+        del step, plain, params, batch, scores, cpu_step, cpu_scores
+        torch.cuda.empty_cache()
+
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel of the paths never launched: {launches}")
+    if args.profile_out is not None:
         args.profile_out.parent.mkdir(parents=True, exist_ok=True)
-        args.profile_out.write_text("\n\n".join(tables) + "\n")
+        args.profile_out.write_text("\n\n".join(profiles) + "\n")
 
     # 6. Results.
     kdir = "src/repro_torch/kernels"
@@ -823,6 +1008,8 @@ def main() -> int:
                         f"{tdir}/list_rank/list_rank.py:27"),
         "segment_table": (f"{kdir}/segment_table/csrc/segment_table.cu",
                           f"{tdir}/segment_table/segment_table.py:37"),
+        "embed_bag": (f"{kdir}/embed_bag/csrc/embed_bag.cu",
+                      f"{tdir}/embed_bag/embed_bag.py:30"),
     }
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels for the RST pipeline's hot spots.
+"""Hand-written Hopper kernels: the RST pipeline's hot spots and DIEN's
+embedding bag.
 
 Each kernel lives in its own subpackage, the same layout as
 ``repro.kernels``:
@@ -15,6 +16,8 @@ Kernels:
   frontier_relax  the BFS frontier-expansion mask of one level.
   segment_table   the [levels + 1, n] min/max doubling sparse table (one
                   launch per level).
+  embed_bag       fixed-hotness gather with a weighted sum or mean (DIEN's
+                  multi-hot user profile).
 
 ``build.py`` compiles the sources with ``nvcc`` on first use and loads them
 through ``ctypes``.

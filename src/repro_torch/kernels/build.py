@@ -23,7 +23,7 @@ import subprocess
 _PKG = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
 KERNELS = ("pointer_jump", "list_rank", "hook_edges", "frontier_relax",
-           "segment_table")
+           "segment_table", "embed_bag")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

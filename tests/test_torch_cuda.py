@@ -1,12 +1,15 @@
 """The port on the card: each CUDA kernel against its plain version, and
-the three RST flavors, biconnectivity and the tree queries on the card
-against the same call on the CPU and with ``use_kernel=False``.
+the three RST flavors, biconnectivity, the tree queries and DIEN serving
+on the card against the same call on the CPU and with ``use_kernel=False``.
 
 Every test here needs a CUDA card (the kernels have no CPU mode) and skips
 without one. The file imports no JAX, so it also runs on a machine that has
 only PyTorch: ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 Tolerance: bit-equal (every output is int32 or bool, or a float32 min/max
-table, where a NaN must sit where the plain version has one).
+table, where a NaN must sit where the plain version has one), except
+embed_bag and DIEN, whose float sums run in another order in the kernel:
+1e-6 (float32) and 2e-2 (bf16), abs and rel, the reference's own
+(``tests/test_kernels.py``).
 """
 import numpy as np
 import pytest
@@ -15,7 +18,10 @@ import torch
 from repro_torch.core import (biconnectivity, build_tables, compress_full,
                               queries, rooted_spanning_tree, tour_numbering,
                               validate_rst, wyllie_rank)
+from repro_torch.configs import get_arch
 from repro_torch.data import graphs
+from repro_torch.kernels.embed_bag.ops import embed_bag
+from repro_torch.kernels.embed_bag.ref import embed_bag_ref
 from repro_torch.kernels.frontier_relax.ops import frontier_relax
 from repro_torch.kernels.frontier_relax.ref import INF32, frontier_relax_ref
 from repro_torch.kernels.hook_edges.ops import hook_edges
@@ -29,6 +35,8 @@ from repro_torch.kernels.pointer_jump.ref import (pointer_jump_double_ref,
                                                   pointer_jump_ref)
 from repro_torch.kernels.segment_table.ops import segment_table
 from repro_torch.kernels.segment_table.ref import segment_table_ref
+from repro_torch.launch.train import synthetic_batches
+from repro_torch.train.step import build_cell
 
 pytestmark = pytest.mark.cuda
 
@@ -284,3 +292,64 @@ def test_subtree_agg_kernel_matches_plain(cuda, op):
     assert segment_table.launches - before == (g.n_nodes - 1).bit_length()
     assert torch.equal(got, queries.subtree_agg(tab, v, payload, op,
                                                 use_kernel=False))
+
+
+@pytest.mark.parametrize("b,hot,v,d", [(4, 3, 20, 18), (33, 8, 100, 128),
+                                       (37, 1, 10, 300), (1, 16, 512, 18),
+                                       (262144, 8, 100000, 18)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("mean", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("row_offset", [0, 1])
+def test_embed_bag_kernel(cuda, b, hot, v, d, dtype, tol, mean, weighted,
+                          row_offset):
+    """row_offset 1 starts the table one element into its storage, so only
+    scalar loads are aligned (the kernel's V = 1 path)."""
+    gen = torch.Generator(device=cuda).manual_seed(b * d + hot)
+    idx = torch.randint(0, v, (b, hot), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    w = (torch.rand((b, hot), generator=gen, device=cuda) if weighted
+         else None)
+    table = torch.empty(v * d + row_offset, dtype=dtype,
+                        device=cuda)[row_offset:].view(v, d)
+    table.copy_(torch.randn((v, d), generator=gen, device=cuda))
+    before = embed_bag.launches
+    got = embed_bag(idx, table, w, mean=mean, use_kernel=True)
+    torch.cuda.synchronize()
+    assert embed_bag.launches - before == 1
+    want = embed_bag_ref(idx, w, table, mean=mean)
+    assert got.dtype == dtype and got.shape == (b, d)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_embed_bag_kernel_rejects_int64_and_cpu_tables(cuda):
+    table = torch.randn(10, 18, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        embed_bag(torch.zeros(4, 2, dtype=torch.int64, device=cuda), table,
+                  use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        embed_bag(torch.zeros(4, 2, dtype=torch.int32, device=cuda),
+                  table.cpu(), use_kernel=True)
+
+
+def test_dien_serve_p99_kernel_matches_plain_and_cpu(cuda):
+    """The full config at serve_p99: one embed_bag launch a call, the same
+    scores with ``use_kernel=False``, and on the first rows the port's CPU
+    run within 1e-4 (cuBLAS and MKL sum in other orders)."""
+    spec = get_arch("dien")
+    step, params, _ = build_cell(spec, "serve_p99")
+    plain, _, _ = build_cell(spec, "serve_p99", use_kernel=False)
+    _, batch = next(synthetic_batches(spec, spec.shapes["serve_p99"],
+                                      spec.make_config(), seed=1))
+    before = embed_bag.launches
+    got = step(params, batch)
+    torch.cuda.synchronize()
+    assert embed_bag.launches - before == 1
+    assert got.shape == (512,) and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, plain(params, batch), rtol=1e-6,
+                               atol=1e-6)
+    cpu_step, _, _ = build_cell(spec, "serve_p99", device="cpu")
+    params.to("cpu")
+    want = cpu_step(params, {k: v[:64].cpu() for k, v in batch.items()})
+    torch.testing.assert_close(got[:64].cpu(), want, rtol=1e-4, atol=1e-4)

@@ -71,6 +71,27 @@ def test_default_device_without_cuda_raises(monkeypatch):
         rooted_spanning_tree(g, 0)
     assert rooted_spanning_tree(g, 0, device="cpu").parent.tolist() == [0, 0, 1]
 
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import synthetic_batches
+    from repro_torch.models.dien import dien_forward, dien_init
+    from repro_torch.train.step import build_cell
+    spec = get_arch("dien")
+    cfg = spec.make_smoke_config()
+    for name in ("serve_p99", "retrieval_cand"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_cell(spec, name, smoke=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        synthetic_batches(spec, spec.shapes["serve_p99"], cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dien_init(cfg, generator=torch.Generator())
+    step, params, _ = build_cell(spec, "serve_p99", smoke=True, device="cpu")
+    _, batch = next(synthetic_batches(spec, {"kind": "serve", "batch": 4},
+                                      cfg, device="cpu"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dien_forward(cfg, params, batch)
+    assert dien_forward(cfg, params, batch, device="cpu").shape == (4,)
+    assert step(params, batch).shape == (4,)
+
 
 def test_use_kernel_true_on_cpu_raises_through_the_entry_point():
     from repro_torch.core import Graph, rooted_spanning_tree
@@ -78,6 +99,16 @@ def test_use_kernel_true_on_cpu_raises_through_the_entry_point():
                                     device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
         rooted_spanning_tree(g, 0, use_kernel=True, device="cpu")
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import synthetic_batches
+    from repro_torch.train.step import build_cell
+    spec = get_arch("dien")
+    step, params, _ = build_cell(spec, "serve_p99", smoke=True, device="cpu",
+                                 use_kernel=True)
+    _, batch = next(synthetic_batches(spec, {"kind": "serve", "batch": 4},
+                                      spec.make_smoke_config(), device="cpu"))
+    with pytest.raises(ValueError, match="CUDA"):
+        step(params, batch)
 
 
 def test_kernel_build_needs_nvcc_and_stays_under_build(monkeypatch,
@@ -102,7 +133,8 @@ def test_kernel_build_needs_nvcc_and_stays_under_build(monkeypatch,
     ("pointer_jump", "pointer_jump_chain"),
     ("list_rank", "list_rank_chain"),
     ("frontier_relax", "frontier_relax"),
-    ("segment_table", "segment_table")])
+    ("segment_table", "segment_table"),
+    ("embed_bag", "embed_bag")])
 def test_ctypes_signatures_match_the_c_entries(name, symbol):
     """Each C entry's ``argtypes`` (``ops._ARGTYPES[symbol]``) has one
     entry per parameter, pointers and the stream as ``c_void_p`` (a
