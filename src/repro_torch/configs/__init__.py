@@ -27,8 +27,6 @@ class ArchSpec:
     make_config: Callable[[], Any]    # full (assigned) config
     make_smoke_config: Callable[[], Any]
     shapes: dict                      # shape_name → cell descriptor
-    fsdp: bool = False                # LM only: FSDP param sharding
-    notes: str = ""
 
 
 def get_arch(arch_id: str) -> ArchSpec:
@@ -46,6 +44,5 @@ RECSYS_SHAPES = {
     "train_batch": dict(kind="train", batch=65536),
     "serve_p99": dict(kind="serve", batch=512),
     "serve_bulk": dict(kind="serve", batch=262144),
-    "retrieval_cand": dict(kind="retrieval", batch=1, n_candidates=1000448,
-                           raw=dict(n_candidates=1_000_000)),
+    "retrieval_cand": dict(kind="retrieval", batch=1, n_candidates=1000448),
 }

@@ -18,5 +18,4 @@ def make_smoke_config():
 
 def get():
     return ArchSpec(arch_id="dien", family="recsys", make_config=make_config,
-                    make_smoke_config=make_smoke_config, shapes=RECSYS_SHAPES,
-                    notes="embedding-bag substrate shared w/ RST scatter ops")
+                    make_smoke_config=make_smoke_config, shapes=RECSYS_SHAPES)

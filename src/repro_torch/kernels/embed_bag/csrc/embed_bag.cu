@@ -14,6 +14,12 @@
 // next bag, so the row reads are contiguous runs and the output stores are
 // fully coalesced.
 //
+// Indices follow PyTorch's rule for `table[idx]`, the plain version: one in
+// [-rows, 0) counts from the end, and one outside [-rows, rows) stops the
+// kernel with `__trap()`, so the next call that synchronises raises, as a
+// device-side assert does for `table[idx]` on the card (the CUDA context is
+// then lost, in both). The check costs no host read.
+//
 // Bound on the H100: memory. The function reads idx (and weights) once,
 // the gathered rows (at most the table), and writes out once; it does 2
 // operations an element gathered. At the serve_bulk shape that is about
@@ -63,8 +69,8 @@ template <typename T, int V, bool kWeighted>
 __global__ void embed_bag_kernel(const int32_t* __restrict__ idx,
                                  const float* __restrict__ weights,
                                  const T* __restrict__ table,
-                                 T* __restrict__ out, int64_t n_bags, int hot,
-                                 int dim, bool mean) {
+                                 T* __restrict__ out, int64_t n_bags,
+                                 int64_t rows, int hot, int dim, bool mean) {
   const int per_bag = dim / V;
   const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (g >= n_bags * per_bag) return;
@@ -77,7 +83,9 @@ __global__ void embed_bag_kernel(const int32_t* __restrict__ idx,
   for (int j = 0; j < V; ++j) acc[j] = 0.f;
   float w_sum = 0.f;
   for (int h = 0; h < hot; ++h) {
-    const int64_t row = __ldg(bag + h);
+    int64_t row = __ldg(bag + h);
+    if (row < 0) row += rows;
+    if (row < 0 || row >= rows) __trap();
     const Pack<T, V> r =
         *reinterpret_cast<const Pack<T, V>*>(table + row * dim + d);
     if (kWeighted) {
@@ -106,16 +114,16 @@ __global__ void embed_bag_kernel(const int32_t* __restrict__ idx,
 
 template <typename T, int V>
 cudaError_t launch(const int32_t* idx, const float* weights, const T* table,
-                   T* out, int64_t n_bags, int hot, int dim, bool mean,
-                   cudaStream_t s) {
+                   T* out, int64_t n_bags, int64_t rows, int hot, int dim,
+                   bool mean, cudaStream_t s) {
   const int64_t threads = n_bags * (dim / V);
   const auto blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
   if (weights != nullptr) {
     embed_bag_kernel<T, V, true><<<blocks, kThreads, 0, s>>>(
-        idx, weights, table, out, n_bags, hot, dim, mean);
+        idx, weights, table, out, n_bags, rows, hot, dim, mean);
   } else {
     embed_bag_kernel<T, V, false><<<blocks, kThreads, 0, s>>>(
-        idx, weights, table, out, n_bags, hot, dim, mean);
+        idx, weights, table, out, n_bags, rows, hot, dim, mean);
   }
   return cudaGetLastError();
 }
@@ -137,18 +145,22 @@ int vector_width(const void* table, const void* out, int dim) {
 
 template <typename T>
 cudaError_t dispatch(const int32_t* idx, const float* weights, const T* table,
-                     T* out, int64_t n_bags, int hot, int dim, bool mean,
-                     cudaStream_t s) {
+                     T* out, int64_t n_bags, int64_t rows, int hot, int dim,
+                     bool mean, cudaStream_t s) {
   const int v = vector_width<T>(table, out, dim);
   if constexpr (sizeof(T) == 2) {
     if (v == 8)
-      return launch<T, 8>(idx, weights, table, out, n_bags, hot, dim, mean, s);
+      return launch<T, 8>(idx, weights, table, out, n_bags, rows, hot,
+                            dim, mean, s);
   }
   if (v == 4)
-    return launch<T, 4>(idx, weights, table, out, n_bags, hot, dim, mean, s);
+    return launch<T, 4>(idx, weights, table, out, n_bags, rows, hot,
+                            dim, mean, s);
   if (v == 2)
-    return launch<T, 2>(idx, weights, table, out, n_bags, hot, dim, mean, s);
-  return launch<T, 1>(idx, weights, table, out, n_bags, hot, dim, mean, s);
+    return launch<T, 2>(idx, weights, table, out, n_bags, rows, hot,
+                            dim, mean, s);
+  return launch<T, 1>(idx, weights, table, out, n_bags, rows, hot,
+                            dim, mean, s);
 }
 
 }  // namespace
@@ -157,15 +169,16 @@ extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// idx: int32[n_bags, hot], every entry in [0, rows of table) (unchecked);
-// weights: float32[n_bags, hot], or null for all ones; table: float32
-// (is_bf16 == 0) or bf16 [rows, dim]; out: the table's type, [n_bags, dim].
-// All row-major and contiguous on `device`; n_bags, hot, dim > 0. One launch
-// on `stream`; returns the CUDA error of the launch (0 on success).
+// idx: int32[n_bags, hot], every entry in [-rows, rows) (the kernel traps
+// otherwise); weights: float32[n_bags, hot], or null for all ones; table:
+// float32 (is_bf16 == 0) or bf16 [rows, dim]; out: the table's type,
+// [n_bags, dim]. All row-major and contiguous on `device`; n_bags, rows,
+// hot, dim > 0. One launch on `stream`; returns the CUDA error of the launch
+// (0 on success).
 extern "C" int embed_bag(const void* idx, const void* weights,
-                         const void* table, void* out, int64_t n_bags, int hot,
-                         int dim, int is_bf16, int mean, int device,
-                         void* stream) {
+                         const void* table, void* out, int64_t n_bags,
+                         int64_t rows, int hot, int dim, int is_bf16, int mean,
+                         int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const auto s = static_cast<cudaStream_t>(stream);
@@ -174,9 +187,10 @@ extern "C" int embed_bag(const void* idx, const void* weights,
   if (is_bf16) {
     return dispatch<__nv_bfloat16>(
         i, w, static_cast<const __nv_bfloat16*>(table),
-        static_cast<__nv_bfloat16*>(out), n_bags, hot, dim, mean != 0, s);
+        static_cast<__nv_bfloat16*>(out), n_bags, rows, hot, dim, mean != 0,
+        s);
   }
   return dispatch<float>(i, w, static_cast<const float*>(table),
-                         static_cast<float*>(out), n_bags, hot, dim,
+                         static_cast<float*>(out), n_bags, rows, hot, dim,
                          mean != 0, s);
 }

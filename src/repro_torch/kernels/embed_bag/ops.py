@@ -13,8 +13,8 @@ import torch
 from repro_torch.kernels import build, kernel_wanted
 from repro_torch.kernels.embed_bag.ref import embed_bag_ref
 
-_ARGTYPES = {"embed_bag": [ctypes.c_void_p] * 4 + [
-    ctypes.c_int64] + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
+_ARGTYPES = {"embed_bag": [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2
+             + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
 _IS_BF16 = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -24,9 +24,12 @@ def embed_bag(idx: torch.Tensor, table: torch.Tensor,
     """EmbeddingBag: out[b] = Σ_h w[b, h] · table[idx[b, h]] (or the mean,
     divided by max(Σ_h w[b, h], 1e-9)), in the table's dtype.
 
-    ``idx`` is int32[B, hot] with entries in ``[0, table.shape[0])``
-    (unchecked on the card); ``table`` float32 or bf16 [V, D]; ``weights``
-    float32[B, hot], or None for all ones. ``use_kernel`` follows
+    ``idx`` is int32[B, hot]; ``table`` float32 or bf16 [V, D]; ``weights``
+    float32[B, hot], or None for all ones. An index follows ``table[idx]``:
+    one in ``[-V, 0)`` counts from the end, and one outside ``[-V, V)``
+    raises, on the CPU at once and on the card at the next synchronising
+    call (the kernel traps, as ``table[idx]`` asserts there, and the CUDA
+    context is lost in both). ``use_kernel`` follows
     ``repro_torch.kernels.kernel_wanted``.
     """
     if not kernel_wanted(idx, use_kernel):
@@ -44,7 +47,7 @@ def embed_bag(idx: torch.Tensor, table: torch.Tensor,
             "weights or None; got " + ", ".join(
                 f"dtype={t.dtype} shape={tuple(t.shape)} device={t.device} "
                 f"contiguous={t.is_contiguous()}" for t in tensors))
-    (b, hot), d = idx.shape, table.shape[1]
+    (b, hot), (v, d) = idx.shape, table.shape
     out = table.new_empty((b, d))
     if out.numel() == 0:
         return out
@@ -52,8 +55,8 @@ def embed_bag(idx: torch.Tensor, table: torch.Tensor,
         return out.zero_()
     fn = build.function("embed_bag", "embed_bag", _ARGTYPES["embed_bag"])
     rc = fn(idx.data_ptr(), None if weights is None else weights.data_ptr(),
-            table.data_ptr(), out.data_ptr(), b, hot, d, _IS_BF16[table.dtype],
-            int(mean), idx.device.index,
+            table.data_ptr(), out.data_ptr(), b, v, hot, d,
+            _IS_BF16[table.dtype], int(mean), idx.device.index,
             torch.cuda.current_stream(idx.device).cuda_stream)
     build.check("embed_bag", rc)
     embed_bag.launches += 1

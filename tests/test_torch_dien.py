@@ -231,7 +231,12 @@ def test_synthetic_batches_equal_the_references(shape_name):
 
 def test_registry_and_unported_kinds():
     assert ARCH_IDS == tuple(jax_get_arch.__globals__["ARCH_IDS"])
-    assert RECSYS_SHAPES == jax_get_arch.__globals__["RECSYS_SHAPES"]
+    # The reference's shapes, on the keys the port reads (kind, batch,
+    # n_candidates).
+    ref_shapes = jax_get_arch.__globals__["RECSYS_SHAPES"]
+    assert RECSYS_SHAPES.keys() == ref_shapes.keys()
+    for name, shape in RECSYS_SHAPES.items():
+        assert shape == {k: ref_shapes[name][k] for k in shape}, name
     spec = get_arch("dien")
     assert spec.make_config() == td.DIENConfig()
     with pytest.raises(NotImplementedError, match="not ported"):

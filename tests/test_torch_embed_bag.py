@@ -90,3 +90,24 @@ def test_embed_bag_use_kernel_true_on_cpu_raises():
     with pytest.raises(ValueError, match="CUDA"):
         embed_bag(torch.from_numpy(idx), torch.from_numpy(tab),
                   use_kernel=True)
+
+
+def test_embed_bag_negative_ids_count_from_the_end_as_in_jax():
+    """An id in [-V, 0) is the row V + id, in the port and in the
+    reference (and in the kernel, ``test_torch_cuda.py``)."""
+    idx, w, tab = _inputs(6, 4, 30, 18, "float32", seed=5)
+    idx[0, 0], idx[3, 2], idx[5, 3] = -1, -30, -7
+    want = jax_embed_bag_ref(jnp.asarray(idx), jnp.asarray(w),
+                             jnp.asarray(tab))
+    np.testing.assert_allclose(_port(idx, w, tab, "float32", mean=False),
+                               np.asarray(want), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("bad", [30, 1 << 30, -31])
+def test_embed_bag_out_of_range_id_raises(bad):
+    """An id outside [-V, V) raises in the port (the reference clamps it;
+    ROADMAP §3). On the card the kernel traps, ``test_torch_cuda.py``."""
+    idx, w, tab = _inputs(6, 4, 30, 18, "float32", seed=6)
+    idx[4, 1] = bad
+    with pytest.raises(IndexError):
+        _port(idx, w, tab, "float32", mean=False)
