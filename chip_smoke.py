@@ -13,10 +13,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      graph kernels bit-equal (segment_table: min and max, int32 at 2^24 and
      float32 at an odd n with one NaN); embed_bag at DIEN's serve_bulk
      user profile in float32 and bf16 and at the item table's size, within
-     1e-6 (float32) and 2e-2 (bf16), beside ``F.embedding_bag``;
+     1e-6 (float32) and 2e-2 (bf16), beside ``F.embedding_bag``; the two
+     doubling kernels (one cooperative launch a call, their convergence
+     flags fused) also against their previous design, one launch a step
+     (the ``*_stepwise`` entries), flags included, timed in turns at a
+     2^24 random forest and chain, at the first table ``compress_full``
+     receives in ``connected_components`` on both large graphs, and at
+     both graphs' Euler lists;
   4. the engine's sync contract on a 2^24-long chain;
   5. the paths, each driven through its entry point with the launch
-     counts set to 0 just before and read just after:
+     counts set to 0 just before and read just after (the doubling
+     kernels launch once per sync, and no path launches a stepwise entry):
      a. the chain kernels' own entry points, ``ops.pointer_jump_k`` and
         ``ops.list_rank_k``, as the reference's kernel benchmark rows
         call them, at 2^24 elements;
@@ -29,8 +36,10 @@ Phases, in order; any failure raises and the script exits non-zero:
         ``rmat(20, edge_factor=16)`` (kron_g500-logn20 analogue) with the
         default device and kernels: trees validated, every output and
         count bit-equal to the same call with ``use_kernel=False``,
-        launches matched to the syncs, end-to-end times, and one line per
-        graph comparing the three methods (the paper's Fig. 1 and Fig. 2);
+        launches matched to the syncs, end-to-end times (gconn_euler and
+        pr_rst also with the engine on the stepwise doubling kernels, in
+        turns), and one line per graph comparing the three methods (the
+        paper's Fig. 1 and Fig. 2);
      c. ``biconnectivity(g, 0, rst_flavor=m)`` on ``chain(256)`` and
         ``rmat(6, edge_factor=4)`` for the three flavors: the table3/smoke_*
         counts and the same result as the port's CPU run;
@@ -40,8 +49,9 @@ Phases, in order; any failure raises and the script exits non-zero:
         ``use_kernel=False``, segment_table launches equal to ``seg_syncs``,
         grid2d(4096)'s known answer (one block, no articulation point, no
         bridge), the same articulation points, bridges and block count from
-        every flavor, end-to-end times, the articulation scatter's time,
-        and one line per graph;
+        every flavor, end-to-end times (also with the engine on the
+        stepwise doubling kernels, in turns), the articulation scatter's
+        time, and one line per graph;
      e. tree queries on ``grid2d(4096)``'s gconn_euler tree:
         ``build_tables``, then one batch of 2^20 seeded random pairs through
         ``lca``, ``connected``, ``is_ancestor``, ``depth_of``,
@@ -91,6 +101,9 @@ GRID_SIDE = 4096
 RMAT_SCALE = 20
 N_JUMPS = 5
 TIMED_RUNS = 7
+# A sleep on the card of about 1 ms at the H100's clock, longer than the
+# host takes to enqueue one call of a doubling kernel.
+QUEUE_CYCLES = 2_000_000
 E2E_RUNS = 5
 # A method whose first run on a graph takes longer than this is timed by
 # that run and the plain run of the bit-equality check alone.
@@ -159,6 +172,31 @@ def cuda_ms(torch, fn, reps: int = TIMED_RUNS) -> float:
     return statistics.median(times)
 
 
+def cuda_ms_turns(torch, fns: dict, reps: int = TIMED_RUNS) -> dict:
+    """Median CUDA-event timing of each of ``fns``, timed in turns (the
+    order reversed every other round) after two warm-ups of each. Each
+    timed call is queued behind a sleep on the card, so the host has
+    enqueued all of its work before the start event runs: the events time
+    the card, not the host's launch path (which dominates at 2^20). The
+    functions must not synchronise."""
+    for fn in fns.values():
+        fn()
+        fn()
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for r in range(reps):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(QUEUE_CYCLES)
+            start.record()
+            fns[name]()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
 def bound(bytes_moved: int, ops: int):
     """Least time on the card: the larger of bytes over HBM bandwidth and
     operations over the peak rate, in ms, and which of the two it is."""
@@ -219,9 +257,12 @@ def main() -> int:
     from repro_torch.kernels.frontier_relax.ops import frontier_relax
     from repro_torch.kernels.frontier_relax.ref import INF32
     from repro_torch.kernels.hook_edges.ops import hook_edges
-    from repro_torch.kernels.list_rank.ops import list_rank_double_k, list_rank_k
-    from repro_torch.kernels.pointer_jump.ops import (pointer_jump_double_k,
-                                                      pointer_jump_k)
+    from repro_torch.core import compress, connectivity
+    from repro_torch.kernels.list_rank.ops import (list_rank_double_k,
+                                                   list_rank_double_stepwise,
+                                                   list_rank_k)
+    from repro_torch.kernels.pointer_jump.ops import (
+        pointer_jump_double_k, pointer_jump_double_stepwise, pointer_jump_k)
     from repro_torch.kernels.segment_table.ops import segment_table
     from repro_torch.kernels.embed_bag.ops import embed_bag
     from repro_torch.configs import get_arch
@@ -234,14 +275,46 @@ def main() -> int:
                 "hook_edges": hook_edges, "frontier_relax": frontier_relax,
                 "pointer_jump_k": pointer_jump_k, "list_rank_k": list_rank_k,
                 "segment_table": segment_table, "embed_bag": embed_bag}
+    # The previous design of the two doubling kernels: timed in phase 3,
+    # and no path may launch it.
+    yardsticks = (pointer_jump_double_stepwise, list_rank_double_stepwise)
+
+    def on_stepwise(fn):
+        """``fn()`` with the engine on the previous design of the doubling
+        kernels (one launch a step and a ``torch.any`` pass a group), for an
+        end-to-end comparison in the same run; never inside a counted run."""
+        real = compress.pointer_jump_double_k, compress.list_rank_double_k
+        compress.pointer_jump_double_k = (
+            lambda p, *, n_jumps, use_kernel, return_changed:
+            pointer_jump_double_stepwise(p, n_jumps=n_jumps,
+                                         return_changed=return_changed))
+        compress.list_rank_double_k = (
+            lambda s, d, *, n_steps, use_kernel, return_open:
+            list_rank_double_stepwise(s, d, n_steps=n_steps,
+                                      return_open=return_open))
+        try:
+            return fn()
+        finally:
+            compress.pointer_jump_double_k, compress.list_rank_double_k = real
+
+    def in_turns(runs: dict) -> dict:
+        """E2E_RUNS timings of each of ``runs`` (functions returning ms),
+        in turns, the order reversed every other round."""
+        times, order = {name: [] for name in runs}, list(runs)
+        for i in range(E2E_RUNS):
+            for name in (order if i % 2 == 0 else order[::-1]):
+                times[name].append(runs[name]())
+        return times
 
     def zero_counts():
         torch.cuda.synchronize()
-        for c in counters.values():
+        for c in (*counters.values(), *yardsticks):
             c.launches = 0
 
     def read_counts():
         torch.cuda.synchronize()
+        check(all(c.launches == 0 for c in yardsticks),
+              "a path launched a stepwise doubling kernel")
         return {name: c.launches for name, c in counters.items()}
 
     # 1. The card.
@@ -273,31 +346,127 @@ def main() -> int:
     forest[perm.long()] = perm[below.long()]      # relabelled random forest
     rows = {}
 
-    err = 0
-    for table in (chain, forest):
-        err = max(err, max_abs_err(
-            torch, pointer_jump_double_k(table, n_jumps=N_JUMPS,
-                                         use_kernel=True),
-            pointer_jump_double_k(table, n_jumps=N_JUMPS, use_kernel=False)))
+    t0 = time.perf_counter()
+    grid = graphs.grid2d(GRID_SIDE, device=dev)
+    grid_build_s = time.perf_counter() - t0
+    n = grid.n_nodes
+    t0 = time.perf_counter()
+    rmat = graphs.rmat(RMAT_SCALE, edge_factor=16, device=dev)
+    rmat_build_s = time.perf_counter() - t0
+
+    def first_compress_input(g):
+        """The table ``compress_full`` first receives in
+        ``connected_components(g)`` (after the first hook round), and the
+        call's ``(rep, forest_mask)``."""
+        seen = []
+        real = connectivity.compress_full
+
+        def recording(p, **kwargs):
+            if not seen:
+                seen.append(p.clone())
+            return real(p, **kwargs)
+        connectivity.compress_full = recording
+        try:
+            rep, forest_mask, _ = connected_components(g, use_kernel=False)
+        finally:
+            connectivity.compress_full = real
+        return seen[0], rep, forest_mask
+
+    def euler_list(g, rep, forest_mask):
+        """The Euler successor list ``wyllie_rank`` first ranks in
+        ``euler_tour_root`` (rooted at 0), and its initial distances."""
+        fu, fv, valid = forest_edges(g, forest_mask)
+        comp_root = torch.where(rep == rep[0], 0, rep)
+        succ, dvalid = _tour_successors(g.n_nodes, fu, fv, valid, comp_root)
+        return succ, (dvalid & (succ != -1)).to(torch.int32)
+
+    pj_inputs = {"forest": forest, "chain": chain}
+    lr_inputs = {}
+    for label, g in (("grid", grid), ("rmat", rmat)):
+        first, rep, forest_mask = first_compress_input(g)
+        pj_inputs[f"{label}_first_compress"] = first
+        lr_inputs[f"{label}_euler"] = euler_list(g, rep, forest_mask)
+    del first, rep, forest_mask
+
+    # The two doubling kernels (rows 1 and 2): the cooperative kernel as the
+    # engine calls it (with its fused flag), the stepwise design with the
+    # flag as a separate pass (the engine's previous group), the stepwise
+    # design alone (the previous row's measure), and the plain version with
+    # its flag, bit-equal, flags equal, timed in turns.
+    pj, err = {}, 0
+    for label, table in pj_inputs.items():
+        fns = {
+            "kernel": lambda t=table: pointer_jump_double_k(
+                t, n_jumps=N_JUMPS, use_kernel=True, return_changed=True),
+            "stepwise": lambda t=table: pointer_jump_double_stepwise(
+                t, n_jumps=N_JUMPS, return_changed=True),
+            "plain": lambda t=table: pointer_jump_double_k(
+                t, n_jumps=N_JUMPS, use_kernel=False, return_changed=True)}
+        outs = {k: f() for k, f in fns.items()}
+        for k in ("kernel", "stepwise"):
+            err = max(err, max_abs_err(torch, outs[k][0], outs["plain"][0]))
+            check(bool(outs[k][1]) == bool(outs["plain"][1]),
+                  f"pointer_jump_double {label}: the {k} flag differs from "
+                  "the plain version's")
+        ms = cuda_ms_turns(torch, {
+            **fns, "stepwise_no_flag": lambda t=table:
+                pointer_jump_double_stepwise(t, n_jumps=N_JUMPS),
+            "library_one_step": lambda t=table: t[t]})
+        size = table.numel()
+        pj[label] = {"n": size, "changed": bool(outs["kernel"][1]),
+                     **{f"{k}_ms": v for k, v in ms.items()},
+                     "bound_ms": bound(8 * size, N_JUMPS * size)[0]}
     check(err == 0, f"pointer_jump_double differs from plain by {err}")
-    pj = {}
-    for label, table in (("chain", chain), ("forest", forest)):
-        pj[label] = {
-            "kernel_ms": cuda_ms(torch, lambda: pointer_jump_double_k(
-                table, n_jumps=N_JUMPS, use_kernel=True)),
-            "plain_ms": cuda_ms(torch, lambda: pointer_jump_double_k(
-                table, n_jumps=N_JUMPS, use_kernel=False)),
-            "library_ms_one_step": cuda_ms(torch, lambda: table[table]),
-        }
     b_ms, b_by = bound(8 * n_tab, N_JUMPS * n_tab)
     rows["pointer_jump_double"] = dict(
         ms=pj["forest"]["kernel_ms"], plain_ms=pj["forest"]["plain_ms"],
-        library_ms=pj["forest"]["library_ms_one_step"], bound_ms=b_ms,
+        library_ms=pj["forest"]["library_one_step_ms"], bound_ms=b_ms,
         bound_by=b_by, max_abs_err=err)
     emit({"kernel": "pointer_jump_double", "n": n_tab, "n_jumps": N_JUMPS,
-          "input": "relabelled random forest (chain_*: the 2^24 chain)",
-          **kernel_line(rows["pointer_jump_double"]), **{
-              f"{label}_{k}": v for label in pj for k, v in pj[label].items()}})
+          "card": card, "coop_blocks": build.cooperative_blocks(
+              "pointer_jump", "pointer_jump_double_blocks", chain.device,
+              n_tab),
+          "input": "relabelled random forest; also the 2^24 chain and the "
+                   "first compress_full table of connected_components on "
+                   "grid2d(4096) and rmat(20, 16)",
+          **kernel_line(rows["pointer_jump_double"]), "inputs": pj})
+    del pj_inputs
+
+    lr, err = {}, 0
+    for label, (succ, dist) in lr_inputs.items():
+        fns = {
+            "kernel": lambda s=succ, d=dist: list_rank_double_k(
+                s, d, n_steps=N_JUMPS, use_kernel=True, return_open=True),
+            "stepwise": lambda s=succ, d=dist: list_rank_double_stepwise(
+                s, d, n_steps=N_JUMPS, return_open=True),
+            "plain": lambda s=succ, d=dist: list_rank_double_k(
+                s, d, n_steps=N_JUMPS, use_kernel=False, return_open=True)}
+        outs = {k: f() for k, f in fns.items()}
+        for k in ("kernel", "stepwise"):
+            err = max(err, max_abs_err(torch, outs[k][0], outs["plain"][0]),
+                      max_abs_err(torch, outs[k][1], outs["plain"][1]))
+            check(bool(outs[k][2]) == bool(outs["plain"][2]),
+                  f"list_rank_double {label}: the {k} flag differs from "
+                  "the plain version's")
+        ms = cuda_ms_turns(torch, {
+            **fns, "stepwise_no_flag": lambda s=succ, d=dist:
+                list_rank_double_stepwise(s, d, n_steps=N_JUMPS)})
+        size = succ.numel()
+        lr[label] = {"n": size, "open": bool(outs["kernel"][2]),
+                     **{f"{k}_ms": v for k, v in ms.items()},
+                     "bound_ms": bound(16 * size, 3 * N_JUMPS * size)[0]}
+    check(err == 0, f"list_rank_double differs from plain by {err}")
+    n_list = lr_inputs["grid_euler"][0].numel()
+    b_ms, b_by = bound(16 * n_list, 3 * N_JUMPS * n_list)
+    rows["list_rank_double"] = dict(
+        ms=lr["grid_euler"]["kernel_ms"], plain_ms=lr["grid_euler"]["plain_ms"],
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    emit({"kernel": "list_rank_double", "n": n_list, "n_steps": N_JUMPS,
+          "card": card, "coop_blocks": build.cooperative_blocks(
+              "list_rank", "list_rank_double_blocks", chain.device, n_list),
+          "input": "Euler successor list of grid2d(4096); also rmat(20, 16)'s",
+          **kernel_line(rows["list_rank_double"]), "inputs": lr})
+    del lr_inputs, succ, dist, outs, fns
 
     # The chain variants, on the same two tables: pointer_jump_k follows
     # each table; list_rank_k ranks it as a successor table whose roots
@@ -339,33 +508,6 @@ def main() -> int:
                   for k, v in res[label].items()}})
     del below, perm, succ, dist, got, want
 
-    t0 = time.perf_counter()
-    grid = graphs.grid2d(GRID_SIDE, device=dev)
-    grid_build_s = time.perf_counter() - t0
-    n = grid.n_nodes
-    rep, forest_mask, _ = connected_components(grid, use_kernel=False)
-    fu, fv, valid = forest_edges(grid, forest_mask)
-    comp_root = torch.where(rep == rep[0], 0, rep)
-    succ, dvalid = _tour_successors(n, fu, fv, valid, comp_root)
-    dist = (dvalid & (succ != -1)).to(torch.int32)
-    got = list_rank_double_k(succ, dist, n_steps=N_JUMPS, use_kernel=True)
-    want = list_rank_double_k(succ, dist, n_steps=N_JUMPS, use_kernel=False)
-    err = max(max_abs_err(torch, got[0], want[0]),
-              max_abs_err(torch, got[1], want[1]))
-    check(err == 0, f"list_rank_double differs from plain by {err}")
-    n_list = succ.numel()
-    b_ms, b_by = bound(16 * n_list, 3 * N_JUMPS * n_list)
-    rows["list_rank_double"] = dict(
-        ms=cuda_ms(torch, lambda: list_rank_double_k(
-            succ, dist, n_steps=N_JUMPS, use_kernel=True)),
-        plain_ms=cuda_ms(torch, lambda: list_rank_double_k(
-            succ, dist, n_steps=N_JUMPS, use_kernel=False)),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
-    emit({"kernel": "list_rank_double", "n": n_list, "n_steps": N_JUMPS,
-          "input": "Euler successor list of grid2d(4096)",
-          **kernel_line(rows["list_rank_double"])})
-    del rep, forest_mask, fu, fv, valid, comp_root, succ, dvalid, dist, got, want
-
     rand_rep = torch.randint(0, n, (n,), generator=gen, device=dev,
                              dtype=torch.int32)
     err = 0
@@ -396,9 +538,6 @@ def main() -> int:
     # BFS distance is row + col, so level L's state is every vertex with
     # row + col <= L set and the rest INF32. On rmat(20, 16), the state
     # after two BFS levels of the plain path.
-    t0 = time.perf_counter()
-    rmat = graphs.rmat(RMAT_SCALE, edge_factor=16, device=dev)
-    rmat_build_s = time.perf_counter() - t0
     level = GRID_SIDE - 1
     verts = torch.arange(n, dtype=torch.int32, device=dev)
     manhattan = verts // GRID_SIDE + verts % GRID_SIDE
@@ -621,13 +760,13 @@ def main() -> int:
     def expected_launches(method, r):
         want = dict.fromkeys(counters, 0)
         if method == "gconn_euler":
-            want.update(pointer_jump_double=N_JUMPS * r.compress_syncs,
-                        list_rank_double=N_JUMPS * r.rank_syncs,
+            want.update(pointer_jump_double=r.compress_syncs,
+                        list_rank_double=r.rank_syncs,
                         hook_edges=r.steps + 1)
         elif method == "bfs":
             want.update(frontier_relax=r.steps + 1)
         else:
-            want.update(pointer_jump_double=N_JUMPS * r.compress_syncs)
+            want.update(pointer_jump_double=r.compress_syncs)
         return want
 
     summary, bfs_parent, gconn_parent = {}, {}, {}
@@ -655,13 +794,16 @@ def main() -> int:
                       for k in COUNTS[method]),
                   f"{label} {method}: counts differ from the plain path")
             del p
+            stepwise_ms = []
             if first_ms <= SLOW_RUN_MS:
-                kernel_ms, plain_ms = [], []
-                for i in range(E2E_RUNS):       # in turns: k p p k k p ...
-                    for use_kernel in ((None, False) if i % 2 == 0
-                                       else (False, None)):
-                        (kernel_ms if use_kernel is None else plain_ms
-                         ).append(timed(g, method, use_kernel)[1])
+                runs = {"kernel": lambda: timed(g, method, None)[1],
+                        "plain": lambda: timed(g, method, False)[1]}
+                if method != "bfs":
+                    runs["stepwise"] = lambda: on_stepwise(
+                        lambda: timed(g, method, None)[1])
+                e2e = in_turns(runs)
+                kernel_ms, plain_ms = e2e["kernel"], e2e["plain"]
+                stepwise_ms = e2e.get("stepwise", [])
                 timing = "5 interleaved runs"
             else:
                 kernel_ms, plain_ms = [first_ms], [plain_first_ms]
@@ -680,6 +822,9 @@ def main() -> int:
                   "e2e_ms": kernel_ms,
                   "plain_e2e_ms_median": statistics.median(plain_ms),
                   "plain_e2e_ms": plain_ms,
+                  **({"stepwise_e2e_ms_median": statistics.median(
+                      stepwise_ms), "stepwise_e2e_ms": stepwise_ms}
+                     if stepwise_ms else {}),
                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                   "valid": verdict["all_ok"], "card": card})
             if method == "bfs":
@@ -777,20 +922,25 @@ def main() -> int:
             check(all(getattr(r, k) == getattr(p, k) for k in BCC_COUNTS),
                   f"{label} bcc {method}: counts differ from the plain path")
             del p
+            stepwise_ms = []
             if first_ms <= SLOW_RUN_MS:
-                kernel_ms, plain_ms = [], []
-                for i in range(E2E_RUNS):
-                    for use_kernel in ((None, False) if i % 2 == 0
-                                       else (False, None)):
-                        (kernel_ms if use_kernel is None else plain_ms
-                         ).append(timed_call(lambda: run(use_kernel))[1])
+                e2e = in_turns({
+                    "kernel": lambda: timed_call(lambda: run(None))[1],
+                    "plain": lambda: timed_call(lambda: run(False))[1],
+                    "stepwise": lambda: on_stepwise(
+                        lambda: timed_call(lambda: run(None))[1])})
+                kernel_ms, plain_ms = e2e["kernel"], e2e["plain"]
+                stepwise_ms = e2e["stepwise"]
             else:
                 kernel_ms, plain_ms = [first_ms], [plain_first_ms]
             per[method] = dict(
                 entry=entry, e2e_ms_median=statistics.median(kernel_ms),
                 e2e_ms=kernel_ms,
                 plain_e2e_ms_median=statistics.median(plain_ms),
-                plain_e2e_ms=plain_ms, n_bcc=r.n_bcc,
+                plain_e2e_ms=plain_ms,
+                **({"stepwise_e2e_ms_median": statistics.median(stepwise_ms),
+                    "stepwise_e2e_ms": stepwise_ms} if stepwise_ms else {}),
+                n_bcc=r.n_bcc,
                 articulation=int(r.articulation.sum()),
                 bridges=int(r.bridge.sum()) // 2, rst_steps=r.rst_steps,
                 aux_rounds=r.aux_rounds, seg_syncs=r.seg_syncs,

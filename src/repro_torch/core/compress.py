@@ -69,9 +69,12 @@ def compress_full(p: torch.Tensor, *, n_jumps: int = DEFAULT_JUMPS,
     """
     q, changed, syncs = p, True, 0
     while changed and (max_syncs is None or syncs < max_syncs):
-        q2 = jump_k(q, n_jumps, use_kernel=use_kernel)
-        changed = bool(torch.any(q2 != q))
-        q, syncs = q2, syncs + 1
+        # The group's flag, any(q2 != q), comes with the table (fused into
+        # the kernel's last step on the card): one host read per group.
+        q, flag = pointer_jump_double_k(q, n_jumps=n_jumps,
+                                        use_kernel=use_kernel,
+                                        return_changed=True)
+        changed, syncs = bool(flag), syncs + 1
     return (q, syncs) if return_syncs else q
 
 
@@ -147,10 +150,15 @@ def wyllie_rank(succ: torch.Tensor, valid: torch.Tensor, *,
     """
     d = (valid & (succ != NO_SUCC)).to(torch.int32)
     s, syncs = succ, 0
-    while bool(torch.any(s != NO_SUCC)):
-        s, d = list_rank_double_k(s, d, n_steps=n_jumps,
-                                  use_kernel=use_kernel)
-        syncs += 1
+    # The first check reads the input; each later one the group's flag,
+    # any(s != -1), which comes with the tables (fused into the kernel's
+    # last step on the card).
+    still_open = bool(torch.any(s != NO_SUCC))
+    while still_open:
+        s, d, flag = list_rank_double_k(s, d, n_steps=n_jumps,
+                                        use_kernel=use_kernel,
+                                        return_open=True)
+        still_open, syncs = bool(flag), syncs + 1
     return (d, syncs) if return_syncs else d
 
 

@@ -52,7 +52,7 @@ def connected_components(graph: Graph, *, max_rounds: int | None = None,
                    reference.
       syncs:       with ``return_syncs``, the convergence checks of every
                    ``compress_full`` call, summed (the pointer_jump kernel
-                   launches ``n_jumps`` times per check).
+                   launches once per check).
     """
     n = graph.n_nodes
     src, dst = graph.src, graph.dst

@@ -60,7 +60,7 @@ def pr_rst(graph: Graph, root, *, max_rounds: int | None = None,
       rounds: int, rounds run minus one, as in the reference.
       syncs:  with ``return_syncs``, the convergence checks of every
               round's overlay compression, summed (the pointer_jump kernel
-              launches ``n_jumps`` times per check).
+              launches once per check).
     """
     n = graph.n_nodes
     src, dst = graph.src, graph.dst

@@ -8,10 +8,12 @@ Each kernel lives in its own subpackage, the same layout as
   ref.py         — the plain PyTorch version (CPU path and on-card oracle).
 
 Kernels:
-  pointer_jump    k doubling steps ``t = t[t]`` (one launch per step), and
-                  the chain variant, k + 1 hops against a fixed table.
-  list_rank       k Wyllie steps on (succ, dist) (one launch per step), and
-                  the chain variant, (k + 1)-hop prefix sums in one launch.
+  pointer_jump    k doubling steps ``t = t[t]`` (one cooperative launch
+                  with the convergence flag fused), and the chain variant,
+                  k + 1 hops against a fixed table.
+  list_rank       k Wyllie steps on (succ, dist) (one cooperative launch
+                  with the "any list open" flag fused), and the chain
+                  variant, (k + 1)-hop prefix sums in one launch.
   hook_edges      per half-edge hook proposal (tgt, val) under min/max hooking.
   frontier_relax  the BFS frontier-expansion mask of one level.
   segment_table   the [levels + 1, n] min/max doubling sparse table (one

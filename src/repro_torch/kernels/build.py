@@ -10,6 +10,8 @@ entry with explicit ``argtypes``.
 
 Every C entry returns ``cudaGetLastError()`` after its launches (0 on
 success); ``check()`` turns a nonzero code into an exception.
+``cooperative_blocks()`` asks a library for the grid of its cooperative
+kernel.
 """
 from __future__ import annotations
 
@@ -111,3 +113,18 @@ def check(name: str, rc: int) -> None:
     if rc != 0:
         msg = _library(name).kernel_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel: CUDA error {rc} ({msg})")
+
+
+def cooperative_blocks(name: str, symbol: str, device, n: int) -> int:
+    """The grid of a cooperative launch over ``n`` entries on ``device``
+    (a CUDA ``torch.device``).
+
+    ``symbol`` is the library's C entry ``int symbol(int device, int64_t n,
+    int* blocks)``: the kernel's co-resident block count, or fewer when
+    ``n`` needs fewer blocks.
+    """
+    blocks = ctypes.c_int(0)
+    fn = function(name, symbol, [ctypes.c_int, ctypes.c_int64,
+                                 ctypes.POINTER(ctypes.c_int)])
+    check(name, fn(device.index, n, ctypes.byref(blocks)))
+    return blocks.value

@@ -1,9 +1,13 @@
-// Two entries on (succ, dist), -1 ends a list:
-//   list_rank_double: k Wyllie doubling steps, each on the previous step's
-//                     tables;
-//   list_rank_chain:  k steps against one snapshot of the input tables,
-//                     the (k+1)-hop chain prefix sums
-//                     dist'[i] = sum_{j<=k} dist[s^j(i)], succ'[i] = s^(k+1)(i).
+// Three entries on (succ, dist), -1 ends a list:
+//   list_rank_double:          k Wyllie doubling steps, each on the previous
+//                              step's tables, in one cooperative launch,
+//                              with the flag `any(succ_out != -1)` fused in;
+//   list_rank_double_stepwise: the same k steps as k launches (the previous
+//                              design, kept as a yardstick);
+//   list_rank_chain:           k steps against one snapshot of the input
+//                              tables, the (k+1)-hop chain prefix sums
+//                              dist'[i] = sum_{j<=k} dist[s^j(i)],
+//                              succ'[i] = s^(k+1)(i).
 // One step:
 //   has  = succ[i] != -1
 //   dist = dist[i] + (has ? dist[succ[i]] : 0)
@@ -12,25 +16,135 @@
 // list_rank_double replaces the TPU kernel `_list_rank_double_kernel` /
 // `list_rank_double_pallas` in src/repro/kernels/list_rank/list_rank.py.
 // That kernel holds both tables in VMEM and runs the k steps in one grid=1
-// launch. Every step reads both tables as the previous step left them, and
-// blocks on the H100 run in no order, so each step is its own launch on
-// one stream, ping-ponging both tables between the output and scratch
-// pair; the inputs are never written. k launches per call keep the
-// engine's sync count exact.
+// launch. Every step reads both tables as the previous step left them, so
+// on the H100 the steps need a grid-wide barrier, and the engine's sync
+// count needs each step to be exactly the reference's.
 //
-// Bound on the H100: memory. Per element: two coalesced 4-byte reads, two
-// random 4-byte gathers from the same index (two 32-byte sectors per miss)
-// and two coalesced 4-byte writes. One element per thread and many blocks
-// in flight keep enough gathers outstanding; list ends (succ == -1) issue
-// no gather. No padding: the grid masks the ragged end, so the TPU's
-// (8, 128) tile and its inert pad slots are not needed.
+// Bound on the H100: memory. A call must read two int32 tables and write
+// two (16N bytes). The stepwise design launched once per step, and each
+// step did two coalesced reads, two random 4-byte gathers from the same
+// index (two 32-byte sectors per miss) and two coalesced writes; the
+// "any list open" check was a further pass. Here:
+//   * one cooperative launch runs all k steps, a `grid.sync()` between
+//     them, on at most the co-resident grid (a larger one is refused), in
+//     blocks of 1024 threads, one to an SM at its register count: the
+//     barrier's cost grows with the number of blocks;
+//   * inside the launch (succ, dist) lives as one 8-byte pair (int2) in a
+//     packed ping-pong scratch pair, so a step is one coalesced 8-byte
+//     read, one 8-byte gather from one sector, and one 8-byte write; the
+//     first step reads the two int32 inputs and the last writes the two
+//     int32 outputs, and the inputs are never written;
+//   * each thread owns a grid-stride set of entries and keeps kUnroll
+//     independent gathers in flight; list ends issue no gather;
+//   * the last step ORs `succ_out != -1` into a flag (a warp vote, one
+//     atomicOr per warp), which replaces the separate `any` pass.
+// Coherence: a packed buffer written in one step is read in the next.
+// `__ldg` reads through the non-coherent path, which is correct only for
+// data no thread writes during the launch, so only the inputs use it.
+// Reads of the scratch pair are plain loads: `grid.sync()` orders every
+// write before it with every read after it across the grid (a release at
+// the arrival, an acquire at the wait, which also invalidates the SM's
+// L1), and as a compiler barrier it keeps the loads after it.
+// `ld.global.cg` (L2 only) is also correct, but its random gathers were
+// slower than L1-cached loads at L2-resident sizes (PERF.md, Findings).
+// Indices are 32-bit: an int32 successor table has N <= 2^31 entries.
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kCoopThreads = 1024;
+constexpr int kUnroll = 4;
+constexpr int kMaxDevices = 64;
 constexpr int32_t kNoSucc = -1;
+
+// (succ, dist) of entry i, x = succ and y = dist: from the two int32
+// inputs (kFromInput), else from the packed pair `src`.
+template <bool kFromInput>
+__device__ __forceinline__ int2 load_pair(const int32_t* __restrict__ succ,
+                                          const int32_t* __restrict__ dist,
+                                          const int2* src, uint32_t i) {
+  return kFromInput ? make_int2(__ldg(succ + i), __ldg(dist + i)) : src[i];
+}
+
+// One Wyllie step over this thread's entries. kFromInput: read the int32
+// inputs, else the packed `src`. kToOutput: write the int32 outputs and
+// return whether any of this thread's lists is still open, else write the
+// packed `dst`.
+template <bool kFromInput, bool kToOutput>
+__device__ __forceinline__ bool wyllie_step(
+    const int32_t* __restrict__ succ, const int32_t* __restrict__ dist,
+    const int2* src, int2* dst, int32_t* __restrict__ succ_out,
+    int32_t* __restrict__ dist_out, uint32_t n) {
+  const uint32_t stride = gridDim.x * blockDim.x;
+  bool open = false;
+  for (uint32_t base = blockIdx.x * blockDim.x + threadIdx.x; base < n;
+       base += stride * kUnroll) {
+    int2 e[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const uint32_t i = base + u * stride;
+      e[u] = i < n ? load_pair<kFromInput>(succ, dist, src, i)
+                   : make_int2(kNoSucc, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (e[u].x != kNoSucc) {
+        const int2 next = load_pair<kFromInput>(succ, dist, src, e[u].x);
+        e[u] = make_int2(next.x, e[u].y + next.y);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const uint32_t i = base + u * stride;
+      if (i < n) {
+        if (kToOutput) {
+          succ_out[i] = e[u].x;
+          dist_out[i] = e[u].y;
+          open |= e[u].x != kNoSucc;
+        } else {
+          dst[i] = e[u];
+        }
+      }
+    }
+  }
+  return open;
+}
+
+// Step j reads the inputs (j == 0) or pair[(j - 1) % 2], and writes the
+// outputs (the last step) or pair[j % 2].
+__global__ void __launch_bounds__(kCoopThreads)
+list_rank_double_coop(const int32_t* __restrict__ succ,
+                      const int32_t* __restrict__ dist,
+                      int32_t* __restrict__ succ_out,
+                      int32_t* __restrict__ dist_out, int2* pair_a,
+                      int2* pair_b, uint32_t n, int n_steps, int32_t* open) {
+  cg::grid_group grid = cg::this_grid();
+  bool any_open = false;
+  for (int j = 0; j < n_steps; ++j) {
+    const int2* src = (j % 2 == 1) ? pair_a : pair_b;
+    int2* dst = (j % 2 == 0) ? pair_a : pair_b;
+    const bool last = j == n_steps - 1;
+    if (j == 0) {
+      any_open = last ? wyllie_step<true, true>(succ, dist, src, dst, succ_out,
+                                                dist_out, n)
+                      : wyllie_step<true, false>(succ, dist, src, dst,
+                                                 succ_out, dist_out, n);
+    } else {
+      any_open = last ? wyllie_step<false, true>(succ, dist, src, dst,
+                                                 succ_out, dist_out, n)
+                      : wyllie_step<false, false>(succ, dist, src, dst,
+                                                  succ_out, dist_out, n);
+    }
+    if (!last) grid.sync();
+  }
+  if (__ballot_sync(0xffffffffu, any_open) != 0 && (threadIdx.x & 31) == 0)
+    atomicOr(open, 1);
+}
 
 __global__ void list_rank_double_step(const int32_t* __restrict__ succ_in,
                                       const int32_t* __restrict__ dist_in,
@@ -74,14 +188,84 @@ extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// All six buffers int32[n] on `device` and pairwise distinct (the scratch
-// pair is unused when n_steps == 1). Returns cudaGetLastError() after the
-// last launch (0 on success).
+// The grid of a list_rank_double launch over n entries: the co-resident
+// block count of the cooperative kernel at kCoopThreads threads a block
+// (computed once per device), or fewer when n needs fewer blocks of one
+// entry per thread. Writes it to
+// *blocks; returns a CUDA error code (0 on success).
+extern "C" int list_rank_double_blocks(int device, int64_t n, int* blocks) {
+  static int resident[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (resident[device] == 0) {
+    int per_sm = 0, sms = 0;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, list_rank_double_coop, kCoopThreads, 0);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    resident[device] = per_sm * sms;
+  }
+  const int64_t need = (n + kCoopThreads - 1) / kCoopThreads;
+  *blocks = static_cast<int>(need < resident[device] ? need : resident[device]);
+  return cudaSuccess;
+}
+
+// succ, dist, succ_out, dist_out: int32[n] on `device`, 1 <= n <= 2^31,
+// n_steps >= 1, the outputs distinct from the inputs. pair_a, pair_b:
+// packed int2[n] scratch (8-byte aligned), distinct; pair_a is used when
+// n_steps >= 2, pair_b when n_steps >= 3. open: one int32 on `device`,
+// zeroed here on `stream`, then set to 1 if any succ_out entry is not -1.
+// blocks: the grid, 0 for list_rank_double_blocks'; a grid larger than
+// the co-resident count is refused (cudaErrorCooperativeLaunchTooLarge).
+// One cooperative launch. Returns the first CUDA error (0 on success).
 extern "C" int list_rank_double(const void* succ, const void* dist,
-                                void* succ_out, void* dist_out,
-                                void* succ_scratch, void* dist_scratch,
-                                int64_t n, int n_steps, int device,
+                                void* succ_out, void* dist_out, void* pair_a,
+                                void* pair_b, void* open, int64_t n,
+                                int n_steps, int blocks, int device,
                                 void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const auto s = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(open, 0, sizeof(int32_t), s);
+  if (err != cudaSuccess) return err;
+  const int32_t* succ_arg = static_cast<const int32_t*>(succ);
+  const int32_t* dist_arg = static_cast<const int32_t*>(dist);
+  int32_t* succ_out_arg = static_cast<int32_t*>(succ_out);
+  int32_t* dist_out_arg = static_cast<int32_t*>(dist_out);
+  int2* pair_a_arg = static_cast<int2*>(pair_a);
+  int2* pair_b_arg = static_cast<int2*>(pair_b);
+  int32_t* open_arg = static_cast<int32_t*>(open);
+  uint32_t n_arg = static_cast<uint32_t>(n);
+  void* args[] = {&succ_arg, &dist_arg, &succ_out_arg, &dist_out_arg,
+                  &pair_a_arg, &pair_b_arg, &n_arg, &n_steps, &open_arg};
+  if (blocks <= 0) {
+    err = static_cast<cudaError_t>(list_rank_double_blocks(device, n, &blocks));
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(list_rank_double_coop), dim3(blocks),
+      dim3(kCoopThreads), args, 0, s);
+  // Clear the runtime's last error, so that a refused launch is reported
+  // here and not again by the next call that reads it.
+  cudaGetLastError();
+  return err;
+}
+
+// The previous design, kept only as a yardstick for the cooperative one:
+// each step its own launch, one thread per entry, reads through `__ldg`
+// (correct because a launch never reads what it writes), both tables
+// ping-ponging between the output and an int32 scratch pair. All six
+// buffers int32[n] and pairwise distinct (the scratch pair is unused when
+// n_steps == 1); no flag. Returns cudaGetLastError() after the last launch
+// (0 on success).
+extern "C" int list_rank_double_stepwise(const void* succ, const void* dist,
+                                         void* succ_out, void* dist_out,
+                                         void* succ_scratch,
+                                         void* dist_scratch, int64_t n,
+                                         int n_steps, int device,
+                                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const auto s = static_cast<cudaStream_t>(stream);

@@ -1,6 +1,8 @@
-"""The port on the card: each CUDA kernel against its plain version, and
-the three RST flavors, biconnectivity, the tree queries and DIEN serving
-on the card against the same call on the CPU and with ``use_kernel=False``.
+"""The port on the card: each CUDA kernel against its plain version (the
+two cooperative doubling kernels, one launch a call, also against their
+stepwise design, with their fused convergence flags), and the three RST
+flavors, biconnectivity, the tree queries and DIEN serving on the card
+against the same call on the CPU and with ``use_kernel=False``.
 
 Every test here needs a CUDA card (the kernels have no CPU mode) and skips
 without one. The file imports no JAX, so it also runs on a machine that has
@@ -26,10 +28,16 @@ from repro_torch.kernels.frontier_relax.ops import frontier_relax
 from repro_torch.kernels.frontier_relax.ref import INF32, frontier_relax_ref
 from repro_torch.kernels.hook_edges.ops import hook_edges
 from repro_torch.kernels.hook_edges.ref import hook_edges_ref
-from repro_torch.kernels.list_rank.ops import list_rank_double_k, list_rank_k
+from repro_torch.kernels import build
+from repro_torch.kernels.list_rank import ops as list_rank_ops
+from repro_torch.kernels.list_rank.ops import (list_rank_double_k,
+                                               list_rank_double_stepwise,
+                                               list_rank_k)
 from repro_torch.kernels.list_rank.ref import (list_rank_double_ref,
                                                list_rank_steps_ref)
+from repro_torch.kernels.pointer_jump import ops as pointer_jump_ops
 from repro_torch.kernels.pointer_jump.ops import (pointer_jump_double_k,
+                                                  pointer_jump_double_stepwise,
                                                   pointer_jump_k)
 from repro_torch.kernels.pointer_jump.ref import (pointer_jump_double_ref,
                                                   pointer_jump_ref)
@@ -41,6 +49,12 @@ from repro_torch.train.step import build_cell
 pytestmark = pytest.mark.cuda
 
 SIZES = [1, 100, 3000, 1 << 20]
+# The cooperative kernels run a grid-stride loop of 4 entries a thread a
+# pass over blocks of 1024 co-resident threads (at most 132 SMs x 2048 on
+# an H100, 1,081,344 entries a pass): one size above a pass, and
+# grid2d(4096)'s n.
+ABOVE_ONE_WAVE = 3 * (1 << 21) + 7
+COOP_SIZES = SIZES + [ABOVE_ONE_WAVE, 1 << 24]
 
 
 @pytest.fixture
@@ -68,28 +82,140 @@ def _lists(n, seed, device):
     return torch.from_numpy(succ).to(device)
 
 
-@pytest.mark.parametrize("n", SIZES)
+def _table(kind, n, seed, device):
+    """A parent table: a relabelled random forest, its roots (converged,
+    so the flag is False), or a random permutation (disjoint cycles)."""
+    if kind == "cycles":
+        perm = np.random.default_rng(seed).permutation(n).astype(np.int32)
+        return torch.from_numpy(perm).to(device)
+    p = _forest(n, seed, device)
+    return compress_full(p, use_kernel=False) if kind == "roots" else p
+
+
+@pytest.mark.parametrize("n", COOP_SIZES)
 @pytest.mark.parametrize("k", [1, 2, 5])
-def test_pointer_jump_kernel(cuda, n, k):
-    p = _forest(n, n, cuda)
+@pytest.mark.parametrize("kind", ["forest", "roots", "cycles"])
+def test_pointer_jump_kernel(cuda, n, k, kind):
+    """One cooperative launch a call, bit-equal to the plain version and to
+    the stepwise design, the fused flag included."""
+    p = _table(kind, n, n + k, cuda)
     before = pointer_jump_double_k.launches
-    out = pointer_jump_double_k(p, n_jumps=k, use_kernel=True)
+    out, changed = pointer_jump_double_k(p, n_jumps=k, use_kernel=True,
+                                         return_changed=True)
     torch.cuda.synchronize()
-    assert pointer_jump_double_k.launches - before == k
-    assert torch.equal(out, pointer_jump_double_ref(p, k))
+    assert pointer_jump_double_k.launches - before == 1
+    want = pointer_jump_double_ref(p, k)
+    assert torch.equal(out, want)
+    assert changed.dtype == torch.bool and changed.shape == ()
+    assert bool(changed) == bool(torch.any(want != p))
+    step_out, step_changed = pointer_jump_double_stepwise(
+        p, n_jumps=k, return_changed=True)
+    assert torch.equal(out, step_out) and bool(changed) == bool(step_changed)
+    assert torch.equal(p, _table(kind, n, n + k, cuda))   # input unchanged
 
 
-@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("n", COOP_SIZES)
 @pytest.mark.parametrize("k", [1, 2, 5])
-def test_list_rank_kernel(cuda, n, k):
-    succ = _lists(n, n, cuda)
+@pytest.mark.parametrize("kind", ["lists", "pairs"])
+def test_list_rank_kernel(cuda, n, k, kind):
+    """One cooperative launch a call, bit-equal to the plain version and to
+    the stepwise design, the fused "any list open" flag included ("pairs":
+    lists of at most two entries, all closed after one step)."""
+    if kind == "pairs":
+        ids = torch.arange(n, dtype=torch.int32, device=cuda)
+        succ = torch.where((ids % 2 == 0) & (ids + 1 < n), ids + 1, -1)
+    else:
+        succ = _lists(n, n, cuda)
     dist = (succ != -1).to(torch.int32)
     before = list_rank_double_k.launches
-    s, d = list_rank_double_k(succ, dist, n_steps=k, use_kernel=True)
+    s, d, still_open = list_rank_double_k(succ, dist, n_steps=k,
+                                          use_kernel=True, return_open=True)
     torch.cuda.synchronize()
-    assert list_rank_double_k.launches - before == k
+    assert list_rank_double_k.launches - before == 1
     rs, rd = list_rank_double_ref(succ, dist, k)
     assert torch.equal(s, rs) and torch.equal(d, rd)
+    assert still_open.dtype == torch.bool and still_open.shape == ()
+    assert bool(still_open) == bool(torch.any(rs != -1))
+    if kind == "pairs":
+        assert not bool(still_open)
+    ss, sd, step_open = list_rank_double_stepwise(succ, dist, n_steps=k,
+                                                  return_open=True)
+    assert torch.equal(s, ss) and torch.equal(d, sd)
+    assert bool(still_open) == bool(step_open)
+
+
+def test_doubling_kernels_span_more_than_one_wave(cuda):
+    """ABOVE_ONE_WAVE really takes a thread more than one pass of 4."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for name, symbol in (("pointer_jump", "pointer_jump_double_blocks"),
+                         ("list_rank", "list_rank_double_blocks")):
+        blocks = build.cooperative_blocks(name, symbol, dev, 1 << 30)
+        assert 0 < blocks * 1024 * 4 < ABOVE_ONE_WAVE
+
+
+def test_doubling_kernels_launch_nothing_when_empty(cuda):
+    """n == 0 or k == 0: no launch, the input back, "unchanged"."""
+    before = (pointer_jump_double_k.launches, list_rank_double_k.launches)
+    for n, k in ((0, 5), (7, 0)):
+        p = _forest(n, 3, cuda)
+        out, changed = pointer_jump_double_k(p, n_jumps=k, use_kernel=True,
+                                             return_changed=True)
+        assert torch.equal(out, p) and not bool(changed)
+        succ = _lists(n, 3, cuda)
+        dist = (succ != -1).to(torch.int32)
+        s, d, still_open = list_rank_double_k(succ, dist, n_steps=k,
+                                              use_kernel=True,
+                                              return_open=True)
+        assert torch.equal(s, succ) and torch.equal(d, dist)
+        assert bool(still_open) == bool(torch.any(succ != -1))
+    assert (pointer_jump_double_k.launches,
+            list_rank_double_k.launches) == before
+
+
+def test_refused_cooperative_launch_raises(cuda):
+    """A grid one block larger than the co-resident count is refused by the
+    runtime; the wrapper raises and nothing runs in its place."""
+    p = _forest(1 << 20, 5, cuda)
+    blocks = build.cooperative_blocks("pointer_jump",
+                                      "pointer_jump_double_blocks", p.device,
+                                      1 << 30)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pointer_jump_ops._launch_double(p, 5, blocks + 1)
+    succ = _lists(1 << 20, 5, cuda)
+    blocks = build.cooperative_blocks("list_rank", "list_rank_double_blocks",
+                                      succ.device, 1 << 30)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        list_rank_ops._launch_double(succ, succ, 5, blocks + 1)
+    torch.cuda.synchronize()
+    # The card is still usable.
+    assert torch.equal(pointer_jump_double_k(p, use_kernel=True),
+                       pointer_jump_double_ref(p, 5))
+
+
+def test_engine_reads_the_fused_flags_on_card(cuda, monkeypatch):
+    """compress_full runs no torch.any on a CUDA table, wyllie_rank only its
+    first check on the input; the syncs and values stay the plain path's."""
+    calls = []
+    real_any = torch.any
+
+    def counting_any(*args, **kwargs):
+        calls.append(args[0].device)
+        return real_any(*args, **kwargs)
+
+    chain = torch.clamp(torch.arange(4096, dtype=torch.int32, device=cuda)
+                        - 1, min=0)
+    succ = _lists(5000, 7, cuda)
+    valid = torch.ones_like(succ, dtype=torch.bool)
+    want_c = compress_full(chain, return_syncs=True, use_kernel=False)
+    want_w = wyllie_rank(succ, valid, return_syncs=True, use_kernel=False)
+    monkeypatch.setattr(torch, "any", counting_any)
+    got_c = compress_full(chain, return_syncs=True)
+    assert calls == []
+    got_w = wyllie_rank(succ, valid, return_syncs=True)
+    assert len(calls) == 1
+    monkeypatch.undo()
+    assert torch.equal(got_c[0], want_c[0]) and got_c[1] == want_c[1] == 4
+    assert torch.equal(got_w[0], want_w[0]) and got_w[1] == want_w[1]
 
 
 @pytest.mark.parametrize("n,e", [(1, 4), (3000, 9000), (1 << 20, 1 << 22)])
@@ -139,8 +265,7 @@ def test_gconn_euler_on_card_matches_cpu(cuda, name, kwargs):
     pj, lr, he = (a - b for a, b in zip(
         (pointer_jump_double_k.launches, list_rank_double_k.launches,
          hook_edges.launches), counts))
-    assert (pj, lr, he) == (5 * r.compress_syncs, 5 * r.rank_syncs,
-                            r.steps + 1)
+    assert (pj, lr, he) == (r.compress_syncs, r.rank_syncs, r.steps + 1)
     c = rooted_spanning_tree(g.to("cpu"), 3, "gconn_euler", device="cpu")
     for field in ("parent", "rep", "forest_mask"):
         assert torch.equal(getattr(r, field).cpu(), getattr(c, field))
@@ -217,7 +342,7 @@ def test_pr_rst_on_card_matches_cpu(cuda, name, kwargs, alternate_hooking):
     r = rooted_spanning_tree(g, 3, "pr_rst",
                              alternate_hooking=alternate_hooking)
     torch.cuda.synchronize()
-    assert pointer_jump_double_k.launches - before == 5 * r.compress_syncs
+    assert pointer_jump_double_k.launches - before == r.compress_syncs
     c = rooted_spanning_tree(g.to("cpu"), 3, "pr_rst", device="cpu",
                              alternate_hooking=alternate_hooking)
     assert torch.equal(r.parent.cpu(), c.parent)

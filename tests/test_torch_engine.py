@@ -86,7 +86,31 @@ def test_compress_full_max_syncs(max_syncs):
     assert syncs == int(jax_syncs) == max_syncs
 
 
-@pytest.mark.parametrize("n", [1, 100, 1024, 3000])
+@pytest.mark.parametrize("k,max_syncs", [(1, 3), (5, 2), (2, None), (2, 6),
+                                         (4, 5)])
+def test_compress_full_three_cycle(k, max_syncs):
+    """A 3-cycle (beside a chain) never converges for odd k: each group
+    moves the cycle on, the flag stays set, and ``max_syncs`` ends the
+    loop; for even k, p^(2^k) = p on the cycle, so the flag falls once the
+    chain (depth 36) is done, before ``max_syncs``. Outputs and syncs are the reference's, whose flag is the
+    same ``any(q2 != q)``."""
+    p = np.concatenate([[1, 2, 0], np.maximum(np.arange(3, 40) - 1, 3)])
+    p = p.astype(np.int32)
+    outs = [jc.compress_full(jnp.asarray(p), n_jumps=k, max_syncs=max_syncs,
+                             use_kernel=u, interpret=True, return_syncs=True)
+            for u in (False, True)]
+    out, syncs = tc.compress_full(torch.from_numpy(p), n_jumps=k,
+                                  max_syncs=max_syncs, return_syncs=True)
+    for jax_out, jax_syncs in outs:
+        _same(jax_out, out)
+        assert syncs == int(jax_syncs)
+    if k % 2:
+        assert syncs == max_syncs
+    else:
+        assert max_syncs is None or syncs < max_syncs
+
+
+@pytest.mark.parametrize("n", [1, 100, 255, 1024, 3000, 4097])
 @pytest.mark.parametrize("k", [1, 5])
 def test_wyllie_rank_matches_jax(n, k):
     succ = _lists(n, n + k)

@@ -129,6 +129,8 @@ def test_kernel_build_needs_nvcc_and_stays_under_build(monkeypatch,
 @pytest.mark.parametrize("name,symbol", [
     ("pointer_jump", "pointer_jump_double"),
     ("list_rank", "list_rank_double"),
+    ("pointer_jump", "pointer_jump_double_stepwise"),
+    ("list_rank", "list_rank_double_stepwise"),
     ("hook_edges", "hook_edges"),
     ("pointer_jump", "pointer_jump_chain"),
     ("list_rank", "list_rank_chain"),

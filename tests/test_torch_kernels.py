@@ -15,13 +15,17 @@ from repro_torch.kernels.frontier_relax.ops import frontier_relax
 from repro_torch.kernels.frontier_relax.ref import INF32
 from repro_torch.kernels.hook_edges.ops import hook_edges
 from repro_torch.kernels.list_rank.ops import list_rank_double_k, list_rank_k
-from repro_torch.kernels.list_rank.ref import list_rank_steps_ref
+from repro_torch.kernels.list_rank.ref import (list_rank_double_ref,
+                                               list_rank_steps_ref)
 from repro_torch.kernels.pointer_jump.ops import (pointer_jump_double_k,
                                                   pointer_jump_k)
 from repro_torch.kernels.pointer_jump.ref import (pointer_jump_double_ref,
                                                   pointer_jump_ref)
 
 SIZES = [1, 100, 1024, 3000]
+# The doubling kernels' sizes: empty, one entry, around one (8, 128) tile
+# of the reference's layout, and past four.
+DOUBLING_SIZES = [0, 1, 100, 255, 1024, 3000, 4097]
 
 
 def _same(jax_arr, t: torch.Tensor):
@@ -29,14 +33,18 @@ def _same(jax_arr, t: torch.Tensor):
 
 
 def _forest(n, rng, kind):
-    """int32[n] acyclic parent table (roots self-point)."""
+    """int32[n] parent table: acyclic (roots self-point), or for "cycles"
+    a random permutation (disjoint cycles of every length, fixed points
+    among them)."""
+    if kind == "cycles":
+        return rng.permutation(n).astype(np.int32)
     if kind == "chain":
         p = np.maximum(np.arange(n) - 1, 0)
     else:
         p = (rng.random(n) * np.arange(n)).astype(np.int64)
         roots = rng.random(n) < 0.05
         p[roots] = np.arange(n)[roots]
-        p[0] = 0
+        p[:1] = 0
     perm = rng.permutation(n)  # relabel so ids carry no order
     q = np.empty(n, np.int64)
     q[perm] = perm[p]
@@ -44,45 +52,70 @@ def _forest(n, rng, kind):
 
 
 def _lists(n, rng, kind):
-    """int32[n] successor table of disjoint −1-terminated lists."""
-    perm = rng.permutation(n) if kind == "random" else np.arange(n)
+    """int32[n] successor table of disjoint −1-terminated lists: one chain,
+    random lists (2 % cuts), or many short ones (50 % cuts)."""
+    perm = rng.permutation(n) if kind != "chain" else np.arange(n)
     succ = np.full(n, -1, np.int32)
     succ[perm[:-1]] = perm[1:]
-    if kind == "random":
-        cut = perm[rng.random(n) < 0.02]
+    if kind != "chain":
+        cut = perm[rng.random(n) < (0.02 if kind == "random" else 0.5)]
         succ[cut] = -1
     return succ
 
 
-@pytest.mark.parametrize("n", SIZES)
-@pytest.mark.parametrize("kind", ["chain", "forest"])
-@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("n", DOUBLING_SIZES)
+@pytest.mark.parametrize("kind", ["chain", "forest", "cycles"])
+@pytest.mark.parametrize("k", [1, 5, 0])
 def test_pointer_jump_double_matches_jax(n, kind, k):
+    """The table and the group's convergence flag, any(out != p), which the
+    engine reads (``return_changed``)."""
     from repro.kernels.pointer_jump.ops import (pad_to_tile,
                                                 pointer_jump_double_k as jk)
     from repro.core.compress import jump_k as jax_jump_k
     p = _forest(n, np.random.default_rng(n + k), kind)
-    out = pointer_jump_double_k(torch.from_numpy(p), n_jumps=k)
-    _same(jax_jump_k(jnp.asarray(p), k), out)
-    p2d, _ = pad_to_tile(jnp.asarray(p))
-    _same(jk(p2d, n_jumps=k, interpret=True).reshape(-1)[:n], out)
+    out, changed = pointer_jump_double_k(torch.from_numpy(p), n_jumps=k,
+                                         return_changed=True)
+    jax_out = jax_jump_k(jnp.asarray(p), k)
+    _same(jax_out, out)
+    if n:   # the Pallas kernel's (8, 128) tiling cannot take an empty table
+        p2d, _ = pad_to_tile(jnp.asarray(p))
+        _same(jk(p2d, n_jumps=k, interpret=True).reshape(-1)[:n], out)
     assert torch.equal(out, pointer_jump_double_ref(torch.from_numpy(p), k))
+    assert changed.dtype == torch.bool and changed.shape == ()
+    assert bool(changed) == bool(torch.any(out != torch.from_numpy(p)))
+    assert bool(changed) == bool(jnp.any(jax_out != jnp.asarray(p)))
+    assert torch.equal(pointer_jump_double_k(torch.from_numpy(p), n_jumps=k),
+                       out)
 
 
-@pytest.mark.parametrize("n", SIZES)
-@pytest.mark.parametrize("kind", ["chain", "random"])
-@pytest.mark.parametrize("k", [1, 5])
+@pytest.mark.parametrize("n", DOUBLING_SIZES)
+@pytest.mark.parametrize("kind", ["chain", "random", "short"])
+@pytest.mark.parametrize("k", [1, 5, 0])
 def test_list_rank_double_matches_jax(n, kind, k):
+    """The tables and the "any list still open" flag, any(succ' != -1),
+    which the engine reads (``return_open``)."""
     from repro.kernels.list_rank.list_rank import list_rank_double_pallas
     from repro.kernels.list_rank.ops import pad_to_tile
     succ = _lists(n, np.random.default_rng(n + k), kind)
     dist = (succ != -1).astype(np.int32)
-    s, d = list_rank_double_k(torch.from_numpy(succ), torch.from_numpy(dist),
-                              n_steps=k)
-    s2d, d2d, _ = pad_to_tile(jnp.asarray(succ), jnp.asarray(dist))
-    js, jd = list_rank_double_pallas(s2d, d2d, n_steps=k, interpret=True)
-    _same(js.reshape(-1)[:n], s)
-    _same(jd.reshape(-1)[:n], d)
+    s, d, still_open = list_rank_double_k(
+        torch.from_numpy(succ), torch.from_numpy(dist), n_steps=k,
+        return_open=True)
+    if n:   # the Pallas kernel's (8, 128) tiling cannot take an empty table
+        s2d, d2d, _ = pad_to_tile(jnp.asarray(succ), jnp.asarray(dist))
+        js, jd = list_rank_double_pallas(s2d, d2d, n_steps=k, interpret=True)
+        js, jd = js.reshape(-1)[:n], jd.reshape(-1)[:n]
+        _same(js, s)
+        _same(jd, d)
+        assert bool(still_open) == bool(jnp.any(js != -1))
+    rs, rd = list_rank_double_ref(torch.from_numpy(succ),
+                                  torch.from_numpy(dist), k)
+    assert torch.equal(s, rs) and torch.equal(d, rd)
+    assert still_open.dtype == torch.bool and still_open.shape == ()
+    assert bool(still_open) == bool(torch.any(s != -1))
+    two = list_rank_double_k(torch.from_numpy(succ), torch.from_numpy(dist),
+                             n_steps=k)
+    assert len(two) == 2 and torch.equal(two[0], s) and torch.equal(two[1], d)
 
 
 @pytest.mark.parametrize("n,e", [(1, 4), (100, 400), (1024, 4096),
