@@ -8,10 +8,15 @@ Run from the repository root with no arguments:
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit (``nvidia-smi``);
   2. build every CUDA kernel from the repository's sources;
-  3. kernels: each of the eight against its plain PyTorch version on the
-     card, at the main paths' sizes, timed with CUDA events: the seven
+  3. kernels: each of the nine against its plain PyTorch version on the
+     card, at the main paths' sizes, timed with CUDA events: the eight
      graph kernels bit-equal (segment_table: min and max, int32 at 2^24 and
-     float32 at an odd n with one NaN); embed_bag at DIEN's serve_bulk
+     2^20, also against its previous design, one launch a level, timed in
+     turns with it, and float32 at an odd n with one NaN; bfs_level, one
+     BFS level with the parent scatter-min fused, at a mid-BFS state of
+     both large graphs, dist, parent and flag, timed in turns with its plain
+     version and with the previous level, the mask kernel and the plain
+     scatter-min); embed_bag at DIEN's serve_bulk
      user profile in float32 and bf16 and at the item table's size, within
      1e-6 (float32) and 2e-2 (bf16), beside ``F.embedding_bag``; the two
      doubling kernels (one cooperative launch a call, their convergence
@@ -26,7 +31,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernels launch once per sync, and no path launches a stepwise entry):
      a. the chain kernels' own entry points, ``ops.pointer_jump_k`` and
         ``ops.list_rank_k``, as the reference's kernel benchmark rows
-        call them, at 2^24 elements;
+        call them, at 2^24 elements, and the mask kernel's,
+        ``ops.frontier_relax``, at grid2d(4096)'s mid-BFS state (the BFS
+        path runs ``bfs_level`` instead);
      b. ``rooted_spanning_tree(g, 0, method=m)`` for the three methods
         ``gconn_euler``, ``bfs`` and ``pr_rst``: first on ``chain(256)`` and
         ``rmat(6, edge_factor=4)`` (the step counts of the table1/smoke_*
@@ -36,8 +43,9 @@ Phases, in order; any failure raises and the script exits non-zero:
         ``rmat(20, edge_factor=16)`` (kron_g500-logn20 analogue) with the
         default device and kernels: trees validated, every output and
         count bit-equal to the same call with ``use_kernel=False``,
-        launches matched to the syncs, end-to-end times (gconn_euler and
-        pr_rst also with the engine on the stepwise doubling kernels, in
+        launches matched to the syncs (bfs: one ``bfs_level`` a level),
+        end-to-end times (gconn_euler and pr_rst also with the engine on
+        the stepwise doubling kernels, bfs also on the previous level, in
         turns), and one line per graph comparing the three methods (the
         paper's Fig. 1 and Fig. 2);
      c. ``biconnectivity(g, 0, rst_flavor=m)`` on ``chain(256)`` and
@@ -46,7 +54,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      d. biconnectivity on the two large graphs for the three flavors (bfs
         on ``grid2d(4096)`` through ``bcc_from_parent`` on the paths
         phase's BFS tree): every field and count bit-equal to
-        ``use_kernel=False``, segment_table launches equal to ``seg_syncs``,
+        ``use_kernel=False``, segment_table launches equal to its calls
+        (``seg_syncs`` / levels) times the launches a call,
         grid2d(4096)'s known answer (one block, no articulation point, no
         bridge), the same articulation points, bridges and block count from
         every flavor, end-to-end times (also with the engine on the
@@ -73,7 +82,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 ``--profile-out`` also writes ``torch.profiler`` tables to FILE: one
 gconn_euler and one pr_rst run per graph, one bfs run on
-``rmat(20, edge_factor=16)``, one gconn_euler ``biconnectivity`` per
+``rmat(20, edge_factor=16)`` and its first 64 levels on ``grid2d(4096)``,
+one gconn_euler ``biconnectivity`` per
 graph and one DIEN forward at ``serve_p99`` and at ``serve_bulk``.
 Without a CUDA card, or outside the repository, the script exits non-zero
 and prints no result.
@@ -107,7 +117,9 @@ QUEUE_CYCLES = 2_000_000
 E2E_RUNS = 5
 # A method whose first run on a graph takes longer than this is timed by
 # that run and the plain run of the bit-equality check alone.
-SLOW_RUN_MS = 5000.0
+SLOW_RUN_MS = 2000.0
+# BFS levels of grid2d(4096) in the profile.
+PROFILE_GRID_LEVELS = 64
 METHODS = ("gconn_euler", "bfs", "pr_rst")
 # The outputs held bit-equal, and the counts, of each method.
 FIELDS = {"gconn_euler": ("parent", "rep", "forest_mask"),
@@ -197,6 +209,32 @@ def cuda_ms_turns(torch, fns: dict, reps: int = TIMED_RUNS) -> dict:
     return {name: statistics.median(t) for name, t in times.items()}
 
 
+def cuda_ms_fresh(torch, fns: dict, fresh, reps: int = TIMED_RUNS) -> dict:
+    """Median CUDA-event timing of each of ``fns``, timed in turns (the
+    order reversed every other round) after two warm-ups of each; every
+    call gets a state of its own, ``fresh()``, made before its window.
+    For calls that end in a host read (a BFS level): the window holds the
+    host's launches and its read, as a BFS pays them, so no sleep is
+    queued in front."""
+    for fn in fns.values():
+        fn(fresh())
+        fn(fresh())
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for r in range(reps):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            state = fresh()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            fns[name](state)
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
 def bound(bytes_moved: int, ops: int):
     """Least time on the card: the larger of bytes over HBM bandwidth and
     operations over the peak rate, in ms, and which of the two it is."""
@@ -254,8 +292,10 @@ def main() -> int:
     from repro_torch.core.rst import forest_edges
     from repro_torch.data import graphs
     from repro_torch.kernels import build
-    from repro_torch.kernels.frontier_relax.ops import frontier_relax
-    from repro_torch.kernels.frontier_relax.ref import INF32
+    from repro_torch.core import bfs as bfs_module
+    from repro_torch.kernels.frontier_relax.ops import (
+        bfs_level, bfs_level_buffer, bfs_level_cooperative, frontier_relax)
+    from repro_torch.kernels.frontier_relax.ref import INF32, bfs_level_ref
     from repro_torch.kernels.hook_edges.ops import hook_edges
     from repro_torch.core import compress, connectivity
     from repro_torch.kernels.list_rank.ops import (list_rank_double_k,
@@ -263,7 +303,8 @@ def main() -> int:
                                                    list_rank_k)
     from repro_torch.kernels.pointer_jump.ops import (
         pointer_jump_double_k, pointer_jump_double_stepwise, pointer_jump_k)
-    from repro_torch.kernels.segment_table.ops import segment_table
+    from repro_torch.kernels.segment_table.ops import (
+        launches_per_call, segment_table, segment_table_stepwise)
     from repro_torch.kernels.embed_bag.ops import embed_bag
     from repro_torch.configs import get_arch
     from repro_torch.launch.train import synthetic_batches
@@ -273,11 +314,35 @@ def main() -> int:
     counters = {"pointer_jump_double": pointer_jump_double_k,
                 "list_rank_double": list_rank_double_k,
                 "hook_edges": hook_edges, "frontier_relax": frontier_relax,
+                "bfs_level": bfs_level,
                 "pointer_jump_k": pointer_jump_k, "list_rank_k": list_rank_k,
                 "segment_table": segment_table, "embed_bag": embed_bag}
-    # The previous design of the two doubling kernels: timed in phase 3,
-    # and no path may launch it.
-    yardsticks = (pointer_jump_double_stepwise, list_rank_double_stepwise)
+    # The previous designs of the two doubling kernels and of
+    # segment_table: timed in phase 3, and no path may launch them.
+    yardsticks = (pointer_jump_double_stepwise, list_rank_double_stepwise,
+                  segment_table_stepwise, bfs_level_cooperative)
+
+    def old_level(dist, parent, cand, src, dst, level, *, use_kernel):
+        """The previous BFS level on the card: the mask kernel, then the
+        plain scatter-min and updates (``bfs_level_ref``'s glue)."""
+        return bfs_level_ref(dist, parent, src, dst, level,
+                             active=frontier_relax(dist, src, dst, level,
+                                                   use_kernel=True))
+
+    def cooperative_level(dist, parent, cand, src, dst, level, *,
+                          use_kernel):
+        return bfs_level_cooperative(dist, parent, cand, src, dst, level)
+
+    def on_level(level_fn, fn):
+        """``fn()`` with the BFS on another level (``old_level`` or
+        ``cooperative_level``), for an end-to-end comparison in the same run;
+        never inside a counted run."""
+        real = bfs_module.bfs_level
+        bfs_module.bfs_level = level_fn
+        try:
+            return fn()
+        finally:
+            bfs_module.bfs_level = real
 
     def on_stepwise(fn):
         """``fn()`` with the engine on the previous design of the doubling
@@ -542,8 +607,8 @@ def main() -> int:
     verts = torch.arange(n, dtype=torch.int32, device=dev)
     manhattan = verts // GRID_SIDE + verts % GRID_SIDE
     grid_dist = torch.where(manhattan <= level, manhattan, INF32)
-    _, rmat_dist, rmat_level = bfs_rst(rmat, 0, max_levels=2,
-                                       use_kernel=False)
+    rmat_parent, rmat_dist, rmat_level = bfs_rst(rmat, 0, max_levels=2,
+                                                 use_kernel=False)
     rmat_level += 1
     fr = {}
     err = 0
@@ -569,11 +634,83 @@ def main() -> int:
           **kernel_line(rows["frontier_relax"]),
           "frontier_edges": fr["grid"]["frontier_edges"],
           **{f"rmat_{k}": v for k, v in kernel_line(fr["rmat"]).items()}})
-    del verts, manhattan, grid_dist, rmat_dist, got, want
+    del got, want
+
+    # bfs_level at the same two states (the grid's parents by its closed
+    # form: the vertex above, else the one to the left), against its plain
+    # version and the previous level (the mask kernel and the plain
+    # scatter-min), each on a fresh copy of the state: dist, parent and the
+    # flag bit-equal, timed in turns. Bound: the bytes this state needs (src
+    # whole, dst of the frontier's edges, dist once, cand of the
+    # undiscovered, the discovered's dist, parent and cand written); the
+    # 8E + 12n of reading every input once is given beside it.
+    grid_parent = torch.where(
+        manhattan <= level,
+        torch.where(verts >= GRID_SIDE, verts - GRID_SIDE, verts - 1), -1)
+    grid_parent[0] = 0
+    bl, err = {}, 0
+    for label, g, d, par, lvl in (
+            ("grid", grid, grid_dist, grid_parent, level),
+            ("rmat", rmat, rmat_dist, rmat_parent, rmat_level)):
+        def fresh(d=d, par=par, n_g=g.n_nodes):
+            return d.clone(), par.clone(), bfs_level_buffer(n_g, dev)
+        fns = {
+            "kernel": lambda st, g=g, lvl=lvl: bfs_level(
+                *st, g.src, g.dst, lvl, use_kernel=True),
+            "plain": lambda st, g=g, lvl=lvl: bfs_level(
+                *st, g.src, g.dst, lvl, use_kernel=False),
+            "old_level": lambda st, g=g, lvl=lvl: old_level(
+                *st, g.src, g.dst, lvl, use_kernel=True),
+            "cooperative": lambda st, g=g, lvl=lvl: bfs_level_cooperative(
+                *st, g.src, g.dst, lvl)}
+        outs = {}
+        for name, fn in fns.items():
+            st = fresh()
+            outs[name] = (st[0], st[1], fn(st))
+        for name in ("kernel", "old_level", "cooperative"):
+            err = max(err, max_abs_err(torch, outs[name][0], outs["plain"][0]),
+                      max_abs_err(torch, outs[name][1], outs["plain"][1]))
+            check(outs[name][2] == outs["plain"][2],
+                  f"bfs_level {label}: the {name} flag differs from the "
+                  "plain version's")
+        check(outs["kernel"][2], f"bfs_level {label}: nothing discovered")
+        ms = cuda_ms_fresh(torch, fns, fresh)
+        e_g, n_g = g.n_half_edges, g.n_nodes
+        frontier = int((d[g.src] == lvl).sum())
+        undiscovered = int((d == INF32).sum())
+        discovered = int((outs["kernel"][0] == lvl + 1).sum())
+        b_ms, b_by = bound(4 * e_g + 4 * frontier + 4 * n_g
+                           + 4 * undiscovered + 12 * discovered, 3 * e_g)
+        bl[label] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                         old_level_ms=ms["old_level"],
+                         cooperative_ms=ms["cooperative"], library_ms=None,
+                         bound_ms=b_ms, bound_by=b_by,
+                         bound_8e_12n_ms=bound(8 * e_g + 12 * n_g, 0)[0],
+                         level=int(lvl), frontier_edges=frontier,
+                         undiscovered=undiscovered, discovered=discovered)
+        del outs, st
+    check(err == 0, f"bfs_level differs from plain by {err}")
+    rows["bfs_level"] = {**{k: bl["grid"][k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "max_abs_err": err}
+    emit({"kernel": "bfs_level", "n_half_edges": e, "n_nodes": n,
+          "card": card,
+          "input": "grid2d(4096) at BFS level 4095 from vertex 0 (rmat_*: "
+                   "rmat(20, 16) after 2 levels); a fresh state a call, the "
+                   "flag's host read included; old_level: the mask kernel "
+                   "and the plain scatter-min; cooperative: both passes in "
+                   "one cooperative launch",
+          **kernel_line(rows["bfs_level"]),
+          **{k: v for k, v in bl["grid"].items()
+             if k not in rows["bfs_level"]},
+          **{f"rmat_{k}": v for k, v in kernel_line(bl["rmat"]).items()}})
+    del verts, manhattan, grid_dist, grid_parent, rmat_dist, rmat_parent
 
     # segment_table at the BCC path's shapes: int32 at grid2d(4096)'s n
-    # (2^24, 24 levels) and rmat(20, 16)'s (2^20, 20 levels), min and max;
-    # and float32 at an odd n with one NaN, which must propagate.
+    # (2^24, 24 levels) and rmat(20, 16)'s (2^20, 20 levels), min and max,
+    # against the plain version and the previous design (one launch a
+    # level), timed in turns with both behind a sleep; and float32 at an odd
+    # n with one NaN, which must propagate.
     st = {}
     err = 0
     for label, size in (("grid", n), ("rmat", rmat.n_nodes)):
@@ -581,38 +718,56 @@ def main() -> int:
                              device=dev, dtype=torch.int32)
         lv = (size - 1).bit_length()
         for op in ("min", "max"):
+            want = segment_table(vals, levels=lv, op=op, use_kernel=False)
             err = max(err, max_abs_err(
                 torch, segment_table(vals, levels=lv, op=op, use_kernel=True),
-                segment_table(vals, levels=lv, op=op, use_kernel=False)))
+                want), max_abs_err(torch, segment_table_stepwise(
+                    vals, levels=lv, op=op), want))
+        ms = cuda_ms_turns(torch, {
+            "kernel": lambda v=vals, lv=lv: segment_table(
+                v, levels=lv, op="min", use_kernel=True),
+            "stepwise": lambda v=vals, lv=lv: segment_table_stepwise(
+                v, levels=lv, op="min"),
+            "plain": lambda v=vals, lv=lv: segment_table(
+                v, levels=lv, op="min", use_kernel=False)})
         st[label] = dict(
-            ms=cuda_ms(torch, lambda: segment_table(
-                vals, levels=lv, op="min", use_kernel=True)),
-            plain_ms=cuda_ms(torch, lambda: segment_table(
-                vals, levels=lv, op="min", use_kernel=False)),
-            library_ms=None,
+            ms=ms["kernel"], plain_ms=ms["plain"],
+            stepwise_ms=ms["stepwise"], library_ms=None,
             **dict(zip(("bound_ms", "bound_by"),
-                       bound(4 * size * (lv + 2), lv * size))))
+                       bound(4 * size * (lv + 2), lv * size))),
+            launches_per_call=launches_per_call(size, lv))
     n_odd = (1 << 20) + 1
     fvals = torch.randn(n_odd, generator=gen, device=dev)
     fvals[n_odd // 3] = float("nan")
     lv = (n_odd - 1).bit_length()
     for op in ("min", "max"):
-        got = segment_table(fvals, levels=lv, op=op, use_kernel=True)
         want = segment_table(fvals, levels=lv, op=op, use_kernel=False)
         nan = want.isnan()
-        check(torch.equal(got.isnan(), nan) and int(nan.sum()) > 0,
-              f"segment_table float32 {op}: NaN not where the plain "
-              "version has it")
-        check(torch.equal(got[~nan].view(torch.int32),
-                          want[~nan].view(torch.int32)),
-              f"segment_table float32 {op} differs from plain")
+        for name, got in (
+                ("kernel", segment_table(fvals, levels=lv, op=op,
+                                         use_kernel=True)),
+                ("stepwise", segment_table_stepwise(fvals, levels=lv,
+                                                    op=op))):
+            check(torch.equal(got.isnan(), nan) and int(nan.sum()) > 0,
+                  f"segment_table float32 {op}: the {name}'s NaN not where "
+                  "the plain version has it")
+            check(torch.equal(got[~nan].view(torch.int32),
+                              want[~nan].view(torch.int32)),
+                  f"segment_table float32 {op}: the {name} differs from "
+                  "plain")
     check(err == 0, f"segment_table differs from plain by {err}")
-    rows["segment_table"] = {**st["grid"], "max_abs_err": err}
+    rows["segment_table"] = {**{k: st["grid"][k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "max_abs_err": err}
     emit({"kernel": "segment_table", "n": n, "levels": (n - 1).bit_length(),
+          "card": card,
           "input": "random int32 at grid2d(4096)'s n, op min (rmat_*: "
-                   "rmat(20, 16)'s n); float32 with one NaN at n = 2^20 + 1 "
-                   "checked, min and max",
+                   "rmat(20, 16)'s n); stepwise: the previous design; "
+                   "float32 with one NaN at n = 2^20 + 1 checked, min and "
+                   "max",
           **kernel_line(rows["segment_table"]),
+          **{k: v for k, v in st["grid"].items()
+             if k not in rows["segment_table"]},
           **{f"rmat_{k}": v for k, v in kernel_line(st["rmat"]).items()}})
     del vals, fvals, got, want, nan
 
@@ -693,7 +848,8 @@ def main() -> int:
 
     # 5a. The chain kernels' own entry points, as the reference's
     # kernels/pointer_jump_*_x5 and list_rank_*_x5 rows call them: a
-    # random table, and one list over every element.
+    # random table, and one list over every element; and the mask kernel's,
+    # at grid2d(4096)'s state after level 4095.
     launches = dict.fromkeys(counters, 0)
     p_rand = torch.randint(0, n_tab, (n_tab,), generator=gen, device=dev,
                            dtype=torch.int32)
@@ -701,21 +857,29 @@ def main() -> int:
     succ[-1] = -1
     d0 = torch.ones(n_tab, dtype=torch.int32, device=dev)
     d0[-1] = 0
+    verts = torch.arange(n, dtype=torch.int32, device=dev)
+    manhattan = verts // GRID_SIDE + verts % GRID_SIDE
+    mid = torch.where(manhattan <= GRID_SIDE - 1, manhattan, INF32)
     zero_counts()
     out_p = pointer_jump_k(p_rand)
     out_s, out_d = list_rank_k(succ, d0)
+    mask = frontier_relax(mid, grid.src, grid.dst, GRID_SIDE - 1)
     ops_path = read_counts()
-    check(ops_path["pointer_jump_k"] == 1 and ops_path["list_rank_k"] == 1,
-          f"the chain kernels' entry points launched {ops_path}")
+    check(ops_path == {**dict.fromkeys(counters, 0), "pointer_jump_k": 1,
+                       "list_rank_k": 1, "frontier_relax": 1},
+          f"the kernels' own entry points launched {ops_path}")
     check(torch.equal(out_p, pointer_jump_k(p_rand, use_kernel=False))
           and torch.equal(out_s, list_rank_k(succ, d0, use_kernel=False)[0])
-          and torch.equal(out_d, list_rank_k(succ, d0, use_kernel=False)[1]),
-          "the chain kernels' entry points differ from the plain path")
+          and torch.equal(out_d, list_rank_k(succ, d0, use_kernel=False)[1])
+          and torch.equal(mask, frontier_relax(mid, grid.src, grid.dst,
+                                               GRID_SIDE - 1,
+                                               use_kernel=False)),
+          "the kernels' own entry points differ from the plain path")
     for name in launches:
         launches[name] += ops_path[name]
-    emit({"path": "ops.pointer_jump_k, ops.list_rank_k", "n": n_tab,
-          "launches": {k: v for k, v in ops_path.items() if v}})
-    del p_rand, succ, d0, out_p, out_s, out_d
+    emit({"path": "ops.pointer_jump_k, ops.list_rank_k, ops.frontier_relax",
+          "n": n_tab, "launches": {k: v for k, v in ops_path.items() if v}})
+    del p_rand, succ, d0, out_p, out_s, out_d, verts, manhattan, mid, mask
 
     # 5b. The three methods on two small graphs: the step counts of the
     # table1/smoke_* rows, and the card's tree against the port's run on
@@ -764,7 +928,7 @@ def main() -> int:
                         list_rank_double=r.rank_syncs,
                         hook_edges=r.steps + 1)
         elif method == "bfs":
-            want.update(frontier_relax=r.steps + 1)
+            want.update(bfs_level=r.steps + 1)
         else:
             want.update(pointer_jump_double=r.compress_syncs)
         return want
@@ -801,12 +965,31 @@ def main() -> int:
                 if method != "bfs":
                     runs["stepwise"] = lambda: on_stepwise(
                         lambda: timed(g, method, None)[1])
+                else:
+                    for name, fn in (("old_level", old_level),
+                                     ("cooperative", cooperative_level)):
+                        runs[name] = lambda fn=fn: on_level(
+                            fn, lambda: timed(g, method, None)[1])
                 e2e = in_turns(runs)
                 kernel_ms, plain_ms = e2e["kernel"], e2e["plain"]
                 stepwise_ms = e2e.get("stepwise", [])
+                levels_ms = {k: e2e[k] for k in ("old_level", "cooperative")
+                             if k in e2e}
                 timing = "5 interleaved runs"
             else:
                 kernel_ms, plain_ms = [first_ms], [plain_first_ms]
+                levels_ms = {}
+                if method == "bfs":
+                    for name, fn in (("old_level", old_level),
+                                     ("cooperative", cooperative_level)):
+                        other, ms = on_level(
+                            fn, lambda: timed(g, method, None))
+                        check(torch.equal(other.parent, r.parent)
+                              and torch.equal(other.dist, r.dist)
+                              and other.steps == r.steps,
+                              f"{label} bfs: the {name} level's tree differs")
+                        levels_ms[name] = [ms]
+                        del other
                 timing = "the counted run and the bit-equality check's run"
             depth = tree_depth(r.parent)
             summary[label][method] = (statistics.median(kernel_ms), depth,
@@ -825,6 +1008,9 @@ def main() -> int:
                   **({"stepwise_e2e_ms_median": statistics.median(
                       stepwise_ms), "stepwise_e2e_ms": stepwise_ms}
                      if stepwise_ms else {}),
+                  **{f"{k}_e2e_ms_median": statistics.median(v)
+                     for k, v in levels_ms.items()},
+                  **{f"{k}_e2e_ms": v for k, v in levels_ms.items()},
                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                   "valid": verdict["all_ok"], "card": card})
             if method == "bfs":
@@ -909,8 +1095,11 @@ def main() -> int:
             need = ["pointer_jump_double", "list_rank_double", "hook_edges",
                     "segment_table"]
             if entry.startswith("biconnectivity") and method == "bfs":
-                need.append("frontier_relax")
-            check(got["segment_table"] == r.seg_syncs
+                need.append("bfs_level")
+            # Two tables (low and high) of seg_syncs / 2 levels each.
+            lv = r.seg_syncs // 2
+            check(got["segment_table"] == 2 * launches_per_call(g.n_nodes, lv)
+                  and got["frontier_relax"] == 0
                   and all(got[k] > 0 for k in need),
                   f"{label} bcc {method}: launches {got}, seg_syncs "
                   f"{r.seg_syncs}")
@@ -1002,8 +1191,8 @@ def main() -> int:
     got = read_counts()
     for name in launches:
         launches[name] += got[name]
-    check(got["segment_table"] == 2 * (n - 1).bit_length(),
-          f"queries: launches {got}")
+    check(got["segment_table"] == 2 * launches_per_call(
+              n, (n - 1).bit_length()), f"queries: launches {got}")
     for op in ("min", "max"):
         check(torch.equal(answers[f"subtree_agg_{op}"],
                           queries.subtree_agg(tables, u, pay_f, op,
@@ -1055,6 +1244,9 @@ def main() -> int:
         for label, g, method in runs:
             profiles.append(profiled(f"{label} {method}", lambda g=g, m=method:
                                      rooted_spanning_tree(g, 0, method=m)))
+        profiles.append(profiled(
+            f"{cases[0][0]} bfs, first {PROFILE_GRID_LEVELS} levels",
+            lambda: bfs_rst(grid, 0, max_levels=PROFILE_GRID_LEVELS)))
         for label, g, _ in cases:
             profiles.append(profiled(f"{label} biconnectivity gconn_euler",
                                      lambda g=g: biconnectivity(g, 0)))
@@ -1163,6 +1355,8 @@ def main() -> int:
                        f"{tdir}/hook_edges/hook_edges.py:30"),
         "frontier_relax": (f"{kdir}/frontier_relax/csrc/frontier_relax.cu",
                            f"{tdir}/frontier_relax/frontier_relax.py:26"),
+        "bfs_level": (f"{kdir}/frontier_relax/csrc/frontier_relax.cu",
+                      f"{tdir}/frontier_relax/frontier_relax.py:26"),
         "pointer_jump_k": (f"{kdir}/pointer_jump/csrc/pointer_jump.cu",
                            f"{tdir}/pointer_jump/pointer_jump.py:33"),
         "list_rank_k": (f"{kdir}/list_rank/csrc/list_rank.cu",

@@ -1,13 +1,13 @@
 """Edge-centric BFS rooted spanning tree (the paper's baseline, §III-A).
 
-The port of ``repro.core.bfs``: every level relaxes *all* half-edges with
-dense ops. The ``frontier_relax`` kernel (one launch per level) marks the
-half-edges whose source is on the frontier and whose destination is
-undiscovered; a deterministic scatter-min then gives each newly discovered
-vertex its smallest proposing source as parent. The reference's
-``lax.while_loop`` becomes a host loop with one convergence read per level
-(``bool(torch.any(discovered))``): the Θ(diam(G)) round trips the paper
-charges to BFS.
+The port of ``repro.core.bfs``: every level relaxes *all* half-edges. Each
+undiscovered vertex with an edge from the frontier takes the smallest
+proposing source as its parent (the reference's deterministic scatter-min).
+On the card one ``bfs_level`` call runs the level (the mask, the min and
+the updates in two launches, no temporary); on the CPU its plain version
+runs the reference's dense ops. The reference's ``lax.while_loop`` becomes
+a host loop with one convergence read per level (the level's flag): the
+Θ(diam(G)) round trips the paper charges to BFS.
 
 Returns (parent, dist, levels): ``parent[root] == root``; unreachable
 vertices keep ``parent == -1`` and ``dist == INF32``.
@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.graph import Graph
-from repro_torch.kernels.frontier_relax.ops import frontier_relax
+from repro_torch.kernels.frontier_relax.ops import bfs_level, bfs_level_buffer
 
 INF32 = torch.iinfo(torch.int32).max
 
@@ -30,8 +30,8 @@ def bfs_rst(graph: Graph, root, *, max_levels: int | None = None,
       graph: Graph (paired half-edges).
       root: vertex id.
       max_levels: optional bound on loop bodies (defaults to n_nodes).
-      use_kernel: the per-level relaxation through the ``frontier_relax``
-        kernel (see ``repro_torch.kernels.kernel_wanted``).
+      use_kernel: each level through the ``bfs_level`` kernel (see
+        ``repro_torch.kernels.kernel_wanted``).
 
     Returns:
       parent: int32[n] parent array (-1 = unreachable, parent[root] = root).
@@ -49,25 +49,11 @@ def bfs_rst(graph: Graph, root, *, max_levels: int | None = None,
     parent = torch.full((n,), -1, dtype=torch.int32, device=dev)
     parent[root] = root
 
-    # Graph constants, hoisted out of the level loop. Edges off the frontier
-    # scatter the min's identity into n extra slots spread by edge id, cut
-    # off after: sent to their own destination, as in the reference, a
-    # power-law hub would take ~10^5 atomics on one address every level.
-    dst64 = dst.long()
-    drop = n + torch.arange(src.numel(), dtype=torch.int64,
-                            device=dev) % max(n, 1)
-
+    cand = bfs_level_buffer(n, dev)
     bound = n if max_levels is None else max_levels
     level, changed = 0, True
     while changed and level < bound:
-        active = frontier_relax(dist, src, dst, level, use_kernel=use_kernel)
-        winner = torch.full((2 * n,), INF32, dtype=torch.int32, device=dev)
-        winner.scatter_reduce_(0, torch.where(active, dst64, drop),
-                               torch.where(active, src, INF32), "amin")
-        winner = winner[:n]
-        discovered = winner != INF32
-        parent = torch.where(discovered, winner, parent)
-        dist = torch.where(discovered, level + 1, dist)
-        changed = bool(torch.any(discovered))
+        changed = bfs_level(dist, parent, cand, src, dst, level,
+                            use_kernel=use_kernel)
         level += 1
     return parent, dist, level - 1

@@ -32,7 +32,8 @@ import torch
 from repro_torch.kernels.list_rank.ops import list_rank_double_k
 from repro_torch.kernels.pointer_jump.ops import pointer_jump_double_k
 from repro_torch.kernels.segment_table.ops import segment_table
-from repro_torch.kernels.segment_table.ref import segment_table_ref
+from repro_torch.kernels.segment_table.ref import (maximum, minimum,
+                                                   segment_table_ref)
 
 NO_SUCC = -1
 
@@ -95,7 +96,7 @@ def compress_scoped(p: torch.Tensor, active: torch.Tensor, **kwargs):
     return compress_full(torch.where(active, p, verts), **kwargs)
 
 
-_COMBINE = {"add": torch.add, "min": torch.minimum, "max": torch.maximum}
+_COMBINE = {"add": torch.add, "min": minimum, "max": maximum}
 
 
 def reduce_to_root(parent: torch.Tensor, payload: torch.Tensor,

@@ -1,14 +1,15 @@
-// BFS frontier expansion mask for one level:
-//   mask[e] = (dist[src[e]] == level) && (dist[dst[e]] == INT32_MAX)
+// Two entries for the edge-centric BFS:
+//   frontier_relax: the expansion mask of one level,
+//     mask[e] = (dist[src[e]] == level) && (dist[dst[e]] == INT32_MAX);
+//   bfs_level: the whole level, the parent scatter-min fused in.
 //
-// Replaces the TPU kernel `_frontier_relax_kernel` / `frontier_relax_pallas`
-// in src/repro/kernels/frontier_relax/frontier_relax.py. That kernel holds
-// the whole dist table in VMEM, walks the edge list in (8, 128) tiles padded
-// with vertex-0 edges, and writes an int32 mask that its wrapper casts to
-// bool and slices. Here one thread handles one half-edge and writes a byte
-// (a torch.bool), and the grid masks the ragged end, so no pad edge exists.
-// The deterministic parent scatter-min stays outside the kernel, as on the
-// TPU (core/bfs.py).
+// frontier_relax replaces the TPU kernel `_frontier_relax_kernel` /
+// `frontier_relax_pallas` in src/repro/kernels/frontier_relax/frontier_relax.py.
+// That kernel holds the whole dist table in VMEM, walks the edge list in
+// (8, 128) tiles padded with vertex-0 edges, and writes an int32 mask that its
+// wrapper casts to bool and slices. Here one thread handles one half-edge and
+// writes a byte (a torch.bool), and the grid masks the ragged end, so no pad
+// edge exists.
 //
 // Bound on the H100: memory. Per half-edge: two coalesced 4-byte reads
 // (src, dst), one random 4-byte gather of dist[src] (a 32-byte sector per
@@ -17,13 +18,44 @@
 // issued only where the source is on the frontier, which on a BFS level is
 // a small share of the edges; the dst read itself is coalesced either way.
 // `level` comes by value from the host: no device scalar, no extra copy.
+//
+// bfs_level does what the TPU path leaves to XLA around that kernel (the
+// mask, a scatter-min of the proposals, the parent and dist updates and the
+// "anything discovered" reduction) in two launches and no temporary:
+//   * edge pass: for every half-edge with dist[src] == level and
+//     dist[dst] == INT32_MAX, atomicMin(&cand[dst], src). No thread writes
+//     dist during the pass, and min does not depend on the order of the
+//     atomics, so each vertex gets the smallest proposing source: the
+//     reference's scatter-min, bit for bit. cand[dst] is read first and the
+//     atomic skipped when it is already <= src, since a power-law hub can be
+//     the destination of ~10^5 proposals in one level. dst is loaded only
+//     for the threads whose source is on the frontier: inactive threads of a
+//     warp fetch no sector of it, so on a high-diameter graph a level reads
+//     src and the dist gathers and little else of the edges;
+//   * vertex pass: every v with dist[v] == INT32_MAX and cand[v] != INT32_MAX
+//     gets dist = level + 1 and parent = cand[v]; a warp that discovers any
+//     vertex stores level + 1 into the flag word. The host reads that word
+//     once a level, the same round trip as the reference's while_loop.
+// cand (int32[n], INT32_MAX at the start of a BFS) is kept across levels: a
+// vertex receives proposals only in the level that discovers it, because
+// from then on its dist is no longer INT32_MAX, so no reset is needed. The
+// flag needs no reset either: it holds the last level + 1 that discovered
+// anything. The launch boundary between the passes is the grid-wide barrier.
+// Bound: memory, src and dst read once (8E bytes) and dist, cand and the
+// vertex pass (12n bytes), less where a pass reads only what the data needs.
 #include <climits>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kEdgesPerThread = 4;
+constexpr int kCoopThreads = 1024;
+constexpr int kMaxDevices = 64;
 
 __global__ void frontier_relax_kernel(const int32_t* __restrict__ src,
                                       const int32_t* __restrict__ dst,
@@ -35,6 +67,101 @@ __global__ void frontier_relax_kernel(const int32_t* __restrict__ src,
   const int32_t d_src = __ldg(dist + __ldg(src + e));
   const int32_t v = __ldg(dst + e);
   mask[e] = d_src == level && __ldg(dist + v) == INT_MAX;
+}
+
+// kEdgesPerThread half-edges a thread, a block's worth apart, so that each
+// load instruction of a warp is coalesced and a thread has that many
+// gathers in flight.
+__global__ void bfs_edge_pass(const int32_t* __restrict__ src,
+                              const int32_t* __restrict__ dst,
+                              const int32_t* __restrict__ dist,
+                              int32_t* cand, int64_t n_edges, int32_t level) {
+  const int64_t base =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x * kEdgesPerThread +
+      threadIdx.x;
+  int32_t s[kEdgesPerThread];
+  bool on[kEdgesPerThread];
+#pragma unroll
+  for (int u = 0; u < kEdgesPerThread; ++u) {
+    const int64_t e = base + u * blockDim.x;
+    s[u] = e < n_edges ? __ldg(src + e) : -1;
+  }
+#pragma unroll
+  for (int u = 0; u < kEdgesPerThread; ++u)
+    on[u] = s[u] >= 0 && __ldg(dist + s[u]) == level;
+#pragma unroll
+  for (int u = 0; u < kEdgesPerThread; ++u) {
+    if (!on[u]) continue;
+    const int32_t v = __ldg(dst + base + u * blockDim.x);
+    // cand is written by this launch's atomics: a plain load. A stale value
+    // is never below the current one (values only fall), so the skip stays
+    // right.
+    if (__ldg(dist + v) == INT_MAX && cand[v] > s[u]) atomicMin(cand + v, s[u]);
+  }
+}
+
+__global__ void bfs_vertex_pass(int32_t* __restrict__ dist,
+                                int32_t* __restrict__ parent,
+                                const int32_t* __restrict__ cand,
+                                int32_t* __restrict__ flag, int32_t n,
+                                int32_t level) {
+  const int64_t v = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  bool found = false;
+  if (v < n && dist[v] == INT_MAX) {
+    const int32_t c = cand[v];
+    if (c != INT_MAX) {
+      dist[v] = level + 1;
+      parent[v] = c;
+      found = true;
+    }
+  }
+  if (__ballot_sync(0xffffffffu, found) != 0 && (threadIdx.x & 31) == 0)
+    *flag = level + 1;
+}
+
+// The same level as one cooperative launch: both passes as grid-stride
+// loops over the co-resident grid, a grid.sync() between them. cand is read
+// with plain loads (the barrier's acquire orders the atomics before them).
+__global__ void __launch_bounds__(kCoopThreads)
+bfs_level_coop(const int32_t* __restrict__ src,
+               const int32_t* __restrict__ dst, int32_t* dist,
+               int32_t* parent, int32_t* cand, int64_t n_edges, int32_t n,
+               int32_t level) {
+  cg::grid_group grid = cg::this_grid();
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (int64_t base = first; base < n_edges; base += stride * kEdgesPerThread) {
+    int32_t s[kEdgesPerThread];
+    bool on[kEdgesPerThread];
+#pragma unroll
+    for (int u = 0; u < kEdgesPerThread; ++u) {
+      const int64_t e = base + u * stride;
+      s[u] = e < n_edges ? __ldg(src + e) : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kEdgesPerThread; ++u)
+      on[u] = s[u] >= 0 && dist[s[u]] == level;
+#pragma unroll
+    for (int u = 0; u < kEdgesPerThread; ++u) {
+      if (!on[u]) continue;
+      const int32_t v = __ldg(dst + base + u * stride);
+      if (dist[v] == INT_MAX && cand[v] > s[u]) atomicMin(cand + v, s[u]);
+    }
+  }
+  grid.sync();
+  bool found = false;
+  for (int64_t v = first; v < n; v += stride) {
+    if (dist[v] == INT_MAX) {
+      const int32_t c = cand[v];
+      if (c != INT_MAX) {
+        dist[v] = level + 1;
+        parent[v] = c;
+        found = true;
+      }
+    }
+  }
+  if (__ballot_sync(0xffffffffu, found) != 0 && (threadIdx.x & 31) == 0)
+    cand[n] = level + 1;
 }
 
 }  // namespace
@@ -57,4 +184,73 @@ extern "C" int frontier_relax(const void* src, const void* dst,
       static_cast<const int32_t*>(dist), static_cast<uint8_t*>(mask), n_edges,
       level);
   return cudaGetLastError();
+}
+
+// One BFS level in place. src, dst: int32[n_edges] with entries in [0, n);
+// dist, parent: int32[n]; cand: int32[n + 1], slots [0, n) INT32_MAX at the
+// BFS's start and kept across its levels, slot n the flag word (level + 1
+// after a level that discovered a vertex); all on `device`, 1 <= n < 2^31.
+// Two launches on `stream` (the edge pass only when n_edges > 0). Returns
+// the first CUDA error (0 on success).
+extern "C" int bfs_level(const void* src, const void* dst, void* dist,
+                         void* parent, void* cand, int64_t n_edges, int n,
+                         int level, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const auto s = static_cast<cudaStream_t>(stream);
+  auto* dist_arg = static_cast<int32_t*>(dist);
+  auto* cand_arg = static_cast<int32_t*>(cand);
+  if (n_edges > 0) {
+    const int64_t per_block = int64_t{kThreads} * kEdgesPerThread;
+    const auto blocks = static_cast<unsigned>((n_edges + per_block - 1) / per_block);
+    bfs_edge_pass<<<blocks, kThreads, 0, s>>>(
+        static_cast<const int32_t*>(src), static_cast<const int32_t*>(dst),
+        dist_arg, cand_arg, n_edges, level);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const auto blocks = static_cast<unsigned>((int64_t{n} + kThreads - 1) / kThreads);
+  bfs_vertex_pass<<<blocks, kThreads, 0, s>>>(
+      dist_arg, static_cast<int32_t*>(parent), cand_arg, cand_arg + n, n,
+      level);
+  return cudaGetLastError();
+}
+
+// The same contract as bfs_level, in one cooperative launch on the
+// co-resident grid of bfs_level_coop (or fewer blocks where the level needs
+// fewer). Returns the first CUDA error (0 on success).
+extern "C" int bfs_level_cooperative(const void* src, const void* dst,
+                                     void* dist, void* parent, void* cand,
+                                     int64_t n_edges, int n, int level,
+                                     int device, void* stream) {
+  static int resident[kMaxDevices];
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (resident[device] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, bfs_level_coop, kCoopThreads, 0);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    resident[device] = per_sm * sms;
+  }
+  const int64_t work = n_edges / kEdgesPerThread > n ? n_edges / kEdgesPerThread : n;
+  const int64_t need = (work + kCoopThreads - 1) / kCoopThreads;
+  const int blocks = static_cast<int>(need < resident[device] ? (need > 0 ? need : 1)
+                                                              : resident[device]);
+  const int32_t* src_arg = static_cast<const int32_t*>(src);
+  const int32_t* dst_arg = static_cast<const int32_t*>(dst);
+  int32_t* dist_arg = static_cast<int32_t*>(dist);
+  int32_t* parent_arg = static_cast<int32_t*>(parent);
+  int32_t* cand_arg = static_cast<int32_t*>(cand);
+  int32_t n_arg = n, level_arg = level;
+  void* args[] = {&src_arg, &dst_arg, &dist_arg, &parent_arg, &cand_arg,
+                  &n_edges, &n_arg, &level_arg};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(bfs_level_coop),
+                                    dim3(blocks), dim3(kCoopThreads), args, 0,
+                                    static_cast<cudaStream_t>(stream));
+  cudaGetLastError();
+  return err;
 }

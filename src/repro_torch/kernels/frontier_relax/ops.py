@@ -1,7 +1,9 @@
-"""Wrapper for the frontier_relax kernel (``csrc/frontier_relax.cu``).
+"""Wrappers for the frontier_relax kernels (``csrc/frontier_relax.cu``).
 
-One launch per call, which is one per BFS level; ``frontier_relax.launches``
-counts them.
+``frontier_relax`` is the expansion mask of one BFS level, one launch a
+call. ``bfs_level`` is the whole level, the parent scatter-min fused in,
+which ``repro_torch.core.bfs.bfs_rst`` calls once a level. Each wrapper's
+``.launches`` counts its calls that launched.
 """
 from __future__ import annotations
 
@@ -10,10 +12,19 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, check_int32_cuda, kernel_wanted
-from repro_torch.kernels.frontier_relax.ref import frontier_relax_ref
+from repro_torch.kernels.frontier_relax.ref import (INF32, bfs_level_ref,
+                                                    frontier_relax_ref)
 
-_ARGTYPES = {"frontier_relax": [ctypes.c_void_p] * 4 + [
-    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+_ARGTYPES = {
+    "frontier_relax": [ctypes.c_void_p] * 4 + [
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "bfs_level": [ctypes.c_void_p] * 5 + [
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p],
+    "bfs_level_cooperative": [ctypes.c_void_p] * 5 + [
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p],
+}
 
 
 def frontier_relax(dist: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
@@ -47,3 +58,66 @@ def frontier_relax(dist: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
 
 
 frontier_relax.launches = 0
+
+
+def bfs_level_buffer(n: int, device) -> torch.Tensor:
+    """The int32[n + 1] buffer one BFS's ``bfs_level`` calls share: every
+    slot INF32 (no proposal yet; slot n is the kernel's level flag)."""
+    return torch.full((n + 1,), INF32, dtype=torch.int32, device=device)
+
+
+def bfs_level(dist: torch.Tensor, parent: torch.Tensor, cand: torch.Tensor,
+              src: torch.Tensor, dst: torch.Tensor, level: int, *,
+              use_kernel: bool | None = None) -> bool:
+    """One level of the edge-centric BFS, in place on int32[n] ``dist`` and
+    ``parent``; returns whether it discovered a vertex.
+
+    Every undiscovered vertex with a half-edge from level ``level`` gets
+    ``dist = level + 1`` and the smallest such source as its parent.
+    ``cand`` is ``bfs_level_buffer(n, device)``, made once per BFS and
+    passed to each of its levels: the kernel's proposals and its flag (the
+    plain version does not use it). ``src``/``dst`` entries must lie in
+    ``[0, n)``. One host read a level, of the flag. ``use_kernel`` follows
+    ``repro_torch.kernels.kernel_wanted``.
+    """
+    if not kernel_wanted(src, use_kernel):
+        return bfs_level_ref(dist, parent, src, dst, level)
+    check_int32_cuda("bfs_level", src, dst, dist, parent, cand)
+    n, e = dist.numel(), src.numel()
+    if dst.numel() != e or parent.numel() != n or cand.numel() != n + 1:
+        raise ValueError(
+            f"bfs_level: src {e}, dst {dst.numel()}, dist {n}, parent "
+            f"{parent.numel()} and cand {cand.numel()} entries (want "
+            "dst == src, parent == dist, cand == dist + 1)")
+    if n == 0:
+        return False
+    _launch_level("bfs_level", dist, parent, cand, src, dst, level)
+    bfs_level.launches += 1
+    return int(cand[n]) == level + 1
+
+
+bfs_level.launches = 0
+
+
+def _launch_level(symbol, dist, parent, cand, src, dst, level):
+    fn = build.function("frontier_relax", symbol, _ARGTYPES[symbol])
+    rc = fn(src.data_ptr(), dst.data_ptr(), dist.data_ptr(),
+            parent.data_ptr(), cand.data_ptr(), src.numel(), dist.numel(),
+            int(level), src.device.index,
+            torch.cuda.current_stream(src.device).cuda_stream)
+    build.check("frontier_relax", rc)
+
+
+def bfs_level_cooperative(dist: torch.Tensor, parent: torch.Tensor,
+                          cand: torch.Tensor, src: torch.Tensor,
+                          dst: torch.Tensor, level: int) -> bool:
+    """``bfs_level`` on the card as one cooperative launch (the two passes
+    with a ``grid.sync()`` between them). Same values; a yardstick only."""
+    check_int32_cuda("bfs_level_cooperative", src, dst, dist, parent, cand)
+    _launch_level("bfs_level_cooperative", dist, parent, cand, src, dst,
+                  level)
+    bfs_level_cooperative.launches += 1
+    return int(cand[dist.numel()]) == level + 1
+
+
+bfs_level_cooperative.launches = 0

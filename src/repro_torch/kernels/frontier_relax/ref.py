@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the frontier_relax kernel."""
+"""Plain PyTorch versions of the frontier_relax kernels."""
 from __future__ import annotations
 
 import torch
@@ -11,3 +11,33 @@ def frontier_relax_ref(dist: torch.Tensor, src: torch.Tensor,
     """bool[E]: the half-edges whose source is on BFS level ``level`` and
     whose destination is undiscovered (``dist == INF32``)."""
     return (dist[src] == level) & (dist[dst] == INF32)
+
+
+def bfs_level_ref(dist: torch.Tensor, parent: torch.Tensor,
+                  src: torch.Tensor, dst: torch.Tensor, level: int, *,
+                  active: torch.Tensor | None = None) -> bool:
+    """One level of the edge-centric BFS, in place on ``dist`` and
+    ``parent``; returns whether it discovered a vertex (one host read).
+
+    Every undiscovered vertex with an edge from the frontier takes the
+    smallest proposing source as its parent and ``level + 1`` as its
+    distance: the reference's deterministic scatter-min. ``active`` is the
+    level's ``frontier_relax`` mask where the caller has it, else it is
+    computed here. Edges off the frontier scatter the min's identity into
+    n extra slots spread by edge id, cut off after: sent to their own
+    destination, as in the reference, a power-law hub would take ~10^5
+    atomics on one address on the card.
+    """
+    n = dist.numel()
+    if active is None:
+        active = frontier_relax_ref(dist, src, dst, level)
+    drop = n + torch.arange(src.numel(), dtype=torch.int64,
+                            device=src.device) % max(n, 1)
+    winner = torch.full((2 * n,), INF32, dtype=torch.int32, device=src.device)
+    winner.scatter_reduce_(0, torch.where(active, dst.long(), drop),
+                           torch.where(active, src, INF32), "amin")
+    winner = winner[:n]
+    discovered = winner != INF32
+    parent.copy_(torch.where(discovered, winner, parent))
+    dist.masked_fill_(discovered, level + 1)
+    return bool(torch.any(discovered))

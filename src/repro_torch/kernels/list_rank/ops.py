@@ -60,13 +60,15 @@ def list_rank_double_k(succ: torch.Tensor, dist: torch.Tensor, *,
     Returns the new ``(succ, dist)``; with ``return_open``, ``(succ, dist,
     open)`` where ``open`` is a 0-dim bool tensor on the inputs' device,
     ``any(succ_out != -1)``, which the kernel computes in its last step.
-    ``use_kernel`` follows ``repro_torch.kernels.kernel_wanted``.
+    ``n_steps <= 0`` runs no step (copies of the inputs), as the reference's
+    ``for _ in range(n_steps)`` does. ``use_kernel`` follows
+    ``repro_torch.kernels.kernel_wanted``.
     """
     if not kernel_wanted(succ, use_kernel):
         return _with_open(*list_rank_double_ref(succ, dist, n_steps),
                           return_open)
     n = _check_pair("list_rank_double_k", succ, dist)
-    if n == 0 or n_steps == 0:
+    if n == 0 or n_steps <= 0:
         return _with_open(succ.clone(), dist.clone(), return_open)
     if n > _MAX_ENTRIES:
         raise ValueError(f"list_rank_double_k: {n} entries, the kernel "
@@ -111,7 +113,7 @@ def list_rank_double_stepwise(succ: torch.Tensor, dist: torch.Tensor, *,
     launch per step over four int32 tables, and the flag as a separate
     ``torch.any`` pass. Same values; a yardstick only."""
     n = _check_pair("list_rank_double_stepwise", succ, dist)
-    if n == 0 or n_steps == 0:
+    if n == 0 or n_steps <= 0:
         succ_out, dist_out = succ.clone(), dist.clone()
     else:
         succ_out, dist_out = torch.empty_like(succ), torch.empty_like(dist)

@@ -42,14 +42,16 @@ def pointer_jump_double_k(p: torch.Tensor, *, n_jumps: int = 5,
     Functional: ``p`` is not written. With ``return_changed``, returns
     ``(out, changed)``: ``changed`` is a 0-dim bool tensor on ``p``'s
     device, ``any(out != p)``, which the kernel computes in its last step.
-    ``use_kernel`` follows ``repro_torch.kernels.kernel_wanted``.
+    ``n_jumps <= 0`` runs no step (a copy of ``p``, unchanged), as the
+    reference's ``for _ in range(n_jumps)`` does. ``use_kernel`` follows
+    ``repro_torch.kernels.kernel_wanted``.
     """
     if not kernel_wanted(p, use_kernel):
         out = pointer_jump_double_ref(p, n_jumps)
         return (out, torch.any(out != p)) if return_changed else out
     check_int32_cuda("pointer_jump_double_k", p)
     n = p.numel()
-    if n == 0 or n_jumps == 0:
+    if n == 0 or n_jumps <= 0:
         out = p.clone()
         return ((out, torch.zeros((), dtype=torch.bool, device=p.device))
                 if return_changed else out)
@@ -89,7 +91,7 @@ def pointer_jump_double_stepwise(p: torch.Tensor, *, n_jumps: int = 5,
     values; a yardstick only."""
     check_int32_cuda("pointer_jump_double_stepwise", p)
     n = p.numel()
-    if n == 0 or n_jumps == 0:
+    if n == 0 or n_jumps <= 0:
         out = p.clone()
     else:
         out = torch.empty_like(p)

@@ -9,32 +9,55 @@
 // grid=(1,) and keeps the whole [levels + 1, n] table resident in VMEM,
 // building every level by shifted slices padded with the op's identity. On
 // the H100 the table does not fit in any on-chip memory (at n = 2^24 it is
-// 1.74 GB), and level k + 1 reads all of level k, which blocks running in no
-// order cannot share without a grid-wide barrier. So each doubling level is
-// its own launch over n threads on one stream, reading row k at i and at
-// i + 2^k and writing row k + 1; row 0 is a device-to-device copy of
-// `values`. A call makes `levels` launches and no host read. Positions past
-// the end are not folded at all, which is what folding the identity does
-// for every finite value and what the reference's clamped plain path does.
+// 1.68 GB), so it is built in device memory, each row written once:
+//
+//   * tile launch: a block owns kTile = 2^13 outputs and loads them with a
+//     halo of up to kTile more values into shared memory (64 KB), slots past
+//     n holding the op's identity. It builds rows 0..min(levels, 13) there in
+//     place (every thread reads its operands into registers, a barrier, then
+//     writes) and stores each row once, 16 bytes a thread where n % 4 == 0;
+//   * upper launch: rows 14.. read only row 13 at a stride of 2^13. For one
+//     residue r, x_m = row13[r + m 2^13] is a list of len = ceil(n / 2^13)
+//     values, and row (13 + j) at r + m 2^13 is level j of a plain sparse
+//     table over x. A block takes a group of consecutive residues (16, or
+//     fewer so that group x len fits in 64 KB) with their whole lists, builds
+//     every upper level in shared memory the same way and stores each row
+//     once: group x 4 contiguous bytes per list entry (a 32-byte sector at
+//     n = 2^24, 64 bytes at 2^20). Where even one residue's list does not
+//     fit (n > 2^27), the upper rows run as one launch per level instead;
+//   * segment_table_stepwise, the previous design, kept as a yardstick: a
+//     device copy and one launch per level, each reading row k twice.
+// Every launch combines the same pairs in the same operand order,
+// op(row_k[i], row_k[i + 2^k]), and combine(a, identity) returns a with its
+// bits (NaN and -0.0 included; identity itself where a is it), so the
+// identity slots give exactly the "keep table[k][i] past the end" rule: the
+// three designs agree bit for bit.
 //
 // Bound on the H100: memory. The function reads values once and writes
-// (levels + 1) rows of n elements: 4n(levels + 2) bytes. This design reads
-// row k twice and writes row k + 1 on every level, ~12n bytes a level, all
-// coalesced, so it is expected near 3x its bound. Where n is a multiple of
-// 4 (every row then starts 16-byte aligned) a thread handles 4 neighbours
-// with 16-byte loads and stores; the shifted read is a 16-byte load too
-// once 2^k >= 4. A faster design builds the first log2(tile) levels of a
-// tile in shared memory.
+// (levels + 1) rows of n elements: 4n(levels + 2) bytes. The two-launch
+// design moves about 4n(levels + 4): values twice (tile and halo), the
+// rows once, row 13 once more. The stepwise design moves ~12n a level.
 //
 // Float min/max propagate NaN as torch.minimum/torch.maximum do (fminf and
-// fmaxf drop it), so the compare is written by hand; ties keep the first
-// operand, as std::min/std::max do.
+// fmaxf drop it), so the compare is written by hand; a tie of +0.0 and -0.0
+// gives -0.0 for min and +0.0 for max, as torch.minimum/maximum on the card
+// and jnp.minimum/maximum (the reference) order them.
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTileLevels = 13;
+constexpr int kTile = 1 << kTileLevels;
+constexpr int kBlockThreads = 1024;
+// Shared-memory entries a block of either launch holds, and so the
+// registers a thread stages a level in.
+constexpr int kBlockEntries = 2 * kTile;
+constexpr int kPerThread = kBlockEntries / kBlockThreads;
+// At most 16 residues a block of the upper launch: 64-byte runs a row.
+constexpr int kMaxGroupShift = 4;
 
 template <bool kMax>
 __device__ __forceinline__ int32_t combine(int32_t a, int32_t b) {
@@ -45,7 +68,135 @@ template <bool kMax>
 __device__ __forceinline__ float combine(float a, float b) {
   if (a != a) return a;  // NaN
   if (b != b) return b;
+  if (a == b) return signbit(a) != kMax ? a : b;  // -0.0 below +0.0
   return kMax ? (a < b ? b : a) : (b < a ? b : a);
+}
+
+template <typename T, bool kMax> __device__ __forceinline__ T identity();
+template <> __device__ __forceinline__ int32_t identity<int32_t, false>() { return INT_MAX; }
+template <> __device__ __forceinline__ int32_t identity<int32_t, true>() { return INT_MIN; }
+template <> __device__ __forceinline__ float identity<float, false>() { return __int_as_float(0x7f800000); }
+template <> __device__ __forceinline__ float identity<float, true>() { return __int_as_float(static_cast<int>(0xff800000u)); }
+
+template <typename T> struct Vec4;
+template <> struct Vec4<int32_t> { using type = int4; };
+template <> struct Vec4<float> { using type = float4; };
+
+// Store buf[0, kTile) as row `row` at [base, base + kTile) ∩ [0, n). With
+// `vec` (n % 4 == 0, so every row starts 16-byte aligned) 16 bytes a thread.
+template <typename T>
+__device__ __forceinline__ void store_tile_row(const T* buf, T* row,
+                                               int64_t base, int64_t n,
+                                               bool vec) {
+  using V = typename Vec4<T>::type;
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < kTile / 4 / kBlockThreads; ++q) {
+      const int i = 4 * (threadIdx.x + q * kBlockThreads);
+      if (base + i < n)
+        *reinterpret_cast<V*>(row + base + i) =
+            *reinterpret_cast<const V*>(buf + i);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kTile / kBlockThreads; ++q) {
+      const int i = threadIdx.x + q * kBlockThreads;
+      if (base + i < n) row[base + i] = buf[i];
+    }
+  }
+}
+
+// Rows 0..levels (levels <= kTileLevels) of the kTile outputs of one block.
+// Row k is needed at buffer positions i < kTile + 2^levels - 2^k (the
+// windows of the outputs of the rows above), all inside the loaded span.
+template <typename T, bool kMax>
+__global__ void __launch_bounds__(kBlockThreads)
+segment_table_tile(const T* __restrict__ values, T* __restrict__ table,
+                   int64_t n, int levels) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* buf = reinterpret_cast<T*>(smem);
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile;
+  const int span = kTile + (1 << levels) - 1;
+  const bool vec = n % 4 == 0;
+#pragma unroll
+  for (int q = 0; q < kPerThread; ++q) {
+    const int i = threadIdx.x + q * kBlockThreads;
+    buf[i] = i < span && base + i < n ? __ldg(values + base + i)
+                                      : identity<T, kMax>();
+  }
+  __syncthreads();
+  store_tile_row(buf, table, base, n, vec);
+  T r[kPerThread];
+  for (int k = 1; k <= levels; ++k) {
+    const int h = 1 << (k - 1);
+    const int lim = kTile + (1 << levels) - (1 << k);
+#pragma unroll
+    for (int q = 0; q < kPerThread; ++q) {
+      const int i = threadIdx.x + q * kBlockThreads;
+      if (i < lim) r[q] = combine<kMax>(buf[i], buf[i + h]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kPerThread; ++q) {
+      const int i = threadIdx.x + q * kBlockThreads;
+      if (i < lim) buf[i] = r[q];
+    }
+    __syncthreads();
+    store_tile_row(buf, table + k * n, base, n, vec);
+  }
+}
+
+// Rows kTileLevels + 1 .. levels for the residues [r0, r0 + group) of
+// 2^kTileLevels, group a power of two <= 2^kMaxGroupShift. Entry idx of the buffer
+// is list entry m = idx / group of residue r0 + idx % group, at table
+// position r0 + idx % group + m * kTile.
+template <typename T, bool kMax>
+__global__ void __launch_bounds__(kBlockThreads)
+segment_table_upper(T* __restrict__ table, int64_t n, int levels,
+                    int group_shift, int len) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* buf = reinterpret_cast<T*>(smem);
+  const int group = 1 << group_shift;
+  const int total = group * len;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * group;
+  const T* row_top = table + kTileLevels * n;
+#pragma unroll
+  for (int q = 0; q < kPerThread; ++q) {
+    const int idx = threadIdx.x + q * kBlockThreads;
+    if (idx < total) {
+      const int64_t pos = r0 + (idx & (group - 1)) +
+                          static_cast<int64_t>(idx >> group_shift) * kTile;
+      buf[idx] = pos < n ? __ldg(row_top + pos) : identity<T, kMax>();
+    }
+  }
+  __syncthreads();
+  T r[kPerThread];
+  for (int k = kTileLevels + 1; k <= levels; ++k) {
+    const int64_t h = int64_t{1} << (k - kTileLevels - 1);  // in list entries
+#pragma unroll
+    for (int q = 0; q < kPerThread; ++q) {
+      const int idx = threadIdx.x + q * kBlockThreads;
+      if (idx < total && (idx >> group_shift) + h < len)
+        r[q] = combine<kMax>(buf[idx], buf[idx + (h << group_shift)]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kPerThread; ++q) {
+      const int idx = threadIdx.x + q * kBlockThreads;
+      if (idx < total && (idx >> group_shift) + h < len) buf[idx] = r[q];
+    }
+    __syncthreads();
+    T* row = table + k * n;
+#pragma unroll
+    for (int q = 0; q < kPerThread; ++q) {
+      const int idx = threadIdx.x + q * kBlockThreads;
+      if (idx < total) {
+        const int64_t pos = r0 + (idx & (group - 1)) +
+                            static_cast<int64_t>(idx >> group_shift) * kTile;
+        if (pos < n) row[pos] = buf[idx];
+      }
+    }
+  }
 }
 
 template <typename T, bool kMax>
@@ -57,10 +208,6 @@ __global__ void segment_table_level(const T* __restrict__ in,
   const T a = in[i];
   out[i] = i + shift < n ? combine<kMax>(a, in[i + shift]) : a;
 }
-
-template <typename T> struct Vec4;
-template <> struct Vec4<int32_t> { using type = int4; };
-template <> struct Vec4<float> { using type = float4; };
 
 // Four neighbours a thread; rows 16-byte aligned (n % 4 == 0).
 template <typename T, bool kMax>
@@ -91,16 +238,14 @@ __global__ void segment_table_level_x4(const T* __restrict__ in,
   *reinterpret_cast<V*>(out + i) = vr;
 }
 
+// Levels from + 1 .. levels, one launch each, from row `from` of the table.
 template <typename T, bool kMax>
-cudaError_t build_table(const T* values, T* table, int64_t n, int levels,
-                        cudaStream_t s) {
-  cudaError_t err = cudaMemcpyAsync(table, values, n * sizeof(T),
-                                    cudaMemcpyDeviceToDevice, s);
-  if (err != cudaSuccess) return err;
+cudaError_t per_level(T* table, int64_t n, int from, int levels,
+                      cudaStream_t s) {
   const bool x4 = n % 4 == 0;
   const int64_t threads = x4 ? n / 4 : n;
   const auto blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-  for (int k = 0; k < levels; ++k) {
+  for (int k = from; k < levels; ++k) {
     const T* in = table + k * n;
     T* out = table + (k + 1) * n;
     if (x4) {
@@ -110,10 +255,72 @@ cudaError_t build_table(const T* values, T* table, int64_t n, int levels,
       segment_table_level<T, kMax><<<blocks, kThreads, 0, s>>>(
           in, out, n, int64_t{1} << k);
     }
-    err = cudaGetLastError();
+    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+// How a call of n values and `levels` levels runs: log2 of the upper
+// launch's residues a block (-1: the upper rows run one launch per level),
+// the length of a residue's list, and the launches in all.
+struct Plan {
+  int group_shift;
+  int len;
+  int launches;
+};
+
+Plan plan(int64_t n, int levels) {
+  Plan p{0, 0, 1};
+  if (levels <= kTileLevels) return p;
+  const int64_t len = (n + kTile - 1) / kTile;
+  int shift = kMaxGroupShift;
+  while (shift > 0 && (int64_t{1} << shift) * len > kBlockEntries) --shift;
+  if (len > kBlockEntries) {
+    p.group_shift = -1;
+    p.launches = 1 + levels - kTileLevels;
+    return p;
+  }
+  p.group_shift = shift;
+  p.len = static_cast<int>(len);
+  p.launches = 2;
+  return p;
+}
+
+template <typename T, bool kMax>
+cudaError_t build_table(const T* values, T* table, int64_t n, int levels,
+                        cudaStream_t s) {
+  const Plan p = plan(n, levels);
+  const int tile_levels = levels < kTileLevels ? levels : kTileLevels;
+  const int smem = kBlockEntries * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      segment_table_tile<T, kMax>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const auto tiles = static_cast<unsigned>((n + kTile - 1) / kTile);
+  segment_table_tile<T, kMax><<<tiles, kBlockThreads, smem, s>>>(
+      values, table, n, tile_levels);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || levels <= kTileLevels) return err;
+  if (p.group_shift < 0) return per_level<T, kMax>(table, n, kTileLevels, levels, s);
+  const int upper_smem = (p.len << p.group_shift) * static_cast<int>(sizeof(T));
+  err = cudaFuncSetAttribute(segment_table_upper<T, kMax>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             upper_smem);
+  if (err != cudaSuccess) return err;
+  segment_table_upper<T, kMax><<<kTile >> p.group_shift, kBlockThreads,
+                                 upper_smem, s>>>(table, n, levels,
+                                                  p.group_shift, p.len);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kMax>
+cudaError_t build_table_stepwise(const T* values, T* table, int64_t n,
+                                 int levels, cudaStream_t s) {
+  cudaError_t err = cudaMemcpyAsync(table, values, n * sizeof(T),
+                                    cudaMemcpyDeviceToDevice, s);
+  if (err != cudaSuccess) return err;
+  return per_level<T, kMax>(table, n, 0, levels, s);
 }
 
 }  // namespace
@@ -122,10 +329,20 @@ extern "C" const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// values: int32[n] (is_float == 0) or float32[n] (is_float != 0); table:
-// the same type, [levels + 1, n] row-major, 16-byte aligned, distinct from
-// values; both on `device`. is_max selects max, else min. One copy and `levels` launches
-// on `stream`; returns the first CUDA error (0 on success).
+// The launches a segment_table call of n >= 1 values and `levels` levels
+// makes: 1 (the tile launch) where levels <= 13, else 2, or 1 + levels - 13
+// where a residue's list does not fit in a block (n > 2^27). Writes it to
+// *launches; returns 0.
+extern "C" int segment_table_launches(int64_t n, int levels, int* launches) {
+  *launches = plan(n, levels).launches;
+  return 0;
+}
+
+// values: int32[n] (is_float == 0) or float32[n] (is_float != 0), n >= 1;
+// table: the same type, [levels + 1, n] row-major, 16-byte aligned, distinct
+// from values; both on `device`. is_max selects max, else min. The launches
+// segment_table_launches gives, on `stream`; returns the first CUDA error
+// (0 on success).
 extern "C" int segment_table(const void* values, void* table, int64_t n,
                              int levels, int is_float, int is_max, int device,
                              void* stream) {
@@ -142,4 +359,25 @@ extern "C" int segment_table(const void* values, void* table, int64_t n,
   auto* t = static_cast<int32_t*>(table);
   return is_max ? build_table<int32_t, true>(v, t, n, levels, s)
                 : build_table<int32_t, false>(v, t, n, levels, s);
+}
+
+// The previous design, kept only as a yardstick: a device copy of values
+// and one launch per level. Same contract as segment_table; `levels`
+// launches.
+extern "C" int segment_table_stepwise(const void* values, void* table,
+                                      int64_t n, int levels, int is_float,
+                                      int is_max, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (is_float) {
+    const auto* v = static_cast<const float*>(values);
+    auto* t = static_cast<float*>(table);
+    return is_max ? build_table_stepwise<float, true>(v, t, n, levels, s)
+                  : build_table_stepwise<float, false>(v, t, n, levels, s);
+  }
+  const auto* v = static_cast<const int32_t*>(values);
+  auto* t = static_cast<int32_t*>(table);
+  return is_max ? build_table_stepwise<int32_t, true>(v, t, n, levels, s)
+                : build_table_stepwise<int32_t, false>(v, t, n, levels, s);
 }

@@ -1,9 +1,29 @@
-"""Plain PyTorch version of the segment_table kernel."""
+"""Plain PyTorch version of the segment_table kernel, and the min/max it
+folds with."""
 from __future__ import annotations
 
 import torch
 
-_COMBINE = {"min": torch.minimum, "max": torch.maximum}
+
+def minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.minimum`` with -0.0 below +0.0, as ``jnp.minimum`` and torch
+    on the card order them; on the CPU torch keeps the first operand of a
+    tie of zeros. NaN propagates."""
+    out = torch.minimum(a, b)
+    if out.is_floating_point() and not out.is_cuda:
+        out = torch.where((a == b) & torch.signbit(b), b, out)
+    return out
+
+
+def maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.maximum`` with +0.0 above -0.0 (see ``minimum``)."""
+    out = torch.maximum(a, b)
+    if out.is_floating_point() and not out.is_cuda:
+        out = torch.where((a == b) & torch.signbit(a), b, out)
+    return out
+
+
+_COMBINE = {"min": minimum, "max": maximum}
 
 
 def segment_table_ref(values: torch.Tensor, *, levels: int,
@@ -21,6 +41,6 @@ def segment_table_ref(values: torch.Tensor, *, levels: int,
     table[0] = values
     for k in range(levels):
         s = min(1 << k, n)
-        combine(table[k, :n - s], table[k, s:], out=table[k + 1, :n - s])
+        table[k + 1, :n - s] = combine(table[k, :n - s], table[k, s:])
         table[k + 1, n - s:] = table[k, n - s:]
     return table

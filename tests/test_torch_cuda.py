@@ -1,8 +1,10 @@
 """The port on the card: each CUDA kernel against its plain version (the
-two cooperative doubling kernels, one launch a call, also against their
-stepwise design, with their fused convergence flags), and the three RST
-flavors, biconnectivity, the tree queries and DIEN serving on the card
-against the same call on the CPU and with ``use_kernel=False``.
+two cooperative doubling kernels, one launch a call, and segment_table,
+two launches a call, also against their stepwise designs; the doubling
+kernels with their fused convergence flags; the BFS level kernel with its
+flag), and the three RST flavors, biconnectivity, the tree queries and
+DIEN serving on the card against the same call on the CPU and with
+``use_kernel=False``.
 
 Every test here needs a CUDA card (the kernels have no CPU mode) and skips
 without one. The file imports no JAX, so it also runs on a machine that has
@@ -24,8 +26,13 @@ from repro_torch.configs import get_arch
 from repro_torch.data import graphs
 from repro_torch.kernels.embed_bag.ops import embed_bag
 from repro_torch.kernels.embed_bag.ref import embed_bag_ref
-from repro_torch.kernels.frontier_relax.ops import frontier_relax
-from repro_torch.kernels.frontier_relax.ref import INF32, frontier_relax_ref
+from repro_torch.core.compress import _table_levels
+from repro_torch.kernels.frontier_relax.ops import (bfs_level,
+                                                    bfs_level_buffer,
+                                                    bfs_level_cooperative,
+                                                    frontier_relax)
+from repro_torch.kernels.frontier_relax.ref import (INF32, bfs_level_ref,
+                                                    frontier_relax_ref)
 from repro_torch.kernels.hook_edges.ops import hook_edges
 from repro_torch.kernels.hook_edges.ref import hook_edges_ref
 from repro_torch.kernels import build
@@ -41,7 +48,9 @@ from repro_torch.kernels.pointer_jump.ops import (pointer_jump_double_k,
                                                   pointer_jump_k)
 from repro_torch.kernels.pointer_jump.ref import (pointer_jump_double_ref,
                                                   pointer_jump_ref)
-from repro_torch.kernels.segment_table.ops import segment_table
+from repro_torch.kernels.segment_table.ops import (launches_per_call,
+                                                   segment_table,
+                                                   segment_table_stepwise)
 from repro_torch.kernels.segment_table.ref import segment_table_ref
 from repro_torch.launch.train import synthetic_batches
 from repro_torch.train.step import build_cell
@@ -170,6 +179,40 @@ def test_doubling_kernels_launch_nothing_when_empty(cuda):
         assert bool(still_open) == bool(torch.any(succ != -1))
     assert (pointer_jump_double_k.launches,
             list_rank_double_k.launches) == before
+
+
+@pytest.mark.parametrize("k", [-1, -5])
+def test_doubling_kernels_negative_count_returns_input(cuda, k):
+    """A count < 0 runs no step, as the reference's ``range(k)``: the
+    kernel and stepwise entries return copies of the input (pointer_jump's
+    flag False, list_rank's ``any(succ != -1)``) and launch nothing;
+    ``compress_full`` returns the table after one check."""
+    p = _forest(5000, 3, cuda)
+    succ = _lists(5000, 3, cuda)
+    dist = (succ != -1).to(torch.int32)
+    counters = (pointer_jump_double_k, pointer_jump_double_stepwise,
+                list_rank_double_k, list_rank_double_stepwise)
+    before = [c.launches for c in counters]
+    for entry in (lambda q: pointer_jump_double_k(q, n_jumps=k,
+                                                  use_kernel=True,
+                                                  return_changed=True),
+                  lambda q: pointer_jump_double_stepwise(
+                      q, n_jumps=k, return_changed=True)):
+        out, changed = entry(p)
+        assert torch.equal(out, p) and out.data_ptr() != p.data_ptr()
+        assert not bool(changed)
+    for entry in (lambda: list_rank_double_k(succ, dist, n_steps=k,
+                                             use_kernel=True,
+                                             return_open=True),
+                  lambda: list_rank_double_stepwise(succ, dist, n_steps=k,
+                                                    return_open=True)):
+        s, d, still_open = entry()
+        assert torch.equal(s, succ) and torch.equal(d, dist)
+        assert bool(still_open)
+    out, syncs = compress_full(p, n_jumps=k, return_syncs=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, p) and syncs == 1
+    assert [c.launches for c in counters] == before
 
 
 def test_refused_cooperative_launch_raises(cuda):
@@ -318,19 +361,132 @@ def test_list_rank_chain_kernel(cuda, n, k):
     assert torch.equal(s, rs) and torch.equal(d, rd)
 
 
+def _bfs_state(n, e, level, seed, device):
+    """A random mid-BFS state: dist in [0, level] or INF32, parent, and
+    random half-edges."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    dist = torch.randint(0, level + 1, (n,), generator=g, device=device,
+                         dtype=torch.int32)
+    dist[torch.rand(n, generator=g, device=device) < 0.5] = INF32
+    parent = torch.randint(-1, n, (n,), generator=g, device=device,
+                           dtype=torch.int32)
+    src, dst = (torch.randint(0, n, (e,), generator=g, device=device,
+                              dtype=torch.int32) for _ in range(2))
+    return dist, parent, src, dst
+
+
+def _level_against_ref(dist, parent, src, dst, level):
+    """One bfs_level call (one launch counted) against bfs_level_ref, and
+    the cooperative variant, on copies of the same state: dist, parent and
+    the flag bit-equal."""
+    want_d, want_p = dist.clone(), parent.clone()
+    want = bfs_level_ref(want_d, want_p, src, dst, level)
+    coop_d, coop_p = dist.clone(), parent.clone()
+    coop = bfs_level_cooperative(
+        coop_d, coop_p, bfs_level_buffer(dist.numel(), dist.device), src,
+        dst, level)
+    assert coop == want
+    assert torch.equal(coop_d, want_d) and torch.equal(coop_p, want_p)
+    cand = bfs_level_buffer(dist.numel(), dist.device)
+    before = bfs_level.launches
+    got = bfs_level(dist, parent, cand, src, dst, level, use_kernel=True)
+    torch.cuda.synchronize()
+    assert bfs_level.launches - before == 1
+    assert got == want
+    assert torch.equal(dist, want_d) and torch.equal(parent, want_p)
+    return got
+
+
+@pytest.mark.parametrize("n,e", [(1, 1), (2, 0), (3000, 9001),
+                                 (1 << 20, (1 << 22) + 3)])
+@pytest.mark.parametrize("level", [0, 3])
+def test_bfs_level_kernel(cuda, n, e, level):
+    dist, parent, src, dst = _bfs_state(n, e, level, n + e + level, cuda)
+    _level_against_ref(dist, parent, src, dst, level)
+
+
+@pytest.mark.parametrize("leaves", [10_000, 1 << 20])
+def test_bfs_level_kernel_hub_takes_every_proposal(cuda, leaves):
+    """Every leaf on the frontier, the hub (vertex 0) undiscovered: one
+    level aims ``leaves`` proposals at one address; the hub gets the
+    smallest leaf, and the next level (nothing left) reports no change."""
+    n = leaves + 1
+    leaf = torch.randperm(leaves, device=cuda).to(torch.int32) + 1
+    hub = torch.zeros_like(leaf)
+    src, dst = torch.cat([leaf, hub]), torch.cat([hub, leaf])
+    dist = torch.full((n,), 4, dtype=torch.int32, device=cuda)
+    dist[0] = INF32
+    parent = torch.arange(n, dtype=torch.int32, device=cuda)
+    assert _level_against_ref(dist, parent, src, dst, 4)
+    assert int(parent[0]) == 1 and int(dist[0]) == 5
+    assert not _level_against_ref(dist, parent, src, dst, 5)
+
+
+def test_bfs_level_kernel_keeps_its_buffer_across_levels(cuda):
+    """One buffer for a whole BFS, as bfs_rst passes it: level by level the
+    same states as the plain version, the last flag False."""
+    g = graphs.rmat(12, edge_factor=8, device=cuda)
+    n = g.n_nodes
+    states = []
+    for use_kernel in (True, False):
+        dist = torch.full((n,), INF32, dtype=torch.int32, device=cuda)
+        dist[0] = 0
+        parent = torch.full((n,), -1, dtype=torch.int32, device=cuda)
+        parent[0] = 0
+        cand = bfs_level_buffer(n, cuda)
+        flags, level = [True], 0
+        while flags[-1]:
+            flags.append(bfs_level(dist, parent, cand, g.src, g.dst, level,
+                                   use_kernel=use_kernel))
+            level += 1
+        states.append((dist, parent, flags))
+    (kd, kp, kf), (pd, pp, pf) = states
+    assert torch.equal(kd, pd) and torch.equal(kp, pp) and kf == pf
+
+
 @pytest.mark.parametrize("name,kwargs", [
     ("grid2d", dict(side=16)), ("rmat", dict(scale=8, edge_factor=4))])
 def test_bfs_on_card_matches_cpu(cuda, name, kwargs):
     g = getattr(graphs, name)(**kwargs, device=cuda)
-    before = frontier_relax.launches
+    before = (frontier_relax.launches, bfs_level.launches)
     r = rooted_spanning_tree(g, 3, "bfs")
     torch.cuda.synchronize()
-    assert frontier_relax.launches - before == r.steps + 1
+    assert bfs_level.launches - before[1] == r.steps + 1
+    assert frontier_relax.launches == before[0]
     c = rooted_spanning_tree(g.to("cpu"), 3, "bfs", device="cpu")
     assert torch.equal(r.parent.cpu(), c.parent)
     assert torch.equal(r.dist.cpu(), c.dist)
     assert r.steps == c.steps
     assert validate_rst(g, r.parent, 3)["all_ok"]
+
+
+def test_bfs_on_card_at_full_size(cuda):
+    """grid2d(4096) and rmat(20, 16) from root 0: parent, dist and steps
+    bit-equal to the plain path on the card; rmat's also to the port's CPU
+    run, the grid's to its closed form (the CPU run would take hours):
+    dist = row + col, and the smallest proposer is the vertex above, else
+    the one to the left."""
+    side = 4096
+    grid = graphs.grid2d(side, device=cuda)
+    r = rooted_spanning_tree(grid, 0, "bfs")
+    p = rooted_spanning_tree(grid, 0, "bfs", use_kernel=False)
+    assert torch.equal(r.parent, p.parent) and torch.equal(r.dist, p.dist)
+    assert r.steps == p.steps == 2 * (side - 1)
+    v = torch.arange(side * side, dtype=torch.int32, device=cuda)
+    row, col = v // side, v % side
+    assert torch.equal(r.dist, row + col)
+    want = torch.where(row > 0, v - side, v - 1)
+    want[0] = 0
+    assert torch.equal(r.parent, want)
+    del grid, r, p, v, row, col, want
+    rmat = graphs.rmat(20, edge_factor=16, device=cuda)
+    r = rooted_spanning_tree(rmat, 0, "bfs")
+    p = rooted_spanning_tree(rmat, 0, "bfs", use_kernel=False)
+    c = rooted_spanning_tree(rmat.to("cpu"), 0, "bfs", device="cpu")
+    for want in (p, c):
+        assert torch.equal(r.parent.cpu(), want.parent.cpu())
+        assert torch.equal(r.dist.cpu(), want.dist.cpu())
+        assert r.steps == want.steps
 
 
 @pytest.mark.parametrize("name,kwargs", [
@@ -350,26 +506,73 @@ def test_pr_rst_on_card_matches_cpu(cuda, name, kwargs, alternate_hooking):
     assert validate_rst(g, r.parent, 3)["all_ok"]
 
 
-@pytest.mark.parametrize("n", [1, 2, 4, 64, 1001, 1 << 20, (1 << 20) + 3])
+def _same_table(got, want):
+    """Bit-equal, NaN for NaN (a NaN's payload aside)."""
+    nan = want.isnan()
+    assert torch.equal(got.isnan(), nan)
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got[~nan], want[~nan])
+
+
+def _table_values(n, dtype, seed, device):
+    """int32 over the whole range, or float32 with NaN, ±0.0 and ±inf
+    scattered in (the op's identity among them)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if dtype == torch.int32:
+        return torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                             device=device, dtype=dtype)
+    values = torch.randn(n, generator=gen, device=device)
+    special = torch.tensor([float("nan"), 0.0, -0.0, float("inf"),
+                            -float("inf")], device=device)
+    pick = torch.randint(0, 5, (n,), generator=gen, device=device)
+    rare = torch.rand(n, generator=gen, device=device) < 0.3 / max(n, 1) ** 0.5
+    return torch.where(rare, special[pick], values)
+
+
+SEG_SIZES = [1, 3, 4095, 4096, 4097, (1 << 20) + 1, 1 << 24]
+
+
+@pytest.mark.parametrize("n", SEG_SIZES)
+@pytest.mark.parametrize("levels", [0, 1, 12, 13, 14, "full"])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
 @pytest.mark.parametrize("op", ["min", "max"])
-def test_segment_table_kernel(cuda, n, dtype, op):
-    gen = torch.Generator(device=cuda).manual_seed(n)
-    if dtype == torch.int32:
-        values = torch.randint(-1000, 1000, (n,), generator=gen,
-                               device=cuda, dtype=dtype)
-    else:
-        values = torch.randn(n, generator=gen, device=cuda)
-        values[n // 2] = float("nan")
-    levels = max(1, (n - 1).bit_length())
+def test_segment_table_kernel(cuda, n, levels, dtype, op):
+    """Bit-equal to the plain version and to the stepwise design, at the
+    tile's edges (2^12 = 4096 outputs a tile is 2^13: 4095-4097 cover a
+    ragged tile and the upper launch's list ends) and at levels around the
+    tile's 13; the launches are the plan's (1 or 2)."""
+    if levels == "full":
+        levels = max(1, (n - 1).bit_length())
+    values = _table_values(n, dtype, n + levels, cuda)
     before = segment_table.launches
     got = segment_table(values, levels=levels, op=op, use_kernel=True)
     torch.cuda.synchronize()
-    assert segment_table.launches - before == levels
-    want = segment_table_ref(values, levels=levels, op=op)
-    nan = want.isnan()
-    assert torch.equal(got.isnan(), nan)
-    assert torch.equal(got[~nan], want[~nan])
+    assert segment_table.launches - before == launches_per_call(n, levels)
+    assert launches_per_call(n, levels) == (1 if levels <= 13 else 2)
+    _same_table(got, segment_table_ref(values, levels=levels, op=op))
+    _same_table(got, segment_table_stepwise(values, levels=levels, op=op))
+
+
+def test_segment_table_kernel_float_specials(cuda):
+    """A ±0.0 tie gives -0.0 for min and +0.0 for max, ±inf and NaN
+    propagate, as in the plain version on the card and on the CPU (where
+    ``segment_table_ref`` orders the zeros as the reference does): small
+    hand-made inputs around the identity."""
+    nan, inf = float("nan"), float("inf")
+    for vals in ([0.0, -0.0, 0.0, -0.0], [-0.0, 0.0] * 3, [inf, -inf, inf],
+                 [nan, 1.0, -inf, inf, -0.0, 0.0, nan],
+                 [-inf] * 5 + [inf] * 4):
+        values = torch.tensor(vals, device=cuda)
+        for op in ("min", "max"):
+            levels = max(1, (len(vals) - 1).bit_length())
+            got = segment_table(values, levels=levels, op=op,
+                                use_kernel=True)
+            _same_table(got, segment_table_ref(values, levels=levels, op=op))
+            _same_table(got.cpu(), segment_table_ref(values.cpu(),
+                                                     levels=levels, op=op))
+            _same_table(got, segment_table_stepwise(values, levels=levels,
+                                                    op=op))
 
 
 def test_segment_table_kernel_rejects_int64(cuda):
@@ -393,7 +596,10 @@ def test_biconnectivity_on_card_matches_plain_and_cpu(cuda, name, kwargs,
     before = segment_table.launches
     r = biconnectivity(g, 0, rst_flavor=flavor)
     torch.cuda.synchronize()
-    assert segment_table.launches - before == r.seg_syncs
+    levels = _table_levels(g.n_nodes)
+    assert r.seg_syncs == 2 * levels
+    assert segment_table.launches - before == (
+        r.seg_syncs // levels * launches_per_call(g.n_nodes, levels))
     p = biconnectivity(g, 0, rst_flavor=flavor, use_kernel=False)
     c = biconnectivity(g.to("cpu"), 0, rst_flavor=flavor, device="cpu")
     for f in BCC_FIELDS:
@@ -414,7 +620,8 @@ def test_subtree_agg_kernel_matches_plain(cuda, op):
     before = segment_table.launches
     got = queries.subtree_agg(tab, v, payload, op)
     torch.cuda.synchronize()
-    assert segment_table.launches - before == (g.n_nodes - 1).bit_length()
+    assert segment_table.launches - before == launches_per_call(
+        g.n_nodes, (g.n_nodes - 1).bit_length())
     assert torch.equal(got, queries.subtree_agg(tab, v, payload, op,
                                                 use_kernel=False))
 

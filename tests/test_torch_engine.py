@@ -125,6 +125,42 @@ def test_wyllie_rank_matches_jax(n, k):
         assert syncs == int(js)
 
 
+@pytest.mark.parametrize("case", ["chain", "star", "relabelled"])
+@pytest.mark.parametrize("k", [0, -1, -5])
+def test_compress_full_non_positive_count_returns_input(case, k):
+    """A count <= 0 runs no doubling step: the input back after one check,
+    as both paths of the reference give (``range(k)`` is empty)."""
+    p = _forests(1000)[case]
+    out, syncs = tc.compress_full(torch.from_numpy(p), n_jumps=k,
+                                  return_syncs=True)
+    assert torch.equal(out, torch.from_numpy(p)) and syncs == 1
+    for u in (False, True):
+        jax_out, jax_syncs = jc.compress_full(jnp.asarray(p), n_jumps=k,
+                                              use_kernel=u, interpret=True,
+                                              return_syncs=True)
+        _same(jax_out, out)
+        assert int(jax_syncs) == syncs
+
+
+@pytest.mark.parametrize("n", [1, 100, 4097])
+@pytest.mark.parametrize("k", [-1, -5])
+def test_wyllie_rank_negative_count_matches_jax(n, k):
+    """With a count < 0 a group runs no step, so the loop ends only on
+    lists that are closed already: every slot ranks 0 after no group, as
+    in the reference. (With a list open, the reference's loop and the
+    port's never end alike.)"""
+    succ = np.full(n, -1, np.int32)
+    valid = np.random.default_rng(n).random(n) < 0.9
+    d, syncs = tc.wyllie_rank(torch.from_numpy(succ), torch.from_numpy(valid),
+                              n_jumps=k, return_syncs=True)
+    assert syncs == 0 and not bool(d.any())
+    for u in (False, True):
+        jd, js = jc.wyllie_rank(jnp.asarray(succ), jnp.asarray(valid),
+                                n_jumps=k, use_kernel=u, return_syncs=True)
+        _same(jd, d)
+        assert syncs == int(js)
+
+
 @pytest.mark.parametrize("case", ["chain", "random_forest", "relabelled"])
 @pytest.mark.parametrize("op", ["add", "min", "max"])
 def test_reduce_to_root_matches_jax(case, op):

@@ -135,7 +135,11 @@ def test_kernel_build_needs_nvcc_and_stays_under_build(monkeypatch,
     ("pointer_jump", "pointer_jump_chain"),
     ("list_rank", "list_rank_chain"),
     ("frontier_relax", "frontier_relax"),
+    ("frontier_relax", "bfs_level"),
+    ("frontier_relax", "bfs_level_cooperative"),
     ("segment_table", "segment_table"),
+    ("segment_table", "segment_table_stepwise"),
+    ("segment_table", "segment_table_launches"),
     ("embed_bag", "embed_bag")])
 def test_ctypes_signatures_match_the_c_entries(name, symbol):
     """Each C entry's ``argtypes`` (``ops._ARGTYPES[symbol]``) has one

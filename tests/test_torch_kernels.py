@@ -65,14 +65,15 @@ def _lists(n, rng, kind):
 
 @pytest.mark.parametrize("n", DOUBLING_SIZES)
 @pytest.mark.parametrize("kind", ["chain", "forest", "cycles"])
-@pytest.mark.parametrize("k", [1, 5, 0])
+@pytest.mark.parametrize("k", [1, 5, 0, -1])
 def test_pointer_jump_double_matches_jax(n, kind, k):
     """The table and the group's convergence flag, any(out != p), which the
-    engine reads (``return_changed``)."""
+    engine reads (``return_changed``). A count <= 0 runs no step: the input
+    back, unchanged, as the reference's ``range(k)`` gives."""
     from repro.kernels.pointer_jump.ops import (pad_to_tile,
                                                 pointer_jump_double_k as jk)
     from repro.core.compress import jump_k as jax_jump_k
-    p = _forest(n, np.random.default_rng(n + k), kind)
+    p = _forest(n, np.random.default_rng(n + abs(k)), kind)
     out, changed = pointer_jump_double_k(torch.from_numpy(p), n_jumps=k,
                                          return_changed=True)
     jax_out = jax_jump_k(jnp.asarray(p), k)
@@ -84,19 +85,22 @@ def test_pointer_jump_double_matches_jax(n, kind, k):
     assert changed.dtype == torch.bool and changed.shape == ()
     assert bool(changed) == bool(torch.any(out != torch.from_numpy(p)))
     assert bool(changed) == bool(jnp.any(jax_out != jnp.asarray(p)))
+    if k <= 0:
+        assert torch.equal(out, torch.from_numpy(p)) and not bool(changed)
     assert torch.equal(pointer_jump_double_k(torch.from_numpy(p), n_jumps=k),
                        out)
 
 
 @pytest.mark.parametrize("n", DOUBLING_SIZES)
 @pytest.mark.parametrize("kind", ["chain", "random", "short"])
-@pytest.mark.parametrize("k", [1, 5, 0])
+@pytest.mark.parametrize("k", [1, 5, 0, -1])
 def test_list_rank_double_matches_jax(n, kind, k):
     """The tables and the "any list still open" flag, any(succ' != -1),
-    which the engine reads (``return_open``)."""
+    which the engine reads (``return_open``). A count <= 0 runs no step:
+    the inputs back."""
     from repro.kernels.list_rank.list_rank import list_rank_double_pallas
     from repro.kernels.list_rank.ops import pad_to_tile
-    succ = _lists(n, np.random.default_rng(n + k), kind)
+    succ = _lists(n, np.random.default_rng(n + abs(k)), kind)
     dist = (succ != -1).astype(np.int32)
     s, d, still_open = list_rank_double_k(
         torch.from_numpy(succ), torch.from_numpy(dist), n_steps=k,
@@ -113,6 +117,9 @@ def test_list_rank_double_matches_jax(n, kind, k):
     assert torch.equal(s, rs) and torch.equal(d, rd)
     assert still_open.dtype == torch.bool and still_open.shape == ()
     assert bool(still_open) == bool(torch.any(s != -1))
+    if k <= 0:
+        assert torch.equal(s, torch.from_numpy(succ))
+        assert torch.equal(d, torch.from_numpy(dist))
     two = list_rank_double_k(torch.from_numpy(succ), torch.from_numpy(dist),
                              n_steps=k)
     assert len(two) == 2 and torch.equal(two[0], s) and torch.equal(two[1], d)

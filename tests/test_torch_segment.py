@@ -53,6 +53,40 @@ def test_segment_table_matches_jax_plain_and_pallas(n, dtype, op):
     np.testing.assert_array_equal(np.asarray(want_pallas), got.numpy())
 
 
+def _same_bits(want, got):
+    """NaN where the reference has NaN (its payload aside), the same bits
+    everywhere else."""
+    want, got = np.asarray(want), np.asarray(got)
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(nan, np.isnan(got))
+    np.testing.assert_array_equal(want[~nan].view(np.int32),
+                                  got[~nan].view(np.int32))
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_signed_zero_ties_match_jax_bit_for_bit(op):
+    """A tie of +0.0 and -0.0 gives -0.0 for min and +0.0 for max, as
+    jnp.minimum/maximum order them (torch on the CPU would keep the first
+    operand): the table against the JAX plain table and the Pallas kernel,
+    and ``segment_reduce`` against the JAX one, compared as bits (NaN for
+    NaN)."""
+    values = np.array([0.0, -0.0, 0.0, -0.0, -0.0, 0.0, 1.0, -0.0, 0.0,
+                       np.inf, -np.inf, -0.0, np.nan, 0.0], np.float32)
+    n = values.size
+    levels = (n - 1).bit_length()
+    got = segment_table(torch.from_numpy(values), levels=levels, op=op)
+    for want in (jax_table_ref(jnp.asarray(values), levels=levels, op=op),
+                 jax_pallas_table(jnp.asarray(values), levels=levels, op=op,
+                                  interpret=True)):
+        _same_bits(want, got.numpy())
+    lo, hi = _queries(n, np.random.default_rng(1))
+    got = segment_reduce(torch.from_numpy(values), torch.from_numpy(lo),
+                         torch.from_numpy(hi), op)
+    want = jax_segment_reduce(jnp.asarray(values), jnp.asarray(lo),
+                              jnp.asarray(hi), op)
+    _same_bits(want, got.numpy())
+
+
 def test_segment_table_rejects_other_ops_and_cpu_kernel():
     v = torch.arange(5, dtype=torch.int32)
     with pytest.raises(ValueError, match="'min' or 'max'"):
