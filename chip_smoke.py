@@ -46,7 +46,8 @@ Phases, in order; any failure raises and the script exits non-zero:
         launches matched to the syncs (bfs: one ``bfs_level`` a level),
         end-to-end times (gconn_euler and pr_rst also with the engine on
         the stepwise doubling kernels, bfs also on the previous level, in
-        turns), and one line per graph comparing the three methods (the
+        turns; a variant whose first run takes over 2 s is timed by that
+        run), and one line per graph comparing the three methods (the
         paper's Fig. 1 and Fig. 2);
      c. ``biconnectivity(g, 0, rst_flavor=m)`` on ``chain(256)`` and
         ``rmat(6, edge_factor=4)`` for the three flavors: the table3/smoke_*
@@ -59,8 +60,8 @@ Phases, in order; any failure raises and the script exits non-zero:
         grid2d(4096)'s known answer (one block, no articulation point, no
         bridge), the same articulation points, bridges and block count from
         every flavor, end-to-end times (also with the engine on the
-        stepwise doubling kernels, in turns), the articulation scatter's
-        time, and one line per graph;
+        stepwise doubling kernels and on the previous segment_table, in
+        turns), the articulation scatter's time, and one line per graph;
      e. tree queries on ``grid2d(4096)``'s gconn_euler tree:
         ``build_tables``, then one batch of 2^20 seeded random pairs through
         ``lca``, ``connected``, ``is_ancestor``, ``depth_of``,
@@ -115,8 +116,8 @@ TIMED_RUNS = 7
 # host takes to enqueue one call of a doubling kernel.
 QUEUE_CYCLES = 2_000_000
 E2E_RUNS = 5
-# A method whose first run on a graph takes longer than this is timed by
-# that run and the plain run of the bit-equality check alone.
+# An end-to-end variant whose first run takes longer than this is timed by
+# that run alone.
 SLOW_RUN_MS = 2000.0
 # BFS levels of grid2d(4096) in the profile.
 PROFILE_GRID_LEVELS = 64
@@ -293,9 +294,11 @@ def main() -> int:
     from repro_torch.data import graphs
     from repro_torch.kernels import build
     from repro_torch.core import bfs as bfs_module
-    from repro_torch.kernels.frontier_relax.ops import (
-        bfs_level, bfs_level_buffer, bfs_level_cooperative, frontier_relax)
-    from repro_torch.kernels.frontier_relax.ref import INF32, bfs_level_ref
+    from repro_torch.kernels.frontier_relax.ops import (bfs_level,
+                                                        bfs_level_buffer,
+                                                        frontier_relax)
+    from repro_torch.kernels.frontier_relax.ref import (INF32, bfs_level_ref,
+                                                        level_constants)
     from repro_torch.kernels.hook_edges.ops import hook_edges
     from repro_torch.core import compress, connectivity
     from repro_torch.kernels.list_rank.ops import (list_rank_double_k,
@@ -320,29 +323,45 @@ def main() -> int:
     # The previous designs of the two doubling kernels and of
     # segment_table: timed in phase 3, and no path may launch them.
     yardsticks = (pointer_jump_double_stepwise, list_rank_double_stepwise,
-                  segment_table_stepwise, bfs_level_cooperative)
+                  segment_table_stepwise)
+    # One graph's constants of the previous level, built once, as its loop
+    # hoisted them.
+    old_consts = {}
 
-    def old_level(dist, parent, cand, src, dst, level, *, use_kernel):
+    def old_level(dist, parent, cand, src, dst, level, *, consts=None,
+                  use_kernel=None):
         """The previous BFS level on the card: the mask kernel, then the
         plain scatter-min and updates (``bfs_level_ref``'s glue)."""
+        key = (src.data_ptr(), dst.data_ptr(), dist.numel())
+        if key not in old_consts:
+            old_consts.clear()
+            old_consts[key] = level_constants(src, dst, dist.numel())
         return bfs_level_ref(dist, parent, src, dst, level,
                              active=frontier_relax(dist, src, dst, level,
-                                                   use_kernel=True))
+                                                   use_kernel=True),
+                             consts=old_consts[key])
 
-    def cooperative_level(dist, parent, cand, src, dst, level, *,
-                          use_kernel):
-        return bfs_level_cooperative(dist, parent, cand, src, dst, level)
-
-    def on_level(level_fn, fn):
-        """``fn()`` with the BFS on another level (``old_level`` or
-        ``cooperative_level``), for an end-to-end comparison in the same run;
-        never inside a counted run."""
+    def on_old_level(fn):
+        """``fn()`` with the BFS on the previous level, for an end-to-end
+        comparison in the same run; never inside a counted run."""
         real = bfs_module.bfs_level
-        bfs_module.bfs_level = level_fn
+        bfs_module.bfs_level = old_level
         try:
             return fn()
         finally:
             bfs_module.bfs_level = real
+
+    def on_segment_stepwise(fn):
+        """``fn()`` with ``segment_reduce`` on the previous segment_table
+        design (one launch a level); never inside a counted run."""
+        real = compress.segment_table
+        compress.segment_table = (
+            lambda values, *, levels, op, use_kernel:
+            segment_table_stepwise(values, levels=levels, op=op))
+        try:
+            return fn()
+        finally:
+            compress.segment_table = real
 
     def on_stepwise(fn):
         """``fn()`` with the engine on the previous design of the doubling
@@ -362,14 +381,28 @@ def main() -> int:
         finally:
             compress.pointer_jump_double_k, compress.list_rank_double_k = real
 
-    def in_turns(runs: dict) -> dict:
-        """E2E_RUNS timings of each of ``runs`` (functions returning ms),
-        in turns, the order reversed every other round."""
-        times, order = {name: [] for name in runs}, list(runs)
-        for i in range(E2E_RUNS):
-            for name in (order if i % 2 == 0 else order[::-1]):
+    def time_variants(runs: dict, firsts: dict) -> dict:
+        """Timings (ms lists) of each of ``runs`` (functions returning ms):
+        one whose first run (``firsts``) took over SLOW_RUN_MS keeps that
+        run alone; the rest run E2E_RUNS times in turns, the order reversed
+        every other round."""
+        fast = [name for name in runs if firsts[name] <= SLOW_RUN_MS]
+        times = {name: [] for name in fast}
+        for i in range(E2E_RUNS if fast else 0):
+            for name in (fast if i % 2 == 0 else fast[::-1]):
                 times[name].append(runs[name]())
-        return times
+        return {name: times.get(name, [firsts[name]]) for name in runs}
+
+    def e2e_fields(times: dict) -> dict:
+        """The emitted end-to-end times: ``e2e_ms`` for the kernel path,
+        ``<variant>_e2e_ms`` for the others, each with its median and its
+        number of runs."""
+        out = {"runs": {name: len(t) for name, t in times.items()}}
+        for name, t in times.items():
+            key = "e2e_ms" if name == "kernel" else f"{name}_e2e_ms"
+            out[f"{key}_median"] = statistics.median(t)
+            out[key] = t
+        return out
 
     def zero_counts():
         torch.cuda.synchronize()
@@ -654,20 +687,19 @@ def main() -> int:
             ("rmat", rmat, rmat_dist, rmat_parent, rmat_level)):
         def fresh(d=d, par=par, n_g=g.n_nodes):
             return d.clone(), par.clone(), bfs_level_buffer(n_g, dev)
+        consts = level_constants(g.src, g.dst, g.n_nodes)
         fns = {
             "kernel": lambda st, g=g, lvl=lvl: bfs_level(
                 *st, g.src, g.dst, lvl, use_kernel=True),
-            "plain": lambda st, g=g, lvl=lvl: bfs_level(
-                *st, g.src, g.dst, lvl, use_kernel=False),
+            "plain": lambda st, g=g, lvl=lvl, c=consts: bfs_level(
+                *st, g.src, g.dst, lvl, consts=c, use_kernel=False),
             "old_level": lambda st, g=g, lvl=lvl: old_level(
-                *st, g.src, g.dst, lvl, use_kernel=True),
-            "cooperative": lambda st, g=g, lvl=lvl: bfs_level_cooperative(
                 *st, g.src, g.dst, lvl)}
         outs = {}
         for name, fn in fns.items():
             st = fresh()
             outs[name] = (st[0], st[1], fn(st))
-        for name in ("kernel", "old_level", "cooperative"):
+        for name in ("kernel", "old_level"):
             err = max(err, max_abs_err(torch, outs[name][0], outs["plain"][0]),
                       max_abs_err(torch, outs[name][1], outs["plain"][1]))
             check(outs[name][2] == outs["plain"][2],
@@ -682,13 +714,12 @@ def main() -> int:
         b_ms, b_by = bound(4 * e_g + 4 * frontier + 4 * n_g
                            + 4 * undiscovered + 12 * discovered, 3 * e_g)
         bl[label] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
-                         old_level_ms=ms["old_level"],
-                         cooperative_ms=ms["cooperative"], library_ms=None,
+                         old_level_ms=ms["old_level"], library_ms=None,
                          bound_ms=b_ms, bound_by=b_by,
                          bound_8e_12n_ms=bound(8 * e_g + 12 * n_g, 0)[0],
                          level=int(lvl), frontier_edges=frontier,
                          undiscovered=undiscovered, discovered=discovered)
-        del outs, st
+        del outs, st, consts, fns
     check(err == 0, f"bfs_level differs from plain by {err}")
     rows["bfs_level"] = {**{k: bl["grid"][k] for k in (
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
@@ -697,9 +728,9 @@ def main() -> int:
           "card": card,
           "input": "grid2d(4096) at BFS level 4095 from vertex 0 (rmat_*: "
                    "rmat(20, 16) after 2 levels); a fresh state a call, the "
-                   "flag's host read included; old_level: the mask kernel "
-                   "and the plain scatter-min; cooperative: both passes in "
-                   "one cooperative launch",
+                   "flag's host read included; plain and old_level (the "
+                   "mask kernel and the plain scatter-min) on graph "
+                   "constants built once",
           **kernel_line(rows["bfs_level"]),
           **{k: v for k, v in bl["grid"].items()
              if k not in rows["bfs_level"]},
@@ -958,39 +989,22 @@ def main() -> int:
                       for k in COUNTS[method]),
                   f"{label} {method}: counts differ from the plain path")
             del p
-            stepwise_ms = []
-            if first_ms <= SLOW_RUN_MS:
-                runs = {"kernel": lambda: timed(g, method, None)[1],
-                        "plain": lambda: timed(g, method, False)[1]}
-                if method != "bfs":
-                    runs["stepwise"] = lambda: on_stepwise(
-                        lambda: timed(g, method, None)[1])
-                else:
-                    for name, fn in (("old_level", old_level),
-                                     ("cooperative", cooperative_level)):
-                        runs[name] = lambda fn=fn: on_level(
-                            fn, lambda: timed(g, method, None)[1])
-                e2e = in_turns(runs)
-                kernel_ms, plain_ms = e2e["kernel"], e2e["plain"]
-                stepwise_ms = e2e.get("stepwise", [])
-                levels_ms = {k: e2e[k] for k in ("old_level", "cooperative")
-                             if k in e2e}
-                timing = "5 interleaved runs"
-            else:
-                kernel_ms, plain_ms = [first_ms], [plain_first_ms]
-                levels_ms = {}
-                if method == "bfs":
-                    for name, fn in (("old_level", old_level),
-                                     ("cooperative", cooperative_level)):
-                        other, ms = on_level(
-                            fn, lambda: timed(g, method, None))
-                        check(torch.equal(other.parent, r.parent)
-                              and torch.equal(other.dist, r.dist)
-                              and other.steps == r.steps,
-                              f"{label} bfs: the {name} level's tree differs")
-                        levels_ms[name] = [ms]
-                        del other
-                timing = "the counted run and the bit-equality check's run"
+            # The kernel path against the plain one and the previous design
+            # (bfs: the previous level; else the stepwise doubling kernels).
+            runs = {"kernel": lambda: timed(g, method, None)[1],
+                    "plain": lambda: timed(g, method, False)[1]}
+            firsts = {"kernel": first_ms, "plain": plain_first_ms}
+            other = on_old_level if method == "bfs" else on_stepwise
+            name = "old_level" if method == "bfs" else "stepwise"
+            o, firsts[name] = other(lambda: timed(g, method, None))
+            for field in FIELDS[method]:
+                check(torch.equal(getattr(o, field), getattr(r, field)),
+                      f"{label} {method}: {field} differs on the {name} "
+                      "design")
+            del o
+            runs[name] = lambda: other(lambda: timed(g, method, None)[1])
+            e2e = time_variants(runs, firsts)
+            kernel_ms = e2e["kernel"]
             depth = tree_depth(r.parent)
             summary[label][method] = (statistics.median(kernel_ms), depth,
                                       r.steps)
@@ -1000,17 +1014,7 @@ def main() -> int:
                   **{k: getattr(r, k) for k in COUNTS[method][1:]},
                   "tree_depth": depth,
                   "launches": {k: v for k, v in got.items() if v},
-                  "timed_by": timing,
-                  "e2e_ms_median": statistics.median(kernel_ms),
-                  "e2e_ms": kernel_ms,
-                  "plain_e2e_ms_median": statistics.median(plain_ms),
-                  "plain_e2e_ms": plain_ms,
-                  **({"stepwise_e2e_ms_median": statistics.median(
-                      stepwise_ms), "stepwise_e2e_ms": stepwise_ms}
-                     if stepwise_ms else {}),
-                  **{f"{k}_e2e_ms_median": statistics.median(v)
-                     for k, v in levels_ms.items()},
-                  **{f"{k}_e2e_ms": v for k, v in levels_ms.items()},
+                  **e2e_fields(e2e),
                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                   "valid": verdict["all_ok"], "card": card})
             if method == "bfs":
@@ -1040,6 +1044,8 @@ def main() -> int:
               "bfs/gconn_euler": summary[label]["bfs"][0] / gc_ms,
               "pr_rst/gconn_euler": summary[label]["pr_rst"][0] / gc_ms,
               "pr_rst_table_levels_per_round": used})
+    old_consts.clear()
+
     # 5d. Biconnectivity on the small graphs: the table3/smoke_* counts,
     # and the card's result against the port's CPU run.
     for label, g in small:
@@ -1111,24 +1117,23 @@ def main() -> int:
             check(all(getattr(r, k) == getattr(p, k) for k in BCC_COUNTS),
                   f"{label} bcc {method}: counts differ from the plain path")
             del p
-            stepwise_ms = []
-            if first_ms <= SLOW_RUN_MS:
-                e2e = in_turns({
-                    "kernel": lambda: timed_call(lambda: run(None))[1],
-                    "plain": lambda: timed_call(lambda: run(False))[1],
-                    "stepwise": lambda: on_stepwise(
-                        lambda: timed_call(lambda: run(None))[1])})
-                kernel_ms, plain_ms = e2e["kernel"], e2e["plain"]
-                stepwise_ms = e2e["stepwise"]
-            else:
-                kernel_ms, plain_ms = [first_ms], [plain_first_ms]
+            # Against the plain path, the stepwise doubling kernels and the
+            # previous segment_table design.
+            runs = {"kernel": lambda: timed_call(lambda: run(None))[1],
+                    "plain": lambda: timed_call(lambda: run(False))[1]}
+            firsts = {"kernel": first_ms, "plain": plain_first_ms}
+            for name, other in (("stepwise", on_stepwise),
+                                ("segment_stepwise", on_segment_stepwise)):
+                o, firsts[name] = other(lambda: timed_call(lambda: run(None)))
+                check(all(torch.equal(getattr(o, f), getattr(r, f))
+                          for f in BCC_FIELDS),
+                      f"{label} bcc {method}: differs on the {name} design")
+                del o
+                runs[name] = lambda other=other: other(
+                    lambda: timed_call(lambda: run(None))[1])
+            e2e = time_variants(runs, firsts)
             per[method] = dict(
-                entry=entry, e2e_ms_median=statistics.median(kernel_ms),
-                e2e_ms=kernel_ms,
-                plain_e2e_ms_median=statistics.median(plain_ms),
-                plain_e2e_ms=plain_ms,
-                **({"stepwise_e2e_ms_median": statistics.median(stepwise_ms),
-                    "stepwise_e2e_ms": stepwise_ms} if stepwise_ms else {}),
+                entry=entry, **e2e_fields(e2e),
                 n_bcc=r.n_bcc,
                 articulation=int(r.articulation.sum()),
                 bridges=int(r.bridge.sum()) // 2, rst_steps=r.rst_steps,

@@ -17,7 +17,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.graph import Graph
+from repro_torch.kernels import kernel_wanted
 from repro_torch.kernels.frontier_relax.ops import bfs_level, bfs_level_buffer
+from repro_torch.kernels.frontier_relax.ref import level_constants
 
 INF32 = torch.iinfo(torch.int32).max
 
@@ -49,11 +51,16 @@ def bfs_rst(graph: Graph, root, *, max_levels: int | None = None,
     parent = torch.full((n,), -1, dtype=torch.int32, device=dev)
     parent[root] = root
 
-    cand = bfs_level_buffer(n, dev)
+    # What the levels share: the kernel's proposal buffer, or the plain
+    # version's graph constants.
+    if kernel_wanted(src, use_kernel):
+        cand, consts = bfs_level_buffer(n, dev), None
+    else:
+        cand, consts = None, level_constants(src, dst, n)
     bound = n if max_levels is None else max_levels
     level, changed = 0, True
     while changed and level < bound:
         changed = bfs_level(dist, parent, cand, src, dst, level,
-                            use_kernel=use_kernel)
+                            consts=consts, use_kernel=use_kernel)
         level += 1
     return parent, dist, level - 1

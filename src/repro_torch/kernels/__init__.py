@@ -15,9 +15,13 @@ Kernels:
                   with the "any list open" flag fused), and the chain
                   variant, (k + 1)-hop prefix sums in one launch.
   hook_edges      per half-edge hook proposal (tgt, val) under min/max hooking.
-  frontier_relax  the BFS frontier-expansion mask of one level.
-  segment_table   the [levels + 1, n] min/max doubling sparse table (one
-                  launch per level).
+  frontier_relax  the BFS frontier-expansion mask of one level, and the
+                  whole level (``bfs_level``: the mask, the parent
+                  scatter-min and the updates in two launches, with the
+                  "anything discovered" flag), which BFS runs.
+  segment_table   the [levels + 1, n] min/max doubling sparse table (two
+                  launches: the first 13 levels in shared-memory tiles,
+                  the rest from row 13; one where levels <= 13).
   embed_bag       fixed-hotness gather with a weighted sum or mean (DIEN's
                   multi-hot user profile).
 

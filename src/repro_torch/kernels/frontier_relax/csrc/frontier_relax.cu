@@ -40,22 +40,20 @@
 // vertex receives proposals only in the level that discovers it, because
 // from then on its dist is no longer INT32_MAX, so no reset is needed. The
 // flag needs no reset either: it holds the last level + 1 that discovered
-// anything. The launch boundary between the passes is the grid-wide barrier.
+// anything. The launch boundary between the passes is the grid-wide barrier
+// (one cooperative launch with a grid.sync() there instead was slower on
+// grid2d(4096) and faster on rmat(20, 16): PERF.md, PR 16).
 // Bound: memory, src and dst read once (8E bytes) and dist, cand and the
 // vertex pass (12n bytes), less where a pass reads only what the data needs.
 #include <climits>
-#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kEdgesPerThread = 4;
-constexpr int kCoopThreads = 1024;
-constexpr int kMaxDevices = 64;
+constexpr int kVerticesPerThread = 4;
 
 __global__ void frontier_relax_kernel(const int32_t* __restrict__ src,
                                       const int32_t* __restrict__ dst,
@@ -100,68 +98,34 @@ __global__ void bfs_edge_pass(const int32_t* __restrict__ src,
   }
 }
 
+// kVerticesPerThread vertices a thread, a block's worth apart, so that a
+// thread has that many loads in flight; cand is read only where dist is
+// INT32_MAX.
 __global__ void bfs_vertex_pass(int32_t* __restrict__ dist,
                                 int32_t* __restrict__ parent,
                                 const int32_t* __restrict__ cand,
                                 int32_t* __restrict__ flag, int32_t n,
                                 int32_t level) {
-  const int64_t v = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t base =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x * kVerticesPerThread +
+      threadIdx.x;
+  int32_t c[kVerticesPerThread];
+#pragma unroll
+  for (int u = 0; u < kVerticesPerThread; ++u) {
+    const int64_t v = base + u * blockDim.x;
+    c[u] = v < n && dist[v] == INT_MAX ? cand[v] : INT_MAX;
+  }
   bool found = false;
-  if (v < n && dist[v] == INT_MAX) {
-    const int32_t c = cand[v];
-    if (c != INT_MAX) {
-      dist[v] = level + 1;
-      parent[v] = c;
-      found = true;
-    }
+#pragma unroll
+  for (int u = 0; u < kVerticesPerThread; ++u) {
+    if (c[u] == INT_MAX) continue;
+    const int64_t v = base + u * blockDim.x;
+    dist[v] = level + 1;
+    parent[v] = c[u];
+    found = true;
   }
   if (__ballot_sync(0xffffffffu, found) != 0 && (threadIdx.x & 31) == 0)
     *flag = level + 1;
-}
-
-// The same level as one cooperative launch: both passes as grid-stride
-// loops over the co-resident grid, a grid.sync() between them. cand is read
-// with plain loads (the barrier's acquire orders the atomics before them).
-__global__ void __launch_bounds__(kCoopThreads)
-bfs_level_coop(const int32_t* __restrict__ src,
-               const int32_t* __restrict__ dst, int32_t* dist,
-               int32_t* parent, int32_t* cand, int64_t n_edges, int32_t n,
-               int32_t level) {
-  cg::grid_group grid = cg::this_grid();
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  for (int64_t base = first; base < n_edges; base += stride * kEdgesPerThread) {
-    int32_t s[kEdgesPerThread];
-    bool on[kEdgesPerThread];
-#pragma unroll
-    for (int u = 0; u < kEdgesPerThread; ++u) {
-      const int64_t e = base + u * stride;
-      s[u] = e < n_edges ? __ldg(src + e) : -1;
-    }
-#pragma unroll
-    for (int u = 0; u < kEdgesPerThread; ++u)
-      on[u] = s[u] >= 0 && dist[s[u]] == level;
-#pragma unroll
-    for (int u = 0; u < kEdgesPerThread; ++u) {
-      if (!on[u]) continue;
-      const int32_t v = __ldg(dst + base + u * stride);
-      if (dist[v] == INT_MAX && cand[v] > s[u]) atomicMin(cand + v, s[u]);
-    }
-  }
-  grid.sync();
-  bool found = false;
-  for (int64_t v = first; v < n; v += stride) {
-    if (dist[v] == INT_MAX) {
-      const int32_t c = cand[v];
-      if (c != INT_MAX) {
-        dist[v] = level + 1;
-        parent[v] = c;
-        found = true;
-      }
-    }
-  }
-  if (__ballot_sync(0xffffffffu, found) != 0 && (threadIdx.x & 31) == 0)
-    cand[n] = level + 1;
 }
 
 }  // namespace
@@ -209,48 +173,11 @@ extern "C" int bfs_level(const void* src, const void* dst, void* dist,
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  const auto blocks = static_cast<unsigned>((int64_t{n} + kThreads - 1) / kThreads);
+  const int64_t per_block = int64_t{kThreads} * kVerticesPerThread;
+  const auto blocks = static_cast<unsigned>((n + per_block - 1) / per_block);
   bfs_vertex_pass<<<blocks, kThreads, 0, s>>>(
       dist_arg, static_cast<int32_t*>(parent), cand_arg, cand_arg + n, n,
       level);
   return cudaGetLastError();
 }
 
-// The same contract as bfs_level, in one cooperative launch on the
-// co-resident grid of bfs_level_coop (or fewer blocks where the level needs
-// fewer). Returns the first CUDA error (0 on success).
-extern "C" int bfs_level_cooperative(const void* src, const void* dst,
-                                     void* dist, void* parent, void* cand,
-                                     int64_t n_edges, int n, int level,
-                                     int device, void* stream) {
-  static int resident[kMaxDevices];
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (resident[device] == 0) {
-    int per_sm = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, bfs_level_coop, kCoopThreads, 0);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-    resident[device] = per_sm * sms;
-  }
-  const int64_t work = n_edges / kEdgesPerThread > n ? n_edges / kEdgesPerThread : n;
-  const int64_t need = (work + kCoopThreads - 1) / kCoopThreads;
-  const int blocks = static_cast<int>(need < resident[device] ? (need > 0 ? need : 1)
-                                                              : resident[device]);
-  const int32_t* src_arg = static_cast<const int32_t*>(src);
-  const int32_t* dst_arg = static_cast<const int32_t*>(dst);
-  int32_t* dist_arg = static_cast<int32_t*>(dist);
-  int32_t* parent_arg = static_cast<int32_t*>(parent);
-  int32_t* cand_arg = static_cast<int32_t*>(cand);
-  int32_t n_arg = n, level_arg = level;
-  void* args[] = {&src_arg, &dst_arg, &dist_arg, &parent_arg, &cand_arg,
-                  &n_edges, &n_arg, &level_arg};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(bfs_level_coop),
-                                    dim3(blocks), dim3(kCoopThreads), args, 0,
-                                    static_cast<cudaStream_t>(stream));
-  cudaGetLastError();
-  return err;
-}

@@ -21,9 +21,6 @@ _ARGTYPES = {
     "bfs_level": [ctypes.c_void_p] * 5 + [
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p],
-    "bfs_level_cooperative": [ctypes.c_void_p] * 5 + [
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p],
 }
 
 
@@ -66,8 +63,9 @@ def bfs_level_buffer(n: int, device) -> torch.Tensor:
     return torch.full((n + 1,), INF32, dtype=torch.int32, device=device)
 
 
-def bfs_level(dist: torch.Tensor, parent: torch.Tensor, cand: torch.Tensor,
-              src: torch.Tensor, dst: torch.Tensor, level: int, *,
+def bfs_level(dist: torch.Tensor, parent: torch.Tensor,
+              cand: torch.Tensor | None, src: torch.Tensor, dst: torch.Tensor,
+              level: int, *, consts=None,
               use_kernel: bool | None = None) -> bool:
     """One level of the edge-centric BFS, in place on int32[n] ``dist`` and
     ``parent``; returns whether it discovered a vertex.
@@ -75,13 +73,15 @@ def bfs_level(dist: torch.Tensor, parent: torch.Tensor, cand: torch.Tensor,
     Every undiscovered vertex with a half-edge from level ``level`` gets
     ``dist = level + 1`` and the smallest such source as its parent.
     ``cand`` is ``bfs_level_buffer(n, device)``, made once per BFS and
-    passed to each of its levels: the kernel's proposals and its flag (the
-    plain version does not use it). ``src``/``dst`` entries must lie in
+    passed to each of its levels: the kernel's proposals and its flag.
+    ``consts`` is the plain version's ``level_constants``, which a caller
+    running many levels builds once (each call builds them where None).
+    Each path ignores the other's. ``src``/``dst`` entries must lie in
     ``[0, n)``. One host read a level, of the flag. ``use_kernel`` follows
     ``repro_torch.kernels.kernel_wanted``.
     """
     if not kernel_wanted(src, use_kernel):
-        return bfs_level_ref(dist, parent, src, dst, level)
+        return bfs_level_ref(dist, parent, src, dst, level, consts=consts)
     check_int32_cuda("bfs_level", src, dst, dist, parent, cand)
     n, e = dist.numel(), src.numel()
     if dst.numel() != e or parent.numel() != n or cand.numel() != n + 1:
@@ -91,33 +91,15 @@ def bfs_level(dist: torch.Tensor, parent: torch.Tensor, cand: torch.Tensor,
             "dst == src, parent == dist, cand == dist + 1)")
     if n == 0:
         return False
-    _launch_level("bfs_level", dist, parent, cand, src, dst, level)
+    fn = build.function("frontier_relax", "bfs_level", _ARGTYPES["bfs_level"])
+    rc = fn(src.data_ptr(), dst.data_ptr(), dist.data_ptr(),
+            parent.data_ptr(), cand.data_ptr(), e, n, int(level),
+            src.device.index,
+            torch.cuda.current_stream(src.device).cuda_stream)
+    build.check("frontier_relax", rc)
     bfs_level.launches += 1
     return int(cand[n]) == level + 1
 
 
 bfs_level.launches = 0
 
-
-def _launch_level(symbol, dist, parent, cand, src, dst, level):
-    fn = build.function("frontier_relax", symbol, _ARGTYPES[symbol])
-    rc = fn(src.data_ptr(), dst.data_ptr(), dist.data_ptr(),
-            parent.data_ptr(), cand.data_ptr(), src.numel(), dist.numel(),
-            int(level), src.device.index,
-            torch.cuda.current_stream(src.device).cuda_stream)
-    build.check("frontier_relax", rc)
-
-
-def bfs_level_cooperative(dist: torch.Tensor, parent: torch.Tensor,
-                          cand: torch.Tensor, src: torch.Tensor,
-                          dst: torch.Tensor, level: int) -> bool:
-    """``bfs_level`` on the card as one cooperative launch (the two passes
-    with a ``grid.sync()`` between them). Same values; a yardstick only."""
-    check_int32_cuda("bfs_level_cooperative", src, dst, dist, parent, cand)
-    _launch_level("bfs_level_cooperative", dist, parent, cand, src, dst,
-                  level)
-    bfs_level_cooperative.launches += 1
-    return int(cand[dist.numel()]) == level + 1
-
-
-bfs_level_cooperative.launches = 0

@@ -11,20 +11,22 @@
 // the H100 the table does not fit in any on-chip memory (at n = 2^24 it is
 // 1.68 GB), so it is built in device memory, each row written once:
 //
-//   * tile launch: a block owns kTile = 2^13 outputs and loads them with a
-//     halo of up to kTile more values into shared memory (64 KB), slots past
-//     n holding the op's identity. It builds rows 0..min(levels, 13) there in
-//     place (every thread reads its operands into registers, a barrier, then
-//     writes) and stores each row once, 16 bytes a thread where n % 4 == 0;
-//   * upper launch: rows 14.. read only row 13 at a stride of 2^13. For one
-//     residue r, x_m = row13[r + m 2^13] is a list of len = ceil(n / 2^13)
-//     values, and row (13 + j) at r + m 2^13 is level j of a plain sparse
-//     table over x. A block takes a group of consecutive residues (16, or
-//     fewer so that group x len fits in 64 KB) with their whole lists, builds
-//     every upper level in shared memory the same way and stores each row
-//     once: group x 4 contiguous bytes per list entry (a 32-byte sector at
-//     n = 2^24, 64 bytes at 2^20). Where even one residue's list does not
-//     fit (n > 2^27), the upper rows run as one launch per level instead;
+//   * tile launch: a block owns 2^K outputs (K = 13, or 11 where n is below
+//     264 tiles of 2^13, so that the grid still fills the 132 SMs twice) and
+//     loads them with a halo of up to 2^K more values into shared memory
+//     (8 << K bytes), slots past n holding the op's identity. It builds rows
+//     0..min(levels, K) there in place (every thread reads its operands into
+//     registers, a barrier, then writes) and stores each row once, 16 bytes a
+//     thread where n % 4 == 0;
+//   * upper launch: rows K + 1.. read only row K at a stride of 2^K. For one
+//     residue r, x_m = rowK[r + m 2^K] is a list of len = ceil(n / 2^K)
+//     values, and row (K + j) at r + m 2^K is level j of a plain sparse table
+//     over x. A block takes a group of consecutive residues (16, or fewer so
+//     that group x len fits in 64 KB and the grid has 256 blocks) with their
+//     whole lists, builds every upper level in shared memory the same way
+//     and stores each row once: group x 4 contiguous bytes per list entry (a
+//     32-byte sector at n = 2^24). Where even one residue's list does not fit
+//     (n > 2^27), the upper rows run as one launch per level instead;
 //   * segment_table_stepwise, the previous design, kept as a yardstick: a
 //     device copy and one launch per level, each reading row k twice.
 // Every launch combines the same pairs in the same operand order,
@@ -36,7 +38,7 @@
 // Bound on the H100: memory. The function reads values once and writes
 // (levels + 1) rows of n elements: 4n(levels + 2) bytes. The two-launch
 // design moves about 4n(levels + 4): values twice (tile and halo), the
-// rows once, row 13 once more. The stepwise design moves ~12n a level.
+// rows once, row K once more. The stepwise design moves ~12n a level.
 //
 // Float min/max propagate NaN as torch.minimum/torch.maximum do (fminf and
 // fmaxf drop it), so the compare is written by hand; a tie of +0.0 and -0.0
@@ -49,15 +51,20 @@
 namespace {
 
 constexpr int kThreads = 256;
+// The tile's levels K: 13, or 11 below kSmallTileBelow values.
 constexpr int kTileLevels = 13;
-constexpr int kTile = 1 << kTileLevels;
+constexpr int kSmallTileLevels = 11;
+constexpr int64_t kSmallTileBelow = int64_t{264} << kTileLevels;
+// Entries a thread stages a level in; a tile block holds 2^(K + 1) entries,
+// so it has 2^(K + 1) / kPerThread threads (1024 at K = 13).
+constexpr int kPerThread = 16;
 constexpr int kBlockThreads = 1024;
-// Shared-memory entries a block of either launch holds, and so the
-// registers a thread stages a level in.
-constexpr int kBlockEntries = 2 * kTile;
-constexpr int kPerThread = kBlockEntries / kBlockThreads;
-// At most 16 residues a block of the upper launch: 64-byte runs a row.
+// Shared-memory entries an upper block holds at most (64 KB of int32).
+constexpr int kBlockEntries = kPerThread * kBlockThreads;
+// At most 16 residues a block of the upper launch: 64-byte runs a row; and
+// at least 256 blocks where the tile allows.
 constexpr int kMaxGroupShift = 4;
+constexpr int kMinUpperBlocksShift = 8;
 
 template <bool kMax>
 __device__ __forceinline__ int32_t combine(int32_t a, int32_t b) {
@@ -82,37 +89,47 @@ template <typename T> struct Vec4;
 template <> struct Vec4<int32_t> { using type = int4; };
 template <> struct Vec4<float> { using type = float4; };
 
-// Store buf[0, kTile) as row `row` at [base, base + kTile) ∩ [0, n). With
+template <int kLevels>
+struct Tile {
+  static constexpr int kSize = 1 << kLevels;
+  static constexpr int kThreads = 2 * kSize / kPerThread;
+};
+
+// Store buf[0, 2^K) as row `row` at [base, base + 2^K) ∩ [0, n). With
 // `vec` (n % 4 == 0, so every row starts 16-byte aligned) 16 bytes a thread.
-template <typename T>
+template <int kLevels, typename T>
 __device__ __forceinline__ void store_tile_row(const T* buf, T* row,
                                                int64_t base, int64_t n,
                                                bool vec) {
   using V = typename Vec4<T>::type;
+  constexpr int kSize = Tile<kLevels>::kSize;
+  constexpr int kBlock = Tile<kLevels>::kThreads;
   if (vec) {
 #pragma unroll
-    for (int q = 0; q < kTile / 4 / kBlockThreads; ++q) {
-      const int i = 4 * (threadIdx.x + q * kBlockThreads);
+    for (int q = 0; q < kSize / 4 / kBlock; ++q) {
+      const int i = 4 * (threadIdx.x + q * kBlock);
       if (base + i < n)
         *reinterpret_cast<V*>(row + base + i) =
             *reinterpret_cast<const V*>(buf + i);
     }
   } else {
 #pragma unroll
-    for (int q = 0; q < kTile / kBlockThreads; ++q) {
-      const int i = threadIdx.x + q * kBlockThreads;
+    for (int q = 0; q < kSize / kBlock; ++q) {
+      const int i = threadIdx.x + q * kBlock;
       if (base + i < n) row[base + i] = buf[i];
     }
   }
 }
 
-// Rows 0..levels (levels <= kTileLevels) of the kTile outputs of one block.
-// Row k is needed at buffer positions i < kTile + 2^levels - 2^k (the
-// windows of the outputs of the rows above), all inside the loaded span.
-template <typename T, bool kMax>
-__global__ void __launch_bounds__(kBlockThreads)
+// Rows 0..levels (levels <= K) of the 2^K outputs of one block. Row k is
+// needed at buffer positions i < 2^K + 2^levels - 2^k (the windows of the
+// outputs of the rows above), all inside the loaded span.
+template <typename T, bool kMax, int kLevels>
+__global__ void __launch_bounds__(Tile<kLevels>::kThreads)
 segment_table_tile(const T* __restrict__ values, T* __restrict__ table,
                    int64_t n, int levels) {
+  constexpr int kTile = Tile<kLevels>::kSize;
+  constexpr int kBlock = Tile<kLevels>::kThreads;
   extern __shared__ __align__(16) unsigned char smem[];
   T* buf = reinterpret_cast<T*>(smem);
   const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile;
@@ -120,59 +137,59 @@ segment_table_tile(const T* __restrict__ values, T* __restrict__ table,
   const bool vec = n % 4 == 0;
 #pragma unroll
   for (int q = 0; q < kPerThread; ++q) {
-    const int i = threadIdx.x + q * kBlockThreads;
+    const int i = threadIdx.x + q * kBlock;
     buf[i] = i < span && base + i < n ? __ldg(values + base + i)
                                       : identity<T, kMax>();
   }
   __syncthreads();
-  store_tile_row(buf, table, base, n, vec);
+  store_tile_row<kLevels>(buf, table, base, n, vec);
   T r[kPerThread];
   for (int k = 1; k <= levels; ++k) {
     const int h = 1 << (k - 1);
     const int lim = kTile + (1 << levels) - (1 << k);
 #pragma unroll
     for (int q = 0; q < kPerThread; ++q) {
-      const int i = threadIdx.x + q * kBlockThreads;
+      const int i = threadIdx.x + q * kBlock;
       if (i < lim) r[q] = combine<kMax>(buf[i], buf[i + h]);
     }
     __syncthreads();
 #pragma unroll
     for (int q = 0; q < kPerThread; ++q) {
-      const int i = threadIdx.x + q * kBlockThreads;
+      const int i = threadIdx.x + q * kBlock;
       if (i < lim) buf[i] = r[q];
     }
     __syncthreads();
-    store_tile_row(buf, table + k * n, base, n, vec);
+    store_tile_row<kLevels>(buf, table + k * n, base, n, vec);
   }
 }
 
-// Rows kTileLevels + 1 .. levels for the residues [r0, r0 + group) of
-// 2^kTileLevels, group a power of two <= 2^kMaxGroupShift. Entry idx of the buffer
-// is list entry m = idx / group of residue r0 + idx % group, at table
-// position r0 + idx % group + m * kTile.
+// Rows tile_levels + 1 .. levels for the residues [r0, r0 + group) of
+// 2^tile_levels, group a power of two <= 2^kMaxGroupShift. Entry idx of the
+// buffer is list entry m = idx / group of residue r0 + idx % group, at table
+// position r0 + idx % group + m 2^tile_levels.
 template <typename T, bool kMax>
 __global__ void __launch_bounds__(kBlockThreads)
-segment_table_upper(T* __restrict__ table, int64_t n, int levels,
-                    int group_shift, int len) {
+segment_table_upper(T* __restrict__ table, int64_t n, int tile_levels,
+                    int levels, int group_shift, int len) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* buf = reinterpret_cast<T*>(smem);
   const int group = 1 << group_shift;
   const int total = group * len;
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * group;
-  const T* row_top = table + kTileLevels * n;
+  const T* row_top = table + tile_levels * n;
 #pragma unroll
   for (int q = 0; q < kPerThread; ++q) {
     const int idx = threadIdx.x + q * kBlockThreads;
     if (idx < total) {
       const int64_t pos = r0 + (idx & (group - 1)) +
-                          static_cast<int64_t>(idx >> group_shift) * kTile;
+                          (static_cast<int64_t>(idx >> group_shift) << tile_levels);
       buf[idx] = pos < n ? __ldg(row_top + pos) : identity<T, kMax>();
     }
   }
   __syncthreads();
   T r[kPerThread];
-  for (int k = kTileLevels + 1; k <= levels; ++k) {
-    const int64_t h = int64_t{1} << (k - kTileLevels - 1);  // in list entries
+  for (int k = tile_levels + 1; k <= levels; ++k) {
+    const int64_t h = int64_t{1} << (k - tile_levels - 1);  // in list entries
 #pragma unroll
     for (int q = 0; q < kPerThread; ++q) {
       const int idx = threadIdx.x + q * kBlockThreads;
@@ -192,7 +209,7 @@ segment_table_upper(T* __restrict__ table, int64_t n, int levels,
       const int idx = threadIdx.x + q * kBlockThreads;
       if (idx < total) {
         const int64_t pos = r0 + (idx & (group - 1)) +
-                            static_cast<int64_t>(idx >> group_shift) * kTile;
+                            (static_cast<int64_t>(idx >> group_shift) << tile_levels);
         if (pos < n) row[pos] = buf[idx];
       }
     }
@@ -261,56 +278,70 @@ cudaError_t per_level(T* table, int64_t n, int from, int levels,
   return cudaSuccess;
 }
 
-// How a call of n values and `levels` levels runs: log2 of the upper
-// launch's residues a block (-1: the upper rows run one launch per level),
-// the length of a residue's list, and the launches in all.
+// How a call of n values and `levels` levels runs: the tile's levels K,
+// log2 of the upper launch's residues a block (-1: the upper rows run one
+// launch per level), the length of a residue's list, and the launches.
 struct Plan {
+  int tile_levels;
   int group_shift;
   int len;
   int launches;
 };
 
 Plan plan(int64_t n, int levels) {
-  Plan p{0, 0, 1};
-  if (levels <= kTileLevels) return p;
-  const int64_t len = (n + kTile - 1) / kTile;
-  int shift = kMaxGroupShift;
-  while (shift > 0 && (int64_t{1} << shift) * len > kBlockEntries) --shift;
+  const int tile = n < kSmallTileBelow ? kSmallTileLevels : kTileLevels;
+  Plan p{tile, 0, 0, 1};
+  if (levels <= tile) return p;
+  const int64_t len = (n + (int64_t{1} << tile) - 1) >> tile;
   if (len > kBlockEntries) {
     p.group_shift = -1;
-    p.launches = 1 + levels - kTileLevels;
+    p.launches = 1 + levels - tile;
     return p;
   }
+  int shift = kMaxGroupShift < tile - kMinUpperBlocksShift
+                  ? kMaxGroupShift : tile - kMinUpperBlocksShift;
+  while (shift > 0 && (int64_t{1} << shift) * len > kBlockEntries) --shift;
   p.group_shift = shift;
   p.len = static_cast<int>(len);
   p.launches = 2;
   return p;
 }
 
+template <typename T, bool kMax, int kLevels>
+cudaError_t launch_tile(const T* values, T* table, int64_t n, int levels,
+                        cudaStream_t s) {
+  constexpr int kSize = Tile<kLevels>::kSize;
+  const int smem = 2 * kSize * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      segment_table_tile<T, kMax, kLevels>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const auto tiles = static_cast<unsigned>((n + kSize - 1) / kSize);
+  segment_table_tile<T, kMax, kLevels>
+      <<<tiles, Tile<kLevels>::kThreads, smem, s>>>(
+          values, table, n, levels < kLevels ? levels : kLevels);
+  return cudaGetLastError();
+}
+
 template <typename T, bool kMax>
 cudaError_t build_table(const T* values, T* table, int64_t n, int levels,
                         cudaStream_t s) {
   const Plan p = plan(n, levels);
-  const int tile_levels = levels < kTileLevels ? levels : kTileLevels;
-  const int smem = kBlockEntries * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      segment_table_tile<T, kMax>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  const auto tiles = static_cast<unsigned>((n + kTile - 1) / kTile);
-  segment_table_tile<T, kMax><<<tiles, kBlockThreads, smem, s>>>(
-      values, table, n, tile_levels);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || levels <= kTileLevels) return err;
-  if (p.group_shift < 0) return per_level<T, kMax>(table, n, kTileLevels, levels, s);
+  cudaError_t err =
+      p.tile_levels == kTileLevels
+          ? launch_tile<T, kMax, kTileLevels>(values, table, n, levels, s)
+          : launch_tile<T, kMax, kSmallTileLevels>(values, table, n, levels, s);
+  if (err != cudaSuccess || levels <= p.tile_levels) return err;
+  if (p.group_shift < 0)
+    return per_level<T, kMax>(table, n, p.tile_levels, levels, s);
   const int upper_smem = (p.len << p.group_shift) * static_cast<int>(sizeof(T));
   err = cudaFuncSetAttribute(segment_table_upper<T, kMax>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              upper_smem);
   if (err != cudaSuccess) return err;
-  segment_table_upper<T, kMax><<<kTile >> p.group_shift, kBlockThreads,
-                                 upper_smem, s>>>(table, n, levels,
-                                                  p.group_shift, p.len);
+  segment_table_upper<T, kMax>
+      <<<(1 << p.tile_levels) >> p.group_shift, kBlockThreads, upper_smem, s>>>(
+          table, n, p.tile_levels, levels, p.group_shift, p.len);
   return cudaGetLastError();
 }
 
@@ -330,9 +361,9 @@ extern "C" const char* kernel_error_string(int code) {
 }
 
 // The launches a segment_table call of n >= 1 values and `levels` levels
-// makes: 1 (the tile launch) where levels <= 13, else 2, or 1 + levels - 13
-// where a residue's list does not fit in a block (n > 2^27). Writes it to
-// *launches; returns 0.
+// makes: 1 (the tile launch) where levels <= K (13, or 11 below 264 tiles of
+// 2^13 values), else 2, or 1 + levels - K where a residue's list does not
+// fit in a block (n > 2^27). Writes it to *launches; returns 0.
 extern "C" int segment_table_launches(int64_t n, int levels, int* launches) {
   *launches = plan(n, levels).launches;
   return 0;

@@ -29,7 +29,6 @@ from repro_torch.kernels.embed_bag.ref import embed_bag_ref
 from repro_torch.core.compress import _table_levels
 from repro_torch.kernels.frontier_relax.ops import (bfs_level,
                                                     bfs_level_buffer,
-                                                    bfs_level_cooperative,
                                                     frontier_relax)
 from repro_torch.kernels.frontier_relax.ref import (INF32, bfs_level_ref,
                                                     frontier_relax_ref)
@@ -376,17 +375,10 @@ def _bfs_state(n, e, level, seed, device):
 
 
 def _level_against_ref(dist, parent, src, dst, level):
-    """One bfs_level call (one launch counted) against bfs_level_ref, and
-    the cooperative variant, on copies of the same state: dist, parent and
-    the flag bit-equal."""
+    """One bfs_level call (one launch counted) against bfs_level_ref on
+    copies of the same state: dist, parent and the flag bit-equal."""
     want_d, want_p = dist.clone(), parent.clone()
     want = bfs_level_ref(want_d, want_p, src, dst, level)
-    coop_d, coop_p = dist.clone(), parent.clone()
-    coop = bfs_level_cooperative(
-        coop_d, coop_p, bfs_level_buffer(dist.numel(), dist.device), src,
-        dst, level)
-    assert coop == want
-    assert torch.equal(coop_d, want_d) and torch.equal(coop_p, want_p)
     cand = bfs_level_buffer(dist.numel(), dist.device)
     before = bfs_level.launches
     got = bfs_level(dist, parent, cand, src, dst, level, use_kernel=True)
@@ -530,7 +522,10 @@ def _table_values(n, dtype, seed, device):
     return torch.where(rare, special[pick], values)
 
 
-SEG_SIZES = [1, 3, 4095, 4096, 4097, (1 << 20) + 1, 1 << 24]
+# Sizes below, at and past 2^12, odd and even sizes (a row 16-byte aligned
+# or not), ragged tiles of 2^13 outputs, and the paths' n.
+SEG_SIZES = [1, 2, 3, 4, 64, 1001, 4095, 4096, 4097, 1 << 20, (1 << 20) + 1,
+             (1 << 20) + 3, 1 << 24]
 
 
 @pytest.mark.parametrize("n", SEG_SIZES)
@@ -538,18 +533,19 @@ SEG_SIZES = [1, 3, 4095, 4096, 4097, (1 << 20) + 1, 1 << 24]
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
 @pytest.mark.parametrize("op", ["min", "max"])
 def test_segment_table_kernel(cuda, n, levels, dtype, op):
-    """Bit-equal to the plain version and to the stepwise design, at the
-    tile's edges (2^12 = 4096 outputs a tile is 2^13: 4095-4097 cover a
-    ragged tile and the upper launch's list ends) and at levels around the
-    tile's 13; the launches are the plan's (1 or 2)."""
+    """Bit-equal to the plain version and to the stepwise design, at
+    levels around the tile's 13 (11 below 2^13 x 264 values); the launches
+    are the plan's: 1 up to the tile's levels, 2 above."""
     if levels == "full":
         levels = max(1, (n - 1).bit_length())
     values = _table_values(n, dtype, n + levels, cuda)
     before = segment_table.launches
     got = segment_table(values, levels=levels, op=op, use_kernel=True)
     torch.cuda.synchronize()
-    assert segment_table.launches - before == launches_per_call(n, levels)
-    assert launches_per_call(n, levels) == (1 if levels <= 13 else 2)
+    per_call = launches_per_call(n, levels)
+    assert segment_table.launches - before == per_call
+    assert (per_call == 1 if levels <= 11
+            else per_call == 2 if levels >= 14 else per_call in (1, 2))
     _same_table(got, segment_table_ref(values, levels=levels, op=op))
     _same_table(got, segment_table_stepwise(values, levels=levels, op=op))
 

@@ -136,7 +136,6 @@ def test_kernel_build_needs_nvcc_and_stays_under_build(monkeypatch,
     ("list_rank", "list_rank_chain"),
     ("frontier_relax", "frontier_relax"),
     ("frontier_relax", "bfs_level"),
-    ("frontier_relax", "bfs_level_cooperative"),
     ("segment_table", "segment_table"),
     ("segment_table", "segment_table_stepwise"),
     ("segment_table", "segment_table_launches"),
