@@ -1102,9 +1102,11 @@ def main() -> int:
                     "segment_table"]
             if entry.startswith("biconnectivity") and method == "bfs":
                 need.append("bfs_level")
-            # Two tables (low and high) of seg_syncs / 2 levels each.
-            lv = r.seg_syncs // 2
-            check(got["segment_table"] == 2 * launches_per_call(g.n_nodes, lv)
+            # Two tables (low and high) of ⌈log2 n⌉ levels each.
+            lv = (g.n_nodes - 1).bit_length()
+            check(r.seg_syncs == 2 * lv
+                  and got["segment_table"]
+                  == 2 * launches_per_call(g.n_nodes, lv)
                   and got["frontier_relax"] == 0
                   and all(got[k] > 0 for k in need),
                   f"{label} bcc {method}: launches {got}, seg_syncs "

@@ -20,8 +20,9 @@ Kernels:
                   scatter-min and the updates in two launches, with the
                   "anything discovered" flag), which BFS runs.
   segment_table   the [levels + 1, n] min/max doubling sparse table (two
-                  launches: the first 13 levels in shared-memory tiles,
-                  the rest from row 13; one where levels <= 13).
+                  launches: the first 13 levels, or 11 for n below
+                  2,162,688, in shared-memory tiles, the rest from that
+                  row; one where no level is left).
   embed_bag       fixed-hotness gather with a weighted sum or mean (DIEN's
                   multi-hot user profile).
 

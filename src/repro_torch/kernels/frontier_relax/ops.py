@@ -102,4 +102,3 @@ def bfs_level(dist: torch.Tensor, parent: torch.Tensor,
 
 
 bfs_level.launches = 0
-

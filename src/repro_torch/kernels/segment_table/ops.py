@@ -1,9 +1,10 @@
 """Wrappers for the segment_table kernel (``csrc/segment_table.cu``).
 
 One call builds the whole [levels + 1, n] table in two launches (the
-first 13 levels in shared-memory tiles, the levels above from row 13), or
-one where ``levels <= 13``; ``launches_per_call`` gives the count and
-``segment_table.launches`` grows by it. ``segment_table_stepwise`` is the
+first K levels in shared-memory tiles, the levels above from row K; K is 13,
+or 11 below 264 tiles of 2^13 values), or one where ``levels <= K``;
+``launches_per_call`` gives the count and ``segment_table.launches`` grows
+by it. ``segment_table_stepwise`` is the
 previous design (a device copy and one launch per level), kept only as a
 yardstick: ``chip_smoke.py`` and the card tests call it, no function of
 the package does. The query fold stays in

@@ -508,8 +508,8 @@ def _same_table(got, want):
 
 
 def _table_values(n, dtype, seed, device):
-    """int32 over the whole range, or float32 with NaN, ±0.0 and ±inf
-    scattered in (the op's identity among them)."""
+    """int32 over the whole range, or float32 with a NaN in the middle and
+    NaN, ±0.0 and ±inf scattered in (the op's identity among them)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     if dtype == torch.int32:
         return torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
@@ -519,7 +519,9 @@ def _table_values(n, dtype, seed, device):
                             -float("inf")], device=device)
     pick = torch.randint(0, 5, (n,), generator=gen, device=device)
     rare = torch.rand(n, generator=gen, device=device) < 0.3 / max(n, 1) ** 0.5
-    return torch.where(rare, special[pick], values)
+    values = torch.where(rare, special[pick], values)
+    values[n // 2] = float("nan")
+    return values
 
 
 # Sizes below, at and past 2^12, odd and even sizes (a row 16-byte aligned
