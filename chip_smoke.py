@@ -24,7 +24,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      (the ``*_stepwise`` entries), flags included, timed in turns at a
      2^24 random forest and chain, at the first table ``compress_full``
      receives in ``connected_components`` on both large graphs, and at
-     both graphs' Euler lists;
+     both graphs' Euler lists; the two chain kernels (one cooperative
+     launch a call, the hops composed from squarings) also against their
+     previous design, one thread an element (the ``*_chain_previous``
+     entries), timed in turns at a 2^24 random forest, chain and random
+     function, at k = 5 and k = 31;
   4. the engine's sync contract on a 2^24-long chain;
   5. the paths, each driven through its entry point with the launch
      counts set to 0 just before and read just after (the doubling
@@ -93,6 +97,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import pathlib
 import statistics
@@ -111,6 +116,8 @@ NON_TENSOR_OPS_PER_S = 67e12
 GRID_SIDE = 4096
 RMAT_SCALE = 20
 N_JUMPS = 5
+# The chain kernels' second count: 31 hops of a chain, five squarings.
+CHAIN_LONG = 31
 TIMED_RUNS = 7
 # A sleep on the card of about 1 ms at the H100's clock, longer than the
 # host takes to enqueue one call of a doubling kernel.
@@ -301,11 +308,14 @@ def main() -> int:
                                                         level_constants)
     from repro_torch.kernels.hook_edges.ops import hook_edges
     from repro_torch.core import compress, connectivity
-    from repro_torch.kernels.list_rank.ops import (list_rank_double_k,
+    from repro_torch.kernels.hops import gathers, hop_schedule
+    from repro_torch.kernels.list_rank.ops import (list_rank_chain_previous,
+                                                   list_rank_double_k,
                                                    list_rank_double_stepwise,
                                                    list_rank_k)
     from repro_torch.kernels.pointer_jump.ops import (
-        pointer_jump_double_k, pointer_jump_double_stepwise, pointer_jump_k)
+        pointer_jump_chain_previous, pointer_jump_double_k,
+        pointer_jump_double_stepwise, pointer_jump_k)
     from repro_torch.kernels.segment_table.ops import (
         launches_per_call, segment_table, segment_table_stepwise)
     from repro_torch.kernels.embed_bag.ops import embed_bag
@@ -320,9 +330,11 @@ def main() -> int:
                 "bfs_level": bfs_level,
                 "pointer_jump_k": pointer_jump_k, "list_rank_k": list_rank_k,
                 "segment_table": segment_table, "embed_bag": embed_bag}
-    # The previous designs of the two doubling kernels and of
-    # segment_table: timed in phase 3, and no path may launch them.
+    # The previous designs of the two doubling kernels, the two chain
+    # kernels and segment_table: timed in phase 3, and no path may launch
+    # them.
     yardsticks = (pointer_jump_double_stepwise, list_rank_double_stepwise,
+                  pointer_jump_chain_previous, list_rank_chain_previous,
                   segment_table_stepwise)
     # One graph's constants of the previous level, built once, as its loop
     # hoisted them.
@@ -412,7 +424,7 @@ def main() -> int:
     def read_counts():
         torch.cuda.synchronize()
         check(all(c.launches == 0 for c in yardsticks),
-              "a path launched a stepwise doubling kernel")
+              "a path launched a previous design (a yardstick)")
         return {name: c.launches for name, c in counters.items()}
 
     # 1. The card.
@@ -566,45 +578,83 @@ def main() -> int:
           **kernel_line(rows["list_rank_double"]), "inputs": lr})
     del lr_inputs, succ, dist, outs, fns
 
-    # The chain variants, on the same two tables: pointer_jump_k follows
-    # each table; list_rank_k ranks it as a successor table whose roots
-    # end their lists.
+    # The chain variants (rows 5 and 6): pointer_jump_k follows each of
+    # the 2^24 forest, the chain and a random function; list_rank_k ranks
+    # it as a successor table whose roots end their lists. At k = 5 and
+    # k = 31, the kernel (squarings in one cooperative launch), its previous
+    # design (one thread an element following the table) and the plain
+    # version, bit-equal, timed in turns behind a sleep. ``sectors``: the
+    # random 32-byte sectors an element's gathers fetch (one a gather;
+    # the previous list ranking fetched two a step, from its two int32
+    # tables).
+    chain_inputs = {"forest": forest, "chain": chain,
+                    "function": torch.randint(0, n_tab, (n_tab,),
+                                              generator=gen, device=dev,
+                                              dtype=torch.int32)}
     pjk, lrk, err_pjk, err_lrk = {}, {}, 0, 0
-    for label, table in (("chain", chain), ("forest", forest)):
-        err_pjk = max(err_pjk, max_abs_err(
-            torch, pointer_jump_k(table, n_jumps=N_JUMPS, use_kernel=True),
-            pointer_jump_k(table, n_jumps=N_JUMPS, use_kernel=False)))
-        pjk[label] = {
-            "kernel_ms": cuda_ms(torch, lambda: pointer_jump_k(
-                table, n_jumps=N_JUMPS, use_kernel=True)),
-            "plain_ms": cuda_ms(torch, lambda: pointer_jump_k(
-                table, n_jumps=N_JUMPS, use_kernel=False))}
+    for (label, table), k in itertools.product(chain_inputs.items(),
+                                               (N_JUMPS, CHAIN_LONG)):
+        case = f"{label}_k{k}"
+        pj_fns = {
+            "kernel": lambda t=table, k=k: pointer_jump_k(
+                t, n_jumps=k, use_kernel=True),
+            "previous": lambda t=table, k=k: pointer_jump_chain_previous(
+                t, n_jumps=k),
+            "plain": lambda t=table, k=k: pointer_jump_k(
+                t, n_jumps=k, use_kernel=False)}
+        outs = {name: f() for name, f in pj_fns.items()}
+        for name in ("kernel", "previous"):
+            err_pjk = max(err_pjk, max_abs_err(torch, outs[name],
+                                               outs["plain"]))
+        plan = hop_schedule(k)
+        pjk[case] = {**{f"{name}_ms": v for name, v in
+                        cuda_ms_turns(torch, pj_fns).items()},
+                     "passes": len(plan), "sectors": gathers(plan),
+                     "previous_sectors": k}
         succ = torch.where(table == ids, -1, table)
         dist = (succ != -1).to(torch.int32)
-        got = list_rank_k(succ, dist, n_steps=N_JUMPS, use_kernel=True)
-        want = list_rank_k(succ, dist, n_steps=N_JUMPS, use_kernel=False)
-        err_lrk = max(err_lrk, max_abs_err(torch, got[0], want[0]),
-                      max_abs_err(torch, got[1], want[1]))
-        lrk[label] = {
-            "kernel_ms": cuda_ms(torch, lambda: list_rank_k(
-                succ, dist, n_steps=N_JUMPS, use_kernel=True)),
-            "plain_ms": cuda_ms(torch, lambda: list_rank_k(
-                succ, dist, n_steps=N_JUMPS, use_kernel=False))}
+        lr_fns = {
+            "kernel": lambda s=succ, d=dist, k=k: list_rank_k(
+                s, d, n_steps=k, use_kernel=True),
+            "previous": lambda s=succ, d=dist, k=k: list_rank_chain_previous(
+                s, d, n_steps=k),
+            "plain": lambda s=succ, d=dist, k=k: list_rank_k(
+                s, d, n_steps=k, use_kernel=False)}
+        outs = {name: f() for name, f in lr_fns.items()}
+        plan = hop_schedule(k, pack_input=True)
+        for name in ("kernel", "previous"):
+            err_lrk = max(err_lrk,
+                          max_abs_err(torch, outs[name][0], outs["plain"][0]),
+                          max_abs_err(torch, outs[name][1], outs["plain"][1]))
+        lrk[case] = {**{f"{name}_ms": v for name, v in
+                        cuda_ms_turns(torch, lr_fns).items()},
+                     "passes": len(plan), "sectors": gathers(plan),
+                     "previous_sectors": 2 * k}
     check(err_pjk == 0, f"pointer_jump_k differs from plain by {err_pjk}")
     check(err_lrk == 0, f"list_rank_k differs from plain by {err_lrk}")
-    for name, res, err, nbytes, ops in (
-            ("pointer_jump_k", pjk, err_pjk, 8 * n_tab, N_JUMPS * n_tab),
-            ("list_rank_k", lrk, err_lrk, 16 * n_tab, 3 * N_JUMPS * n_tab)):
+    for name, res, err, nbytes, ops, lib, symbol in (
+            ("pointer_jump_k", pjk, err_pjk, 8 * n_tab, N_JUMPS * n_tab,
+             "pointer_jump", "pointer_jump_chain_blocks"),
+            ("list_rank_k", lrk, err_lrk, 16 * n_tab, 3 * N_JUMPS * n_tab,
+             "list_rank", "list_rank_chain_blocks")):
         b_ms, b_by = bound(nbytes, ops)
-        rows[name] = dict(ms=res["forest"]["kernel_ms"],
-                          plain_ms=res["forest"]["plain_ms"], library_ms=None,
+        forest_k = res[f"forest_k{N_JUMPS}"]
+        rows[name] = dict(ms=forest_k["kernel_ms"],
+                          plain_ms=forest_k["plain_ms"], library_ms=None,
                           bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
-        emit({"kernel": name, "n": n_tab, "n_steps": N_JUMPS,
-              "input": "relabelled random forest (chain_*: the 2^24 chain)",
-              **kernel_line(rows[name]), **{
-                  f"{label}_{k}": v for label in res
-                  for k, v in res[label].items()}})
-    del below, perm, succ, dist, got, want
+        emit({"kernel": name, "n": n_tab, "n_steps": N_JUMPS, "card": card,
+              "coop_blocks": build.cooperative_blocks(lib, symbol,
+                                                      chain.device, n_tab),
+              "input": "relabelled random forest at k = 5 (<input>_k<k>: "
+                       "also the 2^24 chain and a random function, and k = "
+                       f"{CHAIN_LONG}); previous: the previous design",
+              **kernel_line(rows[name]),
+              "previous_ms": forest_k["previous_ms"],
+              "sector_bound_ms": bound(
+                  nbytes + 32 * forest_k["sectors"] * n_tab, 0)[0],
+              **{f"{case}_{k}": v for case in res
+                 for k, v in res[case].items()}})
+    del below, perm, succ, dist, outs, pj_fns, lr_fns, chain_inputs
 
     rand_rep = torch.randint(0, n, (n,), generator=gen, device=dev,
                              dtype=torch.int32)

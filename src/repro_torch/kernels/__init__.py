@@ -10,10 +10,13 @@ Each kernel lives in its own subpackage, the same layout as
 Kernels:
   pointer_jump    k doubling steps ``t = t[t]`` (one cooperative launch
                   with the convergence flag fused), and the chain variant,
-                  k + 1 hops against a fixed table.
+                  k + 1 hops against a fixed table (one cooperative launch
+                  that composes them from squarings, on the plan of
+                  ``hops.py``).
   list_rank       k Wyllie steps on (succ, dist) (one cooperative launch
                   with the "any list open" flag fused), and the chain
-                  variant, (k + 1)-hop prefix sums in one launch.
+                  variant, (k + 1)-hop prefix sums (one cooperative launch,
+                  squarings on packed (succ, dist) pairs).
   hook_edges      per half-edge hook proposal (tgt, val) under min/max hooking.
   frontier_relax  the BFS frontier-expansion mask of one level, and the
                   whole level (``bfs_level``: the mask, the parent
@@ -27,7 +30,7 @@ Kernels:
                   multi-hot user profile).
 
 ``build.py`` compiles the sources with ``nvcc`` on first use and loads them
-through ``ctypes``.
+through ``ctypes``. ``hops.py`` plans the chain kernels' passes.
 
 Dispatch (``kernel_wanted``) replaces ``repro.kernels.auto_interpret``: every
 wrapper takes ``use_kernel: bool | None``. ``None`` launches the kernel for a

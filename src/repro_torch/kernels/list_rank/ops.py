@@ -4,11 +4,13 @@
 in one cooperative launch, which can also return whether any list is still
 open; the convergence loop around it lives in
 ``repro_torch.core.compress.wyllie_rank``. ``list_rank_k`` is the chain
-variant, ``n_steps`` updates against one snapshot in one launch.
-``list_rank_double_stepwise`` is the previous design of the doubling
-kernel (one launch per step), kept only as a yardstick: ``chip_smoke.py``
-and the card tests call it, no function of the package does. Each
-wrapper's ``.launches`` counts its kernel's launches.
+variant, ``n_steps`` updates against one snapshot, composed from squarings
+in one cooperative launch. ``list_rank_double_stepwise`` and
+``list_rank_chain_previous`` are the previous designs of the two kernels
+(one launch per doubling step; one thread an element taking the steps),
+kept only as yardsticks: ``chip_smoke.py`` and the card tests call them,
+no function of the package does. Each wrapper's ``.launches`` counts its
+kernel's launches.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, check_int32_cuda, kernel_wanted
+from repro_torch.kernels.hops import c_schedule, hop_schedule
 from repro_torch.kernels.list_rank.ref import (NO_SUCC, list_rank_double_ref,
                                                list_rank_steps_ref)
 
@@ -26,8 +29,11 @@ _ARGTYPES = {
         ctypes.c_void_p],
     "list_rank_double_stepwise": [ctypes.c_void_p] * 6 + [
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    "list_rank_chain": [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int,
-                                                ctypes.c_int, ctypes.c_void_p],
+    "list_rank_chain": [ctypes.c_void_p] * 6 + [
+        ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p],
+    "list_rank_chain_previous": [ctypes.c_void_p] * 4 + [
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 }
 # The cooperative kernel's 32-bit indices (an int32 successor table cannot
 # point further).
@@ -141,23 +147,71 @@ def list_rank_k(succ: torch.Tensor, dist: torch.Tensor, *, n_steps: int = 5,
 
     Gives the (k+1)-hop chain prefix sums ``dist'[i] = Σ_{j≤k}
     dist[s^j(i)]`` and ``succ'[i] = s^(k+1)(i)``; ``succ == -1`` ends a
-    list. Functional. Returns ``(succ', dist')``. ``use_kernel`` follows
-    ``repro_torch.kernels.kernel_wanted``.
+    list, and the int32 sums wrap. Functional. Returns ``(succ', dist')``.
+    On the card the k + 1 hops are composed from squarings: one cooperative
+    launch runs the passes of ``hops.hop_schedule(n_steps, pack_input=True)``,
+    a grid-wide barrier between them, on (succ, dist) packed as one 8-byte
+    pair by the first pass (3 random one-sector gathers an element at the
+    default 5, where the steps take 5 of two tables each). ``n_steps <= 0``
+    gives copies of the inputs.
+    ``use_kernel`` follows ``repro_torch.kernels.kernel_wanted``.
     """
     if not kernel_wanted(succ, use_kernel):
         return list_rank_steps_ref(succ, dist, n_steps)
     n = _check_pair("list_rank_k", succ, dist)
+    if n == 0:
+        return succ.clone(), dist.clone()
+    if n > _MAX_ENTRIES:
+        raise ValueError(f"list_rank_k: {n} entries, the kernel indexes at "
+                         f"most {_MAX_ENTRIES}")
+    out = _launch_chain(succ, dist, hop_schedule(n_steps, pack_input=True))
+    list_rank_k.launches += 1
+    return out
+
+
+list_rank_k.launches = 0
+
+
+def _launch_chain(succ: torch.Tensor, dist: torch.Tensor, plan,
+                  blocks: int = 0):
+    """One cooperative launch of the chain kernel running ``plan`` (a
+    ``hops.hop_schedule``) on a grid of ``blocks`` (0: the kernel's own,
+    ``list_rank_chain_blocks``); raises if the launch is refused or the
+    plan is malformed. Each pass but the last writes its own packed table.
+    Returns ``(succ', dist')``."""
+    n = succ.numel()
+    succ_out, dist_out = torch.empty_like(succ), torch.empty_like(dist)
+    # Packed (succ, dist) pairs, int2 in the kernel.
+    scratch = (torch.empty((len(plan) - 1) * n, dtype=torch.int64,
+                           device=succ.device) if len(plan) > 1 else succ_out)
+    spec = c_schedule(plan)
+    fn = build.function("list_rank", "list_rank_chain",
+                        _ARGTYPES["list_rank_chain"])
+    rc = fn(succ.data_ptr(), dist.data_ptr(), succ_out.data_ptr(),
+            dist_out.data_ptr(), scratch.data_ptr(), ctypes.addressof(spec),
+            len(spec), n, blocks, succ.device.index,
+            torch.cuda.current_stream(succ.device).cuda_stream)
+    build.check("list_rank", rc)
+    return succ_out, dist_out
+
+
+def list_rank_chain_previous(succ: torch.Tensor, dist: torch.Tensor, *,
+                             n_steps: int = 5):
+    """The previous design of ``list_rank_k`` on the card: one launch, one
+    thread an element taking the ``n_steps`` steps, two int32 gathers a
+    step. Same values; a yardstick only."""
+    n = _check_pair("list_rank_chain_previous", succ, dist)
     succ_out, dist_out = torch.empty_like(succ), torch.empty_like(dist)
     if n == 0:
         return succ_out, dist_out
-    fn = build.function("list_rank", "list_rank_chain",
-                        _ARGTYPES["list_rank_chain"])
+    fn = build.function("list_rank", "list_rank_chain_previous",
+                        _ARGTYPES["list_rank_chain_previous"])
     rc = fn(succ.data_ptr(), dist.data_ptr(), succ_out.data_ptr(),
             dist_out.data_ptr(), n, n_steps, succ.device.index,
             torch.cuda.current_stream(succ.device).cuda_stream)
     build.check("list_rank", rc)
-    list_rank_k.launches += 1
+    list_rank_chain_previous.launches += 1
     return succ_out, dist_out
 
 
-list_rank_k.launches = 0
+list_rank_chain_previous.launches = 0

@@ -1,11 +1,15 @@
-// Three entries over a whole int32 parent table:
+// Four entries over a whole int32 parent table:
 //   pointer_jump_double:          k doubling steps `t = t[t]` in one
 //                                 cooperative launch, with the convergence
 //                                 flag `any(out != table)` fused in;
 //   pointer_jump_double_stepwise: the same k steps as k launches (the
 //                                 previous design, kept as a yardstick);
 //   pointer_jump_chain:           `n_jumps + 1` hops against one fixed
-//                                 table, out[i] = p^(n_jumps+1)(i).
+//                                 table, out[i] = p^(n_jumps+1)(i), composed
+//                                 from squarings in one cooperative launch;
+//   pointer_jump_chain_previous:  the same hops, one thread an element
+//                                 following the table (the previous design,
+//                                 kept as a yardstick).
 //
 // pointer_jump_double replaces the TPU kernel `_pointer_jump_double_kernel` /
 // `pointer_jump_double_pallas` in src/repro/kernels/pointer_jump/pointer_jump.py.
@@ -55,7 +59,66 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kCoopThreads = 1024;
 constexpr int kUnroll = 4;
+// The chain kernels' elements in flight a thread: their passes stream
+// faster at 2 than at 4 or 8, and their gathers are no slower (PERF.md).
+constexpr int kChainUnroll = 2;
 constexpr int kMaxDevices = 64;
+constexpr int kMaxPasses = 32;
+constexpr int kMaxTerms = 128;
+
+// The pass plan of a pointer_jump_chain launch, passed by value. Pass p
+// maps entry i through the tables term[end[p-1] .. end[p]) (end[-1] = 0):
+// the first is read at i, each further one gathered at the entry reached.
+// Table 0 is the input, table j >= 1 the one pass j wrote.
+struct ChainSchedule {
+  int passes;
+  uint8_t end[kMaxPasses];
+  uint8_t term[kMaxTerms];
+};
+
+// Parses the host plan `spec` of `len` ints, each pass as its term count
+// followed by its tables (repro_torch/kernels/hops.py::hop_schedule).
+// False if it is empty, too long, or a pass reads a table not yet written.
+bool parse_schedule(const int32_t* spec, int len, ChainSchedule* s) {
+  s->passes = 0;
+  int terms = 0;
+  for (int i = 0; i < len;) {
+    const int count = spec[i++];
+    if (count < 1 || s->passes == kMaxPasses || terms + count > kMaxTerms ||
+        i + count > len)
+      return false;
+    for (int t = 0; t < count; ++t) {
+      const int tab = spec[i++];
+      if (tab < 0 || tab > s->passes) return false;
+      s->term[terms++] = static_cast<uint8_t>(tab);
+    }
+    s->end[s->passes++] = static_cast<uint8_t>(terms);
+  }
+  return s->passes > 0;
+}
+
+// The co-resident block count of the cooperative `kernel` at kCoopThreads
+// threads a block on `device` (cached in resident[device]), or fewer when
+// n needs fewer blocks of one entry per thread.
+template <typename Kernel>
+cudaError_t coop_blocks(Kernel kernel, int* resident, int device, int64_t n,
+                        int* blocks) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (resident[device] == 0) {
+    int per_sm = 0, sms = 0;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kCoopThreads, 0);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    resident[device] = per_sm * sms;
+  }
+  const int64_t need = (n + kCoopThreads - 1) / kCoopThreads;
+  *blocks = static_cast<int>(need < resident[device] ? need : resident[device]);
+  return cudaSuccess;
+}
 
 template <bool kFromInput>
 __device__ __forceinline__ int32_t load_tab(const int32_t* p) {
@@ -128,9 +191,56 @@ __global__ void pointer_jump_double_step(const int32_t* __restrict__ in,
   if (i < n) out[i] = __ldg(in + __ldg(in + i));
 }
 
-__global__ void pointer_jump_chain_kernel(const int32_t* __restrict__ p,
-                                          int32_t* __restrict__ out,
-                                          int64_t n, int n_jumps) {
+// Entry x of table `tab`: the input through the read-only path, a table
+// written earlier in the launch with a plain load.
+__device__ __forceinline__ int32_t chain_entry(
+    const int32_t* __restrict__ table, const int32_t* scratch, uint32_t n,
+    int tab, uint32_t x) {
+  return tab == 0 ? __ldg(table + x)
+                  : scratch[static_cast<size_t>(tab - 1) * n + x];
+}
+
+// Pass p writes table p + 1 (scratch slot p), the last pass `out`.
+__global__ void __launch_bounds__(kCoopThreads)
+pointer_jump_chain_coop(const int32_t* __restrict__ table, int32_t* out,
+                        int32_t* scratch, uint32_t n, ChainSchedule s) {
+  cg::grid_group grid = cg::this_grid();
+  const uint32_t stride = gridDim.x * blockDim.x;
+  int first = 0;
+  for (int p = 0; p < s.passes; ++p) {
+    const int end = s.end[p];
+    int32_t* dst = p == s.passes - 1 ? out : scratch + static_cast<size_t>(p) * n;
+    for (uint32_t base = blockIdx.x * blockDim.x + threadIdx.x; base < n;
+         base += stride * kChainUnroll) {
+      int32_t idx[kChainUnroll];
+      const int head = s.term[first];
+#pragma unroll
+      for (int u = 0; u < kChainUnroll; ++u) {
+        const uint32_t i = base + u * stride;
+        idx[u] = i < n ? chain_entry(table, scratch, n, head, i) : 0;
+      }
+      for (int t = first + 1; t < end; ++t) {
+        const int tab = s.term[t];
+#pragma unroll
+        for (int u = 0; u < kChainUnroll; ++u) {
+          if (base + u * stride < n)
+            idx[u] = chain_entry(table, scratch, n, tab, idx[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kChainUnroll; ++u) {
+        const uint32_t i = base + u * stride;
+        if (i < n) dst[i] = idx[u];
+      }
+    }
+    first = end;
+    if (p + 1 < s.passes) grid.sync();
+  }
+}
+
+__global__ void pointer_jump_chain_previous_kernel(
+    const int32_t* __restrict__ p, int32_t* __restrict__ out, int64_t n,
+    int n_jumps) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   int32_t idx = __ldg(p + i);
@@ -151,21 +261,7 @@ extern "C" const char* kernel_error_string(int code) {
 // CUDA error code (0 on success).
 extern "C" int pointer_jump_double_blocks(int device, int64_t n, int* blocks) {
   static int resident[kMaxDevices];
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (resident[device] == 0) {
-    int per_sm = 0, sms = 0;
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, pointer_jump_double_coop, kCoopThreads, 0);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-    resident[device] = per_sm * sms;
-  }
-  const int64_t need = (n + kCoopThreads - 1) / kCoopThreads;
-  *blocks = static_cast<int>(need < resident[device] ? need : resident[device]);
-  return cudaSuccess;
+  return coop_blocks(pointer_jump_double_coop, resident, device, n, blocks);
 }
 
 // table, out, scratch: int32[n] on `device`, 1 <= n <= 2^31, n_jumps >= 1;
@@ -229,22 +325,88 @@ extern "C" int pointer_jump_double_stepwise(const void* table, void* out,
 
 // pointer_jump_chain replaces the TPU kernel `_pointer_jump_kernel` /
 // `pointer_jump_pallas` in the same file: the paper's literal "several jumps
-// per thread". Each block there reads its tile and the whole VMEM-resident
-// table; here one launch runs one thread per element, each following
-// `idx = p[idx]` n_jumps times from idx = p[i]. The table is never written,
-// so no step waits for another and no grid-wide barrier is needed. Bound:
-// memory, 8n bytes (p read once, out written once); each hop is a dependent
-// random 4-byte gather, so the kernel is latency-bound in practice, and one
-// element per thread with many blocks in flight keeps gathers outstanding.
+// per thread", out[i] = p^(n_jumps+1)(i) against the fixed table p. Each
+// block there reads its tile and the whole VMEM-resident table.
+//
+// Bound on the H100: memory, 8n bytes (p read once, out written once), but
+// no design reaches it: each hop is a random 4-byte gather, one 32-byte
+// sector, and a 2^24 table (64 MB) does not fit in the 50 MB L2. So the
+// cost is the number of random gathers an element makes. The previous
+// design, one thread an element following `idx = p[idx]`, makes n_jumps of
+// them, dependent ones. Here the hops are composed from squarings (powers
+// of one map commute, and composing integer maps is exact):
+//   * the plan comes from the host (hops.py::hop_schedule): passes over the
+//     whole table, each writing one table; a pass reads its first table at
+//     i and gathers once from each further one, so k + 1 hops cost 3
+//     gathers at k = 5 (p^2 = p[p], then p^6 = p^2[p^2[p^2]]) and 5 at
+//     k = 31 (five squarings), where the chain paid k;
+//   * one cooperative launch runs the passes, a `grid.sync()` between them,
+//     on at most the co-resident grid (a larger one is refused), as
+//     pointer_jump_double does; each thread owns a grid-stride set of
+//     entries with kChainUnroll independent gathers in flight;
+//   * a pass's table goes to its own slot of `scratch`, the last pass's to
+//     `out`; the input is never written. n_jumps <= 0 is one pass that
+//     copies the input.
+// Coherence: as pointer_jump_double, only the input is read with `__ldg`;
+// the scratch tables, written in earlier passes, with plain loads after
+// `grid.sync()`.
+//
+// The grid of a pointer_jump_chain launch over n entries, as
+// pointer_jump_double_blocks gives it for its own kernel.
+extern "C" int pointer_jump_chain_blocks(int device, int64_t n, int* blocks) {
+  static int resident[kMaxDevices];
+  return coop_blocks(pointer_jump_chain_coop, resident, device, n, blocks);
+}
+
+// table, out: distinct int32[n] on `device`, 1 <= n <= 2^31, entries of
+// table in [0, n). schedule: host int32[schedule_len], the plan (see
+// parse_schedule); an invalid one returns cudaErrorInvalidValue. scratch:
+// int32[(passes - 1) * n] on `device`, distinct from both (unused with one
+// pass). blocks: the grid, 0 for pointer_jump_chain_blocks'. One
+// cooperative launch. Returns the first CUDA error (0 on success).
+extern "C" int pointer_jump_chain(const void* table, void* out, void* scratch,
+                                  const void* schedule, int schedule_len,
+                                  int64_t n, int blocks, int device,
+                                  void* stream) {
+  ChainSchedule plan;
+  if (!parse_schedule(static_cast<const int32_t*>(schedule), schedule_len,
+                      &plan))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const int32_t* table_arg = static_cast<const int32_t*>(table);
+  int32_t* out_arg = static_cast<int32_t*>(out);
+  int32_t* scratch_arg = static_cast<int32_t*>(scratch);
+  uint32_t n_arg = static_cast<uint32_t>(n);
+  void* args[] = {&table_arg, &out_arg, &scratch_arg, &n_arg, &plan};
+  if (blocks <= 0) {
+    err = static_cast<cudaError_t>(pointer_jump_chain_blocks(device, n, &blocks));
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(pointer_jump_chain_coop), dim3(blocks),
+      dim3(kCoopThreads), args, 0, static_cast<cudaStream_t>(stream));
+  // Clear the runtime's last error, so that a refused launch is reported
+  // here and not again by the next call that reads it.
+  cudaGetLastError();
+  return err;
+}
+
+// The previous design of pointer_jump_chain, kept only as a yardstick: one
+// launch with no barrier, one thread an element following `idx = p[idx]`
+// n_jumps times from idx = p[i] (n_jumps dependent random gathers; the
+// table is never written, so every read uses `__ldg`).
 //
 // table, out: distinct int32[n] on `device`, entries of table in [0, n).
 // One launch. Returns cudaGetLastError() after it (0 on success).
-extern "C" int pointer_jump_chain(const void* table, void* out, int64_t n,
-                                  int n_jumps, int device, void* stream) {
+extern "C" int pointer_jump_chain_previous(const void* table, void* out,
+                                           int64_t n, int n_jumps, int device,
+                                           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const auto blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  pointer_jump_chain_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  pointer_jump_chain_previous_kernel<<<blocks, kThreads, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(table), static_cast<int32_t*>(out), n, n_jumps);
   return cudaGetLastError();
 }

@@ -1,6 +1,8 @@
 """The port on the card: each CUDA kernel against its plain version (the
 two cooperative doubling kernels, one launch a call, and segment_table,
-two launches a call, also against their stepwise designs; the doubling
+two launches a call, also against their stepwise designs; the two chain
+kernels, one cooperative launch a call, also against their previous
+designs; the doubling
 kernels with their fused convergence flags; the BFS level kernel with its
 flag), and the three RST flavors, biconnectivity, the tree queries and
 DIEN serving on the card against the same call on the CPU and with
@@ -15,6 +17,9 @@ embed_bag and DIEN, whose float sums run in another order in the kernel:
 1e-6 (float32) and 2e-2 (bf16), abs and rel, the reference's own
 (``tests/test_kernels.py``).
 """
+import ctypes
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -34,15 +39,18 @@ from repro_torch.kernels.frontier_relax.ref import (INF32, bfs_level_ref,
                                                     frontier_relax_ref)
 from repro_torch.kernels.hook_edges.ops import hook_edges
 from repro_torch.kernels.hook_edges.ref import hook_edges_ref
+from repro_torch.kernels.hops import hop_schedule
 from repro_torch.kernels import build
 from repro_torch.kernels.list_rank import ops as list_rank_ops
-from repro_torch.kernels.list_rank.ops import (list_rank_double_k,
+from repro_torch.kernels.list_rank.ops import (list_rank_chain_previous,
+                                               list_rank_double_k,
                                                list_rank_double_stepwise,
                                                list_rank_k)
 from repro_torch.kernels.list_rank.ref import (list_rank_double_ref,
                                                list_rank_steps_ref)
 from repro_torch.kernels.pointer_jump import ops as pointer_jump_ops
-from repro_torch.kernels.pointer_jump.ops import (pointer_jump_double_k,
+from repro_torch.kernels.pointer_jump.ops import (pointer_jump_chain_previous,
+                                                  pointer_jump_double_k,
                                                   pointer_jump_double_stepwise,
                                                   pointer_jump_k)
 from repro_torch.kernels.pointer_jump.ref import (pointer_jump_double_ref,
@@ -336,28 +344,131 @@ def test_frontier_relax_kernel(cuda, n, e, level):
     assert torch.equal(mask, frontier_relax_ref(dist, src, dst, level))
 
 
-@pytest.mark.parametrize("n", SIZES)
-@pytest.mark.parametrize("k", [0, 1, 5])
-def test_pointer_jump_chain_kernel(cuda, n, k):
-    p = _forest(n, n + 1, cuda)
+# The chain kernels' counts: k <= 0 (one copy pass), single hops, the
+# default 5 (3 gathers in 2 passes), 6 (4 in 2) and 31 (five squarings).
+CHAIN_KS = [0, 1, 5, -1, 2, 6, 31]
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_input(kind, n):
+    """A parent table on the CPU, made once per (kind, n): a relabelled
+    random forest, a random function (cycles with trees into them), or one
+    list over every element (p[i] = i - 1, p[0] = 0)."""
+    if kind == "forest":
+        return _forest(n, n + 1, "cpu")
+    if kind == "function":
+        rng = np.random.default_rng(n + 2)
+        return torch.from_numpy(rng.integers(0, n, n).astype(np.int32))
+    return torch.clamp(torch.arange(n, dtype=torch.int32) - 1, min=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_lists(kind, n, wrap):
+    """(succ, dist) on the CPU: the forest or the random function with
+    roots and 2 % of the entries ending their lists, open lists (2 % cuts),
+    or one list over every element; dist in [0, 5), or with ``wrap`` in
+    [2^31 - 16, 2^31), so that two of them wrap to a negative sum."""
+    rng = np.random.default_rng(n + 3)
+    ids = torch.arange(n, dtype=torch.int32)
+    if kind == "lists":
+        succ = _lists(n, n + 2, "cpu")
+    elif kind == "chain":
+        succ = torch.where(ids + 1 < n, ids + 1, -1)
+    else:
+        p = _chain_input(kind, n)
+        succ = torch.where((p == ids) | torch.from_numpy(rng.random(n) < 0.02),
+                           -1, p)
+    lo, hi = (2**31 - 16, 2**31) if wrap else (0, 5)
+    return succ, torch.from_numpy(rng.integers(lo, hi, n).astype(np.int32))
+
+
+@pytest.mark.parametrize("n", COOP_SIZES)
+@pytest.mark.parametrize("k", CHAIN_KS)
+@pytest.mark.parametrize("kind", ["forest", "function", "chain"])
+def test_pointer_jump_chain_kernel(cuda, n, k, kind):
+    """One cooperative launch a call, bit-equal to the plain version and to
+    the previous design; the input unchanged, and a copy for k <= 0."""
+    p = _chain_input(kind, n).to(cuda)
     before = pointer_jump_k.launches
     out = pointer_jump_k(p, n_jumps=k, use_kernel=True)
     torch.cuda.synchronize()
     assert pointer_jump_k.launches - before == 1
     assert torch.equal(out, pointer_jump_ref(p, k))
+    assert torch.equal(out, pointer_jump_chain_previous(p, n_jumps=k))
+    assert torch.equal(p.cpu(), _chain_input(kind, n))
+    assert out.data_ptr() != p.data_ptr()
 
 
-@pytest.mark.parametrize("n", SIZES)
-@pytest.mark.parametrize("k", [0, 1, 5])
-def test_list_rank_chain_kernel(cuda, n, k):
-    succ = _lists(n, n + 2, cuda)
-    dist = torch.randint(0, 5, (n,), device=cuda, dtype=torch.int32)
+@pytest.mark.parametrize("n", COOP_SIZES)
+@pytest.mark.parametrize("k", CHAIN_KS)
+@pytest.mark.parametrize("kind", ["forest", "function", "lists", "chain"])
+@pytest.mark.parametrize("wrap", [False, True], ids=["small", "wrap"])
+def test_list_rank_chain_kernel(cuda, n, k, kind, wrap):
+    """One cooperative launch a call, bit-equal to the plain version and to
+    the previous design (int32 sums wrap alike); the inputs unchanged, and
+    copies for k <= 0."""
+    succ_cpu, dist_cpu = _chain_lists(kind, n, wrap)
+    succ, dist = succ_cpu.to(cuda), dist_cpu.to(cuda)
     before = list_rank_k.launches
     s, d = list_rank_k(succ, dist, n_steps=k, use_kernel=True)
     torch.cuda.synchronize()
     assert list_rank_k.launches - before == 1
     rs, rd = list_rank_steps_ref(succ, dist, k)
     assert torch.equal(s, rs) and torch.equal(d, rd)
+    ps, pd = list_rank_chain_previous(succ, dist, n_steps=k)
+    assert torch.equal(s, ps) and torch.equal(d, pd)
+    assert torch.equal(succ.cpu(), succ_cpu) and torch.equal(dist.cpu(),
+                                                             dist_cpu)
+    assert s.data_ptr() != succ.data_ptr() and d.data_ptr() != dist.data_ptr()
+
+
+def test_chain_kernels_span_more_than_one_wave(cuda):
+    """The chain kernels' co-resident grids: ABOVE_ONE_WAVE takes a thread
+    more than one pass of 4."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for name, symbol in (("pointer_jump", "pointer_jump_chain_blocks"),
+                         ("list_rank", "list_rank_chain_blocks")):
+        blocks = build.cooperative_blocks(name, symbol, dev, 1 << 30)
+        assert 0 < blocks * 1024 * 4 < ABOVE_ONE_WAVE
+
+
+def test_chain_kernels_launch_nothing_when_empty(cuda):
+    p = torch.empty(0, dtype=torch.int32, device=cuda)
+    before = (pointer_jump_k.launches, list_rank_k.launches)
+    assert pointer_jump_k(p, use_kernel=True).numel() == 0
+    assert all(t.numel() == 0 for t in list_rank_k(p, p, use_kernel=True))
+    assert (pointer_jump_k.launches, list_rank_k.launches) == before
+
+
+def test_refused_chain_launch_raises(cuda):
+    """A grid one block larger than the co-resident count is refused, and a
+    plan that reads a table before it is written is rejected; the wrapper
+    raises and nothing runs in its place."""
+    p = _forest(1 << 20, 5, cuda)
+    blocks = build.cooperative_blocks("pointer_jump",
+                                      "pointer_jump_chain_blocks", p.device,
+                                      1 << 30)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        pointer_jump_ops._launch_chain(p, hop_schedule(5), blocks + 1)
+    succ = _lists(1 << 20, 5, cuda)
+    blocks = build.cooperative_blocks("list_rank", "list_rank_chain_blocks",
+                                      succ.device, 1 << 30)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        list_rank_ops._launch_chain(succ, succ,
+                                    hop_schedule(5, pack_input=True),
+                                    blocks + 1)
+    bad = (ctypes.c_int32 * 3)(2, 0, 1)   # pass 1 reads table 1
+    out = torch.empty_like(p)
+    fn = build.function("pointer_jump", "pointer_jump_chain",
+                        pointer_jump_ops._ARGTYPES["pointer_jump_chain"])
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        build.check("pointer_jump", fn(
+            p.data_ptr(), out.data_ptr(), out.data_ptr(),
+            ctypes.addressof(bad), 3, p.numel(), 0, p.device.index,
+            torch.cuda.current_stream(p.device).cuda_stream))
+    torch.cuda.synchronize()
+    assert torch.equal(pointer_jump_k(p, use_kernel=True),
+                       pointer_jump_ref(p, 5))
 
 
 def _bfs_state(n, e, level, seed, device):

@@ -134,6 +134,8 @@ def test_kernel_build_needs_nvcc_and_stays_under_build(monkeypatch,
     ("hook_edges", "hook_edges"),
     ("pointer_jump", "pointer_jump_chain"),
     ("list_rank", "list_rank_chain"),
+    ("pointer_jump", "pointer_jump_chain_previous"),
+    ("list_rank", "list_rank_chain_previous"),
     ("frontier_relax", "frontier_relax"),
     ("frontier_relax", "bfs_level"),
     ("segment_table", "segment_table"),

@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels.frontier_relax.ops import frontier_relax
 from repro_torch.kernels.frontier_relax.ref import INF32
 from repro_torch.kernels.hook_edges.ops import hook_edges
+from repro_torch.kernels.hops import c_schedule, gathers, hop_schedule
 from repro_torch.kernels.list_rank.ops import list_rank_double_k, list_rank_k
 from repro_torch.kernels.list_rank.ref import (list_rank_double_ref,
                                                list_rank_steps_ref)
@@ -33,11 +34,14 @@ def _same(jax_arr, t: torch.Tensor):
 
 
 def _forest(n, rng, kind):
-    """int32[n] parent table: acyclic (roots self-point), or for "cycles"
-    a random permutation (disjoint cycles of every length, fixed points
-    among them)."""
+    """int32[n] parent table: acyclic (roots self-point), for "cycles" a
+    random permutation (disjoint cycles of every length, fixed points among
+    them), for "function" a random function (cycles with trees into
+    them)."""
     if kind == "cycles":
         return rng.permutation(n).astype(np.int32)
+    if kind == "function":
+        return rng.integers(0, n, n).astype(np.int32)
     if kind == "chain":
         p = np.maximum(np.arange(n) - 1, 0)
     else:
@@ -53,7 +57,13 @@ def _forest(n, rng, kind):
 
 def _lists(n, rng, kind):
     """int32[n] successor table of disjoint −1-terminated lists: one chain,
-    random lists (2 % cuts), or many short ones (50 % cuts)."""
+    random lists (2 % cuts), or many short ones (50 % cuts); for "function"
+    a random successor function with 2 % of the entries −1 (cycles that
+    never end, and trees into them or into a list's end)."""
+    if kind == "function":
+        succ = rng.integers(0, n, n).astype(np.int32)
+        succ[rng.random(n) < 0.02] = -1
+        return succ
     perm = rng.permutation(n) if kind != "chain" else np.arange(n)
     succ = np.full(n, -1, np.int32)
     succ[perm[:-1]] = perm[1:]
@@ -192,9 +202,15 @@ def test_frontier_relax_matches_jax(n, e, level):
     _same(jax_ref(*jargs, level), got)
 
 
+# The chain kernels' counts: k <= 0 (a copy), single hops, the default 5,
+# the counts around it whose plans differ (6: 4 gathers in 2 passes, 7: 3
+# in 3), and 31 (five squarings).
+CHAIN_KS = [0, 1, 5, -1, 2, 6, 7, 31]
+
+
 @pytest.mark.parametrize("n", SIZES)
-@pytest.mark.parametrize("kind", ["chain", "forest"])
-@pytest.mark.parametrize("k", [0, 1, 5])
+@pytest.mark.parametrize("kind", ["chain", "forest", "function"])
+@pytest.mark.parametrize("k", CHAIN_KS)
 def test_pointer_jump_k_matches_jax(n, kind, k):
     from repro.kernels.pointer_jump.ops import pointer_jump_k as jax_pjk
     from repro.kernels.pointer_jump.ref import pointer_jump_ref as jax_ref
@@ -203,17 +219,24 @@ def test_pointer_jump_k_matches_jax(n, kind, k):
     _same(jax_pjk(jnp.asarray(p), n_jumps=k, interpret=True), out)
     _same(jax_ref(jnp.asarray(p), k), out)
     assert torch.equal(out, pointer_jump_ref(torch.from_numpy(p), k))
+    assert torch.equal(_replay_pointer(torch.from_numpy(p), k), out)
 
 
 @pytest.mark.parametrize("n", SIZES)
-@pytest.mark.parametrize("kind", ["chain", "random"])
-@pytest.mark.parametrize("k", [0, 1, 5])
+@pytest.mark.parametrize("kind", ["chain", "random", "function",
+                                  "chain/wrap", "random/wrap",
+                                  "function/wrap"])
+@pytest.mark.parametrize("k", CHAIN_KS)
 def test_list_rank_k_matches_jax(n, kind, k):
+    """"/wrap": every dist in [2^31 - 16, 2^31), so that two of them wrap
+    to a negative int32 sum, in JAX and in the port alike."""
     from repro.kernels.list_rank.ops import list_rank_k as jax_lrk
     from repro.kernels.list_rank.ref import list_rank_steps_ref as jax_ref
+    kind, _, wrap = kind.partition("/")
     rng = np.random.default_rng(n + k + 11)
     succ = _lists(n, rng, kind)
-    dist = rng.integers(0, 5, n).astype(np.int32)
+    dist = (rng.integers(2**31 - 16, 2**31, n) if wrap
+            else rng.integers(0, 5, n)).astype(np.int32)
     s, d = list_rank_k(torch.from_numpy(succ), torch.from_numpy(dist),
                        n_steps=k)
     for js, jd in (jax_lrk(jnp.asarray(succ), jnp.asarray(dist), n_steps=k,
@@ -224,6 +247,81 @@ def test_list_rank_k_matches_jax(n, kind, k):
     rs, rd = list_rank_steps_ref(torch.from_numpy(succ),
                                  torch.from_numpy(dist), k)
     assert torch.equal(s, rs) and torch.equal(d, rd)
+    ps, pd = _replay_lists(torch.from_numpy(succ), torch.from_numpy(dist), k)
+    assert torch.equal(ps, s) and torch.equal(pd, d)
+    if wrap and k >= 1 and kind == "chain" and n > 2:
+        assert (d < 0).any()
+
+
+def _replay_pointer(p: torch.Tensor, k: int) -> torch.Tensor:
+    """``hop_schedule(k)`` run with plain gathers, as the card's chain
+    kernel runs it: each pass reads its first table at i and gathers once
+    from each further one."""
+    tables = [p.long()]
+    for terms in hop_schedule(k):
+        assert all(t < len(tables) for t in terms)
+        x = tables[terms[0]]
+        for t in terms[1:]:
+            x = tables[t][x]
+        tables.append(x)
+    return tables[-1].to(p.dtype)
+
+
+def _replay_lists(succ: torch.Tensor, dist: torch.Tensor, k: int):
+    """``hop_schedule(k, pack_input=True)`` on (succ, dist), as the card's
+    list-ranking chain kernel runs it: a gather from table t at the
+    successor s reached adds t's dist and moves to t's succ; a list's end
+    (−1) stays, adding nothing. int32 sums, which wrap."""
+    tables = [(succ, dist)]
+    for terms in hop_schedule(k, pack_input=True):
+        assert all(t < len(tables) for t in terms)
+        s, d = tables[terms[0]]
+        for t in terms[1:]:
+            ts, td = tables[t]
+            has = s != -1
+            safe = torch.where(has, s, 0).long()
+            d = d + torch.where(has, td[safe], 0)
+            s = torch.where(has, ts[safe], -1)
+        tables.append((s, d))
+    return tables[-1]
+
+
+@pytest.mark.parametrize("k", list(range(65)) + [100, 127, 1000])
+def test_hop_schedule_replays_bit_equal(k):
+    """The plan the card's chain kernels run, replayed with plain gathers,
+    is bit-equal to the chain's plain versions on a forest, a random
+    function and open lists with wrapping sums (k <= 64 searched, the
+    rest square-and-multiply), and never takes more gathers than k."""
+    rng = np.random.default_rng(k)
+    n = 3000
+    for kind in ("forest", "function"):
+        p = torch.from_numpy(_forest(n, rng, kind))
+        assert torch.equal(_replay_pointer(p, k), pointer_jump_ref(p, k))
+    for kind in ("random", "function"):
+        succ = torch.from_numpy(_lists(n, rng, kind))
+        dist = torch.from_numpy(
+            rng.integers(2**31 - 16, 2**31, n).astype(np.int32))
+        got = _replay_lists(succ, dist, k)
+        want = list_rank_steps_ref(succ, dist, k)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert gathers(hop_schedule(k)) <= max(k, 0)
+
+
+def test_hop_schedule_plans():
+    """k <= 0: one copy pass; k = 5: T^2, then T^2∘T^2∘T^2 (3 gathers, one
+    barrier), and for list ranking a packing pass first; k = 31: five
+    squarings; the plan's gathers never exceed square-and-multiply's,
+    floor(log2(k+1)) + popcount(k+1) - 1."""
+    assert hop_schedule(0) == hop_schedule(-3) == ((0,),)
+    assert hop_schedule(0, pack_input=True) == ((0,),)
+    assert hop_schedule(5) == ((0, 0), (1, 1, 1))
+    assert hop_schedule(5, pack_input=True) == ((0,), (1, 1), (2, 2, 2))
+    assert hop_schedule(31) == ((0, 0), (1, 1), (2, 2), (3, 3), (4, 4))
+    for k in range(1, 200):
+        hops = k + 1
+        assert gathers(hop_schedule(k)) <= (hops.bit_length() - 1
+                                            + bin(hops).count("1") - 1)
+    assert list(c_schedule(hop_schedule(5))) == [2, 0, 0, 3, 1, 1, 1]
 
 
 @pytest.mark.parametrize("call", [
