@@ -9,7 +9,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit (``nvidia-smi``);
   2. build every CUDA kernel from the repository's sources;
   3. kernels: each of the nine against its plain PyTorch version on the
-     card, at the main paths' sizes, timed with CUDA events: the eight
+     card, at the main paths' sizes, timed with CUDA events (every row but
+     the BFS level queued behind a sleep on the card, in turns with its
+     plain version, so the events time the card alone): the eight
      graph kernels bit-equal (segment_table: min and max, int32 at 2^24 and
      2^20, also against its previous design, one launch a level, timed in
      turns with it, and float32 at an odd n with one NaN; bfs_level, one
@@ -18,7 +20,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      version and with the previous level, the mask kernel and the plain
      scatter-min); embed_bag at DIEN's serve_bulk
      user profile in float32 and bf16 and at the item table's size, within
-     1e-6 (float32) and 2e-2 (bf16), beside ``F.embedding_bag``; the two
+     1e-6 (float32) and 2e-2 (bf16) of the plain version and
+     ``F.embedding_bag`` and bit-equal to its previous design
+     (``embed_bag_previous``), timed in turns with all three, also at
+     serve_p99's 512 bags and retrieval's 1 bag; the two
      doubling kernels (one cooperative launch a call, their convergence
      flags fused) also against their previous design, one launch a step
      (the ``*_stepwise`` entries), flags included, timed in turns at a
@@ -318,7 +323,7 @@ def main() -> int:
         pointer_jump_double_stepwise, pointer_jump_k)
     from repro_torch.kernels.segment_table.ops import (
         launches_per_call, segment_table, segment_table_stepwise)
-    from repro_torch.kernels.embed_bag.ops import embed_bag
+    from repro_torch.kernels.embed_bag.ops import embed_bag, embed_bag_previous
     from repro_torch.configs import get_arch
     from repro_torch.launch.train import synthetic_batches
     from repro_torch.models.dien import params_from_reference
@@ -331,11 +336,11 @@ def main() -> int:
                 "pointer_jump_k": pointer_jump_k, "list_rank_k": list_rank_k,
                 "segment_table": segment_table, "embed_bag": embed_bag}
     # The previous designs of the two doubling kernels, the two chain
-    # kernels and segment_table: timed in phase 3, and no path may launch
-    # them.
+    # kernels, segment_table and embed_bag: timed in phase 3, and no path
+    # may launch them.
     yardsticks = (pointer_jump_double_stepwise, list_rank_double_stepwise,
                   pointer_jump_chain_previous, list_rank_chain_previous,
-                  segment_table_stepwise)
+                  segment_table_stepwise, embed_bag_previous)
     # One graph's constants of the previous level, built once, as its loop
     # hoisted them.
     old_consts = {}
@@ -669,14 +674,14 @@ def main() -> int:
     check(err == 0, f"hook_edges differs from plain by {err}")
     e = grid.n_half_edges
     b_ms, b_by = bound(16 * e + 4 * n, 6 * e)
+    ms = cuda_ms_turns(torch, {
+        "kernel": lambda: hook_edges(grid.src, grid.dst, rand_rep, True,
+                                     n_nodes=n, use_kernel=True),
+        "plain": lambda: hook_edges(grid.src, grid.dst, rand_rep, True,
+                                    n_nodes=n, use_kernel=False)})
     rows["hook_edges"] = dict(
-        ms=cuda_ms(torch, lambda: hook_edges(grid.src, grid.dst, rand_rep,
-                                             True, n_nodes=n,
-                                             use_kernel=True)),
-        plain_ms=cuda_ms(torch, lambda: hook_edges(grid.src, grid.dst,
-                                                   rand_rep, True, n_nodes=n,
-                                                   use_kernel=False)),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        ms=ms["kernel"], plain_ms=ms["plain"], library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
     emit({"kernel": "hook_edges", "n_half_edges": e, "n_nodes": n,
           "input": "grid2d(4096) edges, random rep",
           **kernel_line(rows["hook_edges"])})
@@ -703,8 +708,9 @@ def main() -> int:
         err = max(err, max_abs_err(torch, got, want))
         nb, nops = 9 * g.n_half_edges + 4 * g.n_nodes, 3 * g.n_half_edges
         b_ms, b_by = bound(nb, nops)
-        fr[label] = dict(ms=cuda_ms(torch, lambda: run(True)),
-                         plain_ms=cuda_ms(torch, lambda: run(False)),
+        ms = cuda_ms_turns(torch, {"kernel": lambda: run(True),
+                                   "plain": lambda: run(False)})
+        fr[label] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
                          library_ms=None, bound_ms=b_ms, bound_by=b_by,
                          frontier_edges=int(got.sum()), level=int(lvl))
     check(err == 0, f"frontier_relax differs from plain by {err}")
@@ -857,7 +863,15 @@ def main() -> int:
     # in float32 and bf16, and the same bags from a table of the item
     # table's size (1,000,000 x 18, 72 MB, which it does not). DIEN calls
     # it with mean and no weights (the timed call); the weighted sum and
-    # mean are checked too, and F.embedding_bag is timed as the yardstick.
+    # mean are checked too, every result bit-equal to the previous kernel.
+    # Timed in turns behind a sleep: the kernel, the previous kernel, the
+    # plain version and F.embedding_bag (its int64 ids made outside the
+    # window); also at serve_p99's 512 bags and retrieval's 1 bag of the
+    # user table, where the launch sets the time. Byte bound: idx and out,
+    # and each distinct row gathered, once. Beside it the sector bound:
+    # idx and out, and the 32-byte sectors every gathered row spans (3 a
+    # float32 row of 18), all at the HBM rate (the user table's sectors
+    # come from L2).
     spec = get_arch("dien")
     cfg = spec.make_config()
     bags, hot, dim = (spec.shapes["serve_bulk"]["batch"], cfg.user_hot,
@@ -874,47 +888,78 @@ def main() -> int:
                 continue
             table = table32.to(dtype)
             dname = str(dtype).removeprefix("torch.")
+            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
             for mean in (True, False):
                 for w in (None, wts):
+                    what = (f"embed_bag {label} {dname} mean={mean} "
+                            f"weighted={w is not None}")
                     got = embed_bag(idx, table, w, mean=mean, use_kernel=True)
                     want = embed_bag(idx, table, w, mean=mean,
                                      use_kernel=False)
                     eb_err[dname] = max(eb_err[dname], allclose_err(
-                        torch, got, want, EMBED_TOL[dname],
-                        f"embed_bag {label} {dname} mean={mean} "
-                        f"weighted={w is not None}"))
-            idx_long = idx.long()
-            lib = torch.nn.functional.embedding_bag(idx_long, table,
+                        torch, got, want, EMBED_TOL[dname], what))
+                    check(torch.equal(got.view(bits), embed_bag_previous(
+                        idx, table, w, mean=mean).view(bits)),
+                          f"{what}: differs from the previous kernel")
+            lib = torch.nn.functional.embedding_bag(idx.long(), table,
                                                     mode="mean")
             allclose_err(torch, embed_bag(idx, table, mean=True), lib,
                          EMBED_TOL[dname], f"embed_bag {label} {dname} "
                          "against F.embedding_bag")
-            esize = table.element_size()
-            gathered = bags * hot * dim * esize
-            b_ms, b_by = bound(
-                idx.numel() * 4 + bags * dim * esize
-                + min(table.numel() * esize, gathered), 2 * bags * hot * dim)
-            eb[f"{label}_{dname}"] = dict(
-                ms=cuda_ms(torch, lambda: embed_bag(idx, table, mean=True,
-                                                    use_kernel=True)),
-                plain_ms=cuda_ms(torch, lambda: embed_bag(
-                    idx, table, mean=True, use_kernel=False)),
-                library_ms=cuda_ms(
-                    torch, lambda: torch.nn.functional.embedding_bag(
-                        idx_long, table, mode="mean")),
-                bound_ms=b_ms, bound_by=b_by)
-    rows["embed_bag"] = {**eb["user_float32"],
-                         "max_abs_err": eb_err["float32"]}
+            cases = {f"{label}_{dname}": idx}
+            if label == "user" and dtype == torch.float32:
+                cases.update(p99_512=idx[:512], retrieval_1=idx[:1])
+            for case, bag_ids in cases.items():
+                ids_long = bag_ids.long()
+                check(torch.equal(
+                    embed_bag(bag_ids, table, mean=True).view(bits),
+                    embed_bag_previous(bag_ids, table, mean=True).view(bits)),
+                      f"embed_bag {case}: differs from the previous kernel")
+                ms = cuda_ms_turns(torch, {
+                    "kernel": lambda i=bag_ids: embed_bag(
+                        i, table, mean=True, use_kernel=True),
+                    "previous": lambda i=bag_ids: embed_bag_previous(
+                        i, table, mean=True),
+                    "plain": lambda i=bag_ids: embed_bag(
+                        i, table, mean=True, use_kernel=False),
+                    "library": lambda i=ids_long: (
+                        torch.nn.functional.embedding_bag(i, table,
+                                                          mode="mean"))})
+                esize, nb = table.element_size(), bag_ids.shape[0]
+                io_bytes = bag_ids.numel() * 4 + nb * dim * esize
+                row_bytes = dim * esize
+                start = ids_long * row_bytes
+                sectors = int(((start + row_bytes - 1) // 32 - start // 32
+                               + 1).sum())
+                distinct = int(torch.unique(ids_long).numel())
+                b_ms, b_by = bound(io_bytes + distinct * row_bytes,
+                                   2 * bag_ids.numel() * dim)
+                eb[case] = dict(
+                    ms=ms["kernel"], previous_ms=ms["previous"],
+                    plain_ms=ms["plain"], library_ms=ms["library"],
+                    bound_ms=b_ms, bound_by=b_by,
+                    sector_bound_ms=bound(io_bytes + 32 * sectors, 0)[0],
+                    gathered_sectors=sectors, distinct_rows=distinct,
+                    bags=nb)
+    rows["embed_bag"] = {**{k: eb["user_float32"][k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+        "max_abs_err": eb_err["float32"]}
     emit({"kernel": "embed_bag", "bags": bags, "hot": hot, "dim": dim,
           "user_rows": cfg.n_user_feats, "item_rows": cfg.n_items,
+          "card": card,
           "input": "random idx, mean, no weights (serve_bulk's user profile; "
-                   "bf16_*: the same in bf16; item_*: the item table's "
-                   "size); weighted sum and mean checked",
+                   "user_bfloat16_*: the same in bf16; item_float32_*: the "
+                   "item table's size; p99_512_*, retrieval_1_*: the first "
+                   "512 and 1 bags, launch-bound); weighted sum and mean "
+                   "checked; every result bit-equal to the previous kernel; "
+                   "sector bound: idx, out and the gathered rows' 32-byte "
+                   "sectors at the HBM rate",
           **kernel_line(rows["embed_bag"]),
+          "bit_equal_to_previous": True,
           "bf16_max_abs_err": eb_err["bfloat16"],
-          **{f"{case}_{k}": v for case in ("user_bfloat16", "item_float32")
+          **{f"{case}_{k}": v for case in eb
              for k, v in kernel_line(eb[case]).items()}})
-    del idx, idx_long, wts, table32, table, got, want, lib
+    del idx, bag_ids, ids_long, wts, table32, table, got, want, lib, start
 
     # 4. The engine's sync contract: ⌈log2(d)/k⌉ + 1 checks.
     engine = {"phase": "engine", "chain": n_tab}

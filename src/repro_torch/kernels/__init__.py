@@ -27,7 +27,10 @@ Kernels:
                   2,162,688, in shared-memory tiles, the rest from that
                   row; one where no level is left).
   embed_bag       fixed-hotness gather with a weighted sum or mean (DIEN's
-                  multi-hot user profile).
+                  multi-hot user profile; one launch on the plan of
+                  ``embed_bag.ops.launch_plan``, one thread a chunk of a
+                  row, a bag's row loads all in flight before its range
+                  check, hot 4 and 8 unrolled at compile time).
 
 ``build.py`` compiles the sources with ``nvcc`` on first use and loads them
 through ``ctypes``. ``hops.py`` plans the chain kernels' passes.

@@ -1,8 +1,8 @@
 """The port on the card: each CUDA kernel against its plain version (the
 two cooperative doubling kernels, one launch a call, and segment_table,
 two launches a call, also against their stepwise designs; the two chain
-kernels, one cooperative launch a call, also against their previous
-designs; the doubling
+kernels, one cooperative launch a call, and embed_bag also against their
+previous designs; the doubling
 kernels with their fused convergence flags; the BFS level kernel with its
 flag), and the three RST flavors, biconnectivity, the tree queries and
 DIEN serving on the card against the same call on the CPU and with
@@ -15,7 +15,7 @@ Tolerance: bit-equal (every output is int32 or bool, or a float32 min/max
 table, where a NaN must sit where the plain version has one), except
 embed_bag and DIEN, whose float sums run in another order in the kernel:
 1e-6 (float32) and 2e-2 (bf16), abs and rel, the reference's own
-(``tests/test_kernels.py``).
+(``tests/test_kernels.py``); embed_bag is bit-equal to its previous kernel.
 """
 import ctypes
 import functools
@@ -29,7 +29,7 @@ from repro_torch.core import (biconnectivity, build_tables, compress_full,
                               validate_rst, wyllie_rank)
 from repro_torch.configs import get_arch
 from repro_torch.data import graphs
-from repro_torch.kernels.embed_bag.ops import embed_bag
+from repro_torch.kernels.embed_bag.ops import embed_bag, embed_bag_previous
 from repro_torch.kernels.embed_bag.ref import embed_bag_ref
 from repro_torch.core.compress import _table_levels
 from repro_torch.kernels.frontier_relax.ops import (bfs_level,
@@ -735,23 +735,41 @@ def test_subtree_agg_kernel_matches_plain(cuda, op):
                                                 use_kernel=False))
 
 
-@pytest.mark.parametrize("b,hot,v,d", [(4, 3, 20, 18), (33, 8, 100, 128),
-                                       (37, 1, 10, 300), (1, 16, 512, 18),
-                                       (262144, 8, 100000, 18)])
+# The hot counts of the kernel's paths: 4 and 8 specialised (dien-smoke,
+# dien), the rest in rounds of 8 (one round, a round and one more, a
+# partial last round); the widths: scalar (1, 7), 8-byte (18), 16-byte
+# (128 float32), and a row of 75 chunks.
+EMBED_HOTS = [1, 3, 4, 8, 9, 16, 33]
+EMBED_DIMS = [1, 7, 18, 128, 300]
+EMBED_SHAPES = ([(4, 3, 20, 18), (33, 8, 100, 128), (37, 1, 10, 300),
+                 (1, 16, 512, 18), (262144, 8, 100000, 18)]
+                + [(37, hot, 100, d) for hot in EMBED_HOTS
+                   for d in EMBED_DIMS])
+
+
+@pytest.mark.parametrize("b,hot,v,d", EMBED_SHAPES)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("mean", [False, True])
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("row_offset", [0, 1])
+@pytest.mark.parametrize("idx_offset", [0, 1])
 def test_embed_bag_kernel(cuda, b, hot, v, d, dtype, tol, mean, weighted,
-                          row_offset):
+                          row_offset, idx_offset):
     """row_offset 1 starts the table one element into its storage, so only
-    scalar loads are aligned (the kernel's V = 1 path)."""
+    scalar loads are aligned (the kernel's V = 1 path); idx_offset 1 does
+    the same to idx and the weights (no 16-byte index loads). Bit-equal to
+    the previous kernel, and within the tolerance of the plain version."""
     gen = torch.Generator(device=cuda).manual_seed(b * d + hot)
-    idx = torch.randint(0, v, (b, hot), generator=gen, device=cuda,
-                        dtype=torch.int32)
-    w = (torch.rand((b, hot), generator=gen, device=cuda) if weighted
-         else None)
+    idx = torch.empty(b * hot + idx_offset, dtype=torch.int32,
+                      device=cuda)[idx_offset:].view(b, hot)
+    idx.copy_(torch.randint(0, v, (b, hot), generator=gen, device=cuda,
+                            dtype=torch.int32))
+    w = None
+    if weighted:
+        w = torch.empty(b * hot + idx_offset, device=cuda)[idx_offset:]
+        w = w.view(b, hot).copy_(torch.rand((b, hot), generator=gen,
+                                            device=cuda))
     table = torch.empty(v * d + row_offset, dtype=dtype,
                         device=cuda)[row_offset:].view(v, d)
     table.copy_(torch.randn((v, d), generator=gen, device=cuda))
@@ -762,6 +780,9 @@ def test_embed_bag_kernel(cuda, b, hot, v, d, dtype, tol, mean, weighted,
     want = embed_bag_ref(idx, w, table, mean=mean)
     assert got.dtype == dtype and got.shape == (b, d)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    previous = embed_bag_previous(idx, table, w, mean=mean)
+    assert torch.equal(got.view(bits), previous.view(bits))
 
 
 def test_embed_bag_kernel_rejects_int64_and_cpu_tables(cuda):
@@ -786,12 +807,16 @@ def test_embed_bag_kernel_negative_ids_count_from_the_end(cuda):
 
 _OUT_OF_RANGE = """
 import sys, torch
-from repro_torch.kernels.embed_bag.ops import embed_bag
+from repro_torch.kernels.embed_bag.ops import embed_bag, embed_bag_previous
+path, (bad, hot, pos) = sys.argv[1], map(int, sys.argv[2:])
 table = torch.randn(30, 18, device="cuda")
-idx = torch.zeros(64, 8, dtype=torch.int32, device="cuda")
-idx[37, 5] = int(sys.argv[2])
+idx = torch.zeros(64, hot, dtype=torch.int32, device="cuda")
+idx[37, pos] = bad
 try:
-    embed_bag(idx, table, use_kernel=sys.argv[1] == "kernel")
+    if path == "previous":
+        embed_bag_previous(idx, table)
+    else:
+        embed_bag(idx, table, use_kernel=path == "kernel")
     torch.cuda.synchronize()
 except (RuntimeError, IndexError) as e:
     print("raised:", type(e).__name__, e)
@@ -801,11 +826,16 @@ sys.exit(1)
 
 
 @pytest.mark.parametrize("bad", [30, 1 << 30, -31])
-@pytest.mark.parametrize("path", ["kernel", "plain"])
-def test_embed_bag_out_of_range_id_raises_on_the_card(cuda, path, bad):
+@pytest.mark.parametrize("path,hot,pos", [
+    ("kernel", 8, 5), ("plain", 8, 5), ("previous", 8, 5),
+    ("kernel", 8, 0), ("kernel", 8, 7), ("kernel", 9, 0), ("kernel", 9, 8)])
+def test_embed_bag_out_of_range_id_raises_on_the_card(cuda, path, bad, hot,
+                                                      pos):
     """An id outside [-V, V) raises on the card, through the kernel (it
-    traps) as through the plain ``table[idx]`` (a device-side assert). Both
-    lose the CUDA context, so each runs in a process of its own."""
+    traps) as through the plain ``table[idx]`` (a device-side assert) and
+    the previous kernel, at the first and the last index of a bag, on the
+    specialised path (hot 8) and the runtime one (hot 9). Each loses the
+    CUDA context, so each runs in a process of its own."""
     import os
     import pathlib
     import subprocess
@@ -814,8 +844,8 @@ def test_embed_bag_out_of_range_id_raises_on_the_card(cuda, path, bad):
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         [src, os.environ.get("PYTHONPATH", "")])}
     run = subprocess.run([sys.executable, "-c", _OUT_OF_RANGE, path,
-                          str(bad)], env=env, capture_output=True, text=True,
-                         timeout=300)
+                          str(bad), str(hot), str(pos)], env=env,
+                         capture_output=True, text=True, timeout=300)
     assert run.returncode == 0 and "raised:" in run.stdout, (
         run.stdout + run.stderr)
 

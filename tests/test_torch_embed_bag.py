@@ -3,12 +3,17 @@
 On the CPU the port's wrapper runs its plain PyTorch version (``ref.py``);
 it is held against ``repro``'s ``embed_bag`` (the Pallas kernel in
 interpret mode) and its ``embed_bag_ref`` on the same numpy inputs, over
-the sweep of ``tests/test_kernels.py``. Tolerance: the reference's own,
+the sweep of ``tests/test_kernels.py`` and the hot counts and widths the
+kernel treats apart (hot 9 and 33 on its runtime path, D = 1). Tolerance: the reference's own,
 1e-6 for float32 and 2e-2 for bf16 (abs and rel): the port sums in float32
 in another order, and the reference multiplies and sums a bf16 table in
 bf16 where the port rounds once at the end. ``test_torch_cuda.py`` holds
-the CUDA kernel against the plain version on the card.
+the CUDA kernel against the plain version on the card; here the plan the
+wrapper gives the kernel (``ops.launch_plan``, a pure function of the shapes
+and addresses) is checked for every case of those card tests.
 """
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,10 +21,12 @@ import torch
 
 from repro.kernels.embed_bag.ops import embed_bag as jax_embed_bag
 from repro.kernels.embed_bag.ref import embed_bag_ref as jax_embed_bag_ref
-from repro_torch.kernels.embed_bag.ops import embed_bag
+from repro_torch.kernels.embed_bag.ops import (LaunchPlan, embed_bag,
+                                               launch_plan)
 
 SWEEP = [(4, 3, 20, 18), (33, 8, 100, 128), (8, 1, 10, 300),
-         (128, 16, 512, 64)]
+         (128, 16, 512, 64), (8, 9, 40, 18), (16, 33, 64, 7),
+         (12, 8, 30, 1)]
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-6),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 
@@ -111,3 +118,41 @@ def test_embed_bag_out_of_range_id_raises(bad):
     idx[4, 1] = bad
     with pytest.raises(IndexError):
         _port(idx, w, tab, "float32", mean=False)
+
+
+# The card tests' hot counts and widths (tests/test_torch_cuda.py), and the
+# vector width each width gets with aligned tensors, by element size.
+CARD_HOTS = [1, 3, 4, 8, 9, 16, 33]
+CARD_VECTORS = {1: {4: 1, 2: 1}, 7: {4: 1, 2: 1}, 18: {4: 2, 2: 2},
+                128: {4: 4, 2: 8}, 300: {4: 4, 2: 4}}
+BASE = 1 << 40          # a 512-byte aligned address, as the allocator gives
+
+
+@pytest.mark.parametrize("hot", CARD_HOTS)
+@pytest.mark.parametrize("d", list(CARD_VECTORS))
+@pytest.mark.parametrize("elem_size", [4, 2], ids=["float32", "bfloat16"])
+def test_launch_plan_for_the_card_tests(hot, d, elem_size):
+    """Aligned tensors get the widest load of at most 16 bytes that divides
+    D; a table one element into its storage gets scalar loads; 16-byte
+    index loads only where hot % 4 == 0 and idx (and weights) are
+    aligned."""
+    for row_offset, idx_offset, weighted in itertools.product(
+            (0, 1), (0, 1), (False, True)):
+        idx_addr = BASE + 4 * idx_offset
+        w_addr = BASE + (1 << 30) + 4 * idx_offset if weighted else None
+        table_addr = BASE + (2 << 30) + elem_size * row_offset
+        out_addr = BASE + (3 << 30)
+        plan = launch_plan(hot, d, elem_size, idx_addr, table_addr,
+                           out_addr, w_addr)
+        vector = 1 if row_offset else CARD_VECTORS[d][elem_size]
+        assert plan == LaunchPlan(vector, hot % 4 == 0 and idx_offset == 0)
+        assert (d % plan.vector == 0 and plan.vector * elem_size <= 16
+                and table_addr % (plan.vector * elem_size) == 0)
+
+
+def test_launch_plan_output_alignment_and_weights():
+    """The output's alignment counts as the table's does, and misaligned
+    weights stop 16-byte index loads as misaligned indices do."""
+    assert launch_plan(8, 128, 4, BASE, BASE, BASE + 8, None).vector == 2
+    assert launch_plan(8, 128, 4, BASE, BASE, BASE, BASE + 4) == LaunchPlan(
+        4, False)

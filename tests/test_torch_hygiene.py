@@ -141,7 +141,8 @@ def test_kernel_build_needs_nvcc_and_stays_under_build(monkeypatch,
     ("segment_table", "segment_table"),
     ("segment_table", "segment_table_stepwise"),
     ("segment_table", "segment_table_launches"),
-    ("embed_bag", "embed_bag")])
+    ("embed_bag", "embed_bag"),
+    ("embed_bag", "embed_bag_previous")])
 def test_ctypes_signatures_match_the_c_entries(name, symbol):
     """Each C entry's ``argtypes`` (``ops._ARGTYPES[symbol]``) has one
     entry per parameter, pointers and the stream as ``c_void_p`` (a
