@@ -23,7 +23,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      1e-6 (float32) and 2e-2 (bf16) of the plain version and
      ``F.embedding_bag`` and bit-equal to its previous design
      (``embed_bag_previous``), timed in turns with all three, also at
-     serve_p99's 512 bags and retrieval's 1 bag; the two
+     train_batch's 65,536 bags, serve_p99's 512 and retrieval's 1; the two
      doubling kernels (one cooperative launch a call, their convergence
      flags fused) also against their previous design, one launch a step
      (the ``*_stepwise`` entries), flags included, timed in turns at a
@@ -87,6 +87,19 @@ Phases, in order; any failure raises and the script exits non-zero:
         1e-6 of the port's CPU run (and what TF32 matmuls would give
         there), the median of 5 interleaved runs, rows or candidates a
         second, peak memory, one line per shape;
+     h. DIEN training at the full config, after the serving cells are
+        freed, through ``build_cell`` for ``train_batch`` (65,536 rows a
+        step) and a plain twin (``use_kernel=False``) from the same seed-0
+        parameters and the same synthetic batches: one step's loss and
+        every gradient on the first 256 rows within 1e-6 of the port's CPU
+        run; 3 checked steps, each with one embed_bag launch (none on the
+        plain twin), a finite loss and grad_norm within 1e-6 of the plain
+        twin's, and the parameters and AdamW moments after them within
+        1e-6; each gradient, grad_norm, m, v and parameter change also
+        within 1e-5 of its own largest value (and what TF32 matmuls would
+        give the gradients); then the median of 5 further steps in turns with the plain
+        twin, rows a second, peak memory and the time of embed_bag's
+        backward at the step's shape on the card alone, one line;
   6. one JSON line listing the kernels, then the result line
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -94,7 +107,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 gconn_euler and one pr_rst run per graph, one bfs run on
 ``rmat(20, edge_factor=16)`` and its first 64 levels on ``grid2d(4096)``,
 one gconn_euler ``biconnectivity`` per
-graph and one DIEN forward at ``serve_p99`` and at ``serve_bulk``.
+graph, one DIEN forward at ``serve_p99`` and at ``serve_bulk``, and one DIEN
+training step at ``train_batch``.
 Without a CUDA card, or outside the repository, the script exits non-zero
 and prints no result.
 """
@@ -166,6 +180,33 @@ DIEN_CPU_ROWS = 64
 EMBED_TOL = {"float32": 1e-6, "bfloat16": 2e-2}
 DIEN_KERNEL_TOL = 1e-6
 DIEN_CPU_TOL = 1e-6
+# DIEN training (train_batch): the steps checked against the plain twin,
+# and the rows of the one step held against the port's CPU run. Kernel and
+# plain run the same forward (embed_bag bit-equal) and the same backward,
+# whose scatter-adds (index_add_, the gathers' index_put_) sum in an order
+# the card does not fix: measured 0 on loss and grad_norm and 7.5e-9 on
+# the parameters after 3 steps, held to 1e-6 as serving is. The card
+# against the CPU differs in every matmul's and reduction's order through
+# 100 + 100 recurrent steps and their backward: measured 6.0e-8 on the
+# loss (one ulp of 0.69) and 1.9e-9 on the gradients, held to 1e-6 as
+# serving is, which leaves room for that and not for TF32 matmuls (1.8e-6
+# on serve_p99's scores).
+# Most leaves lie wholly below 1e-6 (grad_norm is 0.003 over 20.3M values,
+# v is about 0.05 g^2), so each gradient, m, v and grad_norm is also held
+# to its own scale: max |got - want| <= DIEN_TRAIN_SCALED_TOL * max |want|.
+# The parameters' change over the 3 steps (lr 0, 2e-6, 4e-6) is a
+# difference of two rounded parameters, so its limit adds two float32 ulps
+# of the leaf's largest entry. Measured: the card against the CPU at most
+# 9.7e-7 of a gradient's scale (gru1.bz), kernel against plain 1.2e-7 (v)
+# and a parameter off by one ulp (7.5e-9), which the two ulps cover; the
+# same gradients with TF32 matmuls 2.7e-4 (mlp.2.0) and 1.5e-2 to 0.13 on
+# the other leaves with a matmul (the TF32 line). 1e-5 sits 10x above the
+# first and well below the second.
+TRAIN_STEPS = 3
+TRAIN_CPU_ROWS = 256
+DIEN_TRAIN_TOL = 1e-6
+DIEN_TRAIN_CPU_TOL = 1e-6
+DIEN_TRAIN_SCALED_TOL = 1e-5
 
 
 def fail(msg: str):
@@ -281,6 +322,24 @@ def allclose_err(torch, got, want, tol: float, what: str) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
+def scaled_err(torch, got, want, tol: float, what: str,
+               floor: float = 0.0) -> float:
+    """(max |got - want| - floor) over max |want| for a whole tensor, held
+    to max |got - want| <= tol * max |want| + floor (fails otherwise): a
+    limit set by the tensor's own scale, for one whose entries all lie far
+    below an absolute tolerance."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: shape/dtype {tuple(got.shape)} {got.dtype} vs "
+          f"{tuple(want.shape)} {want.dtype}")
+    diff = float((got.double() - want.double()).abs().max())
+    scale = float(want.double().abs().max())
+    check(scale > 0, f"{what}: the reference is all zero")
+    check(diff <= tol * scale + floor,
+          f"{what}: differs by up to {diff} against {tol} * {scale} "
+          f"+ {floor}")
+    return max(diff - floor, 0.0) / scale
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-out", type=pathlib.Path, default=None)
@@ -323,10 +382,12 @@ def main() -> int:
         pointer_jump_double_stepwise, pointer_jump_k)
     from repro_torch.kernels.segment_table.ops import (
         launches_per_call, segment_table, segment_table_stepwise)
-    from repro_torch.kernels.embed_bag.ops import embed_bag, embed_bag_previous
+    from repro_torch.kernels.embed_bag.ops import (embed_bag,
+                                                   embed_bag_backward,
+                                                   embed_bag_previous)
     from repro_torch.configs import get_arch
     from repro_torch.launch.train import synthetic_batches
-    from repro_torch.models.dien import params_from_reference
+    from repro_torch.models.dien import dien_loss, params_from_reference
     from repro_torch.train.step import build_cell
 
     counters = {"pointer_jump_double": pointer_jump_double_k,
@@ -908,7 +969,9 @@ def main() -> int:
                          "against F.embedding_bag")
             cases = {f"{label}_{dname}": idx}
             if label == "user" and dtype == torch.float32:
-                cases.update(p99_512=idx[:512], retrieval_1=idx[:1])
+                train_bags = spec.shapes["train_batch"]["batch"]
+                cases.update({f"train_{train_bags}": idx[:train_bags],
+                              "p99_512": idx[:512], "retrieval_1": idx[:1]})
             for case, bag_ids in cases.items():
                 ids_long = bag_ids.long()
                 check(torch.equal(
@@ -949,7 +1012,8 @@ def main() -> int:
           "card": card,
           "input": "random idx, mean, no weights (serve_bulk's user profile; "
                    "user_bfloat16_*: the same in bf16; item_float32_*: the "
-                   "item table's size; p99_512_*, retrieval_1_*: the first "
+                   "item table's size; train_65536_*: the first 65,536 bags, "
+                   "train_batch's; p99_512_*, retrieval_1_*: the first "
                    "512 and 1 bags, launch-bound); weighted sum and mean "
                    "checked; every result bit-equal to the previous kernel; "
                    "sector bound: idx, out and the gathered rows' 32-byte "
@@ -1438,6 +1502,170 @@ def main() -> int:
                                      lambda: step(params, batch)))
         del step, plain, params, batch, scores, cpu_step, cpu_scores
         torch.cuda.empty_cache()
+
+    # 5h. DIEN training at the full config through build_cell's train cell
+    # (train_batch: 65,536 rows a step; autograd keeps each recurrent step's
+    # activations), after the serving cells are freed: the kernel cell and
+    # a plain twin (use_kernel=False) from the same seed-0 parameters, fed
+    # the same synthetic batches.
+    name = "train_batch"
+    shape = spec.shapes[name]
+    step, state, inputs = build_cell(spec, name)
+    plain, plain_state, _ = build_cell(spec, name, use_kernel=False)
+    check(all(torch.equal(a, b) for a, b in zip(
+        state["params"].parameters(), plain_state["params"].parameters())),
+          "dien train: the plain twin's parameters differ")
+    data = synthetic_batches(spec, shape, cfg, seed=0)
+    batches = [next(data)[1] for _ in range(TRAIN_STEPS + E2E_RUNS)]
+    check(all(set(b) == set(inputs) for b in batches),
+          f"dien train: batch keys {sorted(batches[0])}, want "
+          f"{sorted(inputs)}")
+    # One step's loss and gradients on the first rows, against the port's
+    # CPU run of the same step.
+    names, leaves = zip(*state["params"].named_parameters())
+    rows_cpu = {k: v[:TRAIN_CPU_ROWS] for k, v in batches[0].items()}
+    card_loss = dien_loss(cfg, state["params"], rows_cpu)
+    card_grads = torch.autograd.grad(card_loss, leaves)
+    cpu_params = params_from_reference(state["params"].to_reference(),
+                                       device="cpu").requires_grad_()
+    cpu_loss = dien_loss(cfg, cpu_params,
+                         {k: v.cpu() for k, v in rows_cpu.items()},
+                         device="cpu")
+    cpu_grads = torch.autograd.grad(cpu_loss, list(cpu_params.parameters()))
+    train_cpu_err = {"loss": allclose_err(
+        torch, card_loss.detach().cpu(), cpu_loss.detach(),
+        DIEN_TRAIN_CPU_TOL, "dien train loss against the CPU run")}
+    train_cpu_ratio = {}
+    for n_, a, b in zip(names, card_grads, cpu_grads):
+        train_cpu_err[n_] = allclose_err(
+            torch, a.cpu(), b, DIEN_TRAIN_CPU_TOL,
+            f"dien train gradient of {n_} against the CPU run")
+        train_cpu_ratio[n_] = scaled_err(
+            torch, a.cpu(), b, DIEN_TRAIN_SCALED_TOL,
+            f"dien train gradient of {n_} against the CPU run, scaled")
+    # What the scaled check would see if the matmuls ran in TF32.
+    torch.backends.cuda.matmul.allow_tf32 = True
+    tf32_grads = torch.autograd.grad(
+        dien_loss(cfg, state["params"], rows_cpu), leaves)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    tf32_ratio = {n_: float((a.cpu().double() - b.double()).abs().max()
+                            / b.double().abs().max())
+                  for n_, a, b in zip(names, tf32_grads, cpu_grads)}
+    del card_loss, card_grads, cpu_params, cpu_loss, cpu_grads, rows_cpu
+    del tf32_grads
+    # The checked steps: one embed_bag launch a kernel step, none a plain
+    # one; loss and grad_norm finite and within DIEN_TRAIN_TOL of the plain
+    # twin's at every step, parameters and moments after the last.
+    initial = {n_: p_.detach().clone()
+               for n_, p_ in state["params"].named_parameters()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    metrics = {"kernel": [], "plain": []}
+    step_ms = []
+    for i in range(TRAIN_STEPS):
+        zero_counts()
+        (state, m), t = timed_call(lambda: step(state, batches[i]))
+        got = read_counts()
+        check(got == {**dict.fromkeys(counters, 0), "embed_bag": 1},
+              f"dien train step {i}: launches {got}, want embed_bag once")
+        for k in launches:
+            launches[k] += got[k]
+        step_ms.append(t)
+        zero_counts()
+        plain_state, pm = plain(plain_state, batches[i])
+        check(read_counts() == dict.fromkeys(counters, 0),
+              f"dien train step {i}: the plain twin launched a kernel")
+        for who, mm in (("kernel", m), ("plain", pm)):
+            check(all(bool(torch.isfinite(v)) for v in mm.values()),
+                  f"dien train step {i}: {who} {mm} not finite")
+            metrics[who].append({k: float(v) for k, v in mm.items()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    train_err = {}
+    for k in ("loss", "grad_norm"):
+        got_k = torch.tensor([mm[k] for mm in metrics["kernel"]])
+        want_k = torch.tensor([mm[k] for mm in metrics["plain"]])
+        train_err[k] = allclose_err(torch, got_k, want_k, DIEN_TRAIN_TOL,
+                                    f"dien train {k} against plain")
+    train_ratio = {"grad_norm": max(scaled_err(
+        torch, torch.tensor(mk["grad_norm"]), torch.tensor(mp["grad_norm"]),
+        DIEN_TRAIN_SCALED_TOL, f"dien train grad_norm of step {i}")
+        for i, (mk, mp) in enumerate(zip(metrics["kernel"],
+                                         metrics["plain"])))}
+    plain_named = dict(plain_state["params"].named_parameters())
+    train_err["params"] = max(allclose_err(
+        torch, p_.detach(), plain_named[n_].detach(), DIEN_TRAIN_TOL,
+        f"dien train {n_} after {TRAIN_STEPS} steps against plain")
+        for n_, p_ in state["params"].named_parameters())
+    ulps = 2 * torch.finfo(torch.float32).eps
+    train_ratio["change"] = max(scaled_err(
+        torch, p_.detach() - initial[n_], plain_named[n_].detach()
+        - initial[n_], DIEN_TRAIN_SCALED_TOL,
+        f"dien train change of {n_} over {TRAIN_STEPS} steps against plain",
+        floor=ulps * float(initial[n_].abs().max()))
+        for n_, p_ in state["params"].named_parameters())
+    for part in ("m", "v"):
+        train_err[part] = max(allclose_err(
+            torch, t_, plain_state["opt"][part][n_], DIEN_TRAIN_TOL,
+            f"dien train {part} of {n_} against plain")
+            for n_, t_ in state["opt"][part].items())
+        train_ratio[part] = max(scaled_err(
+            torch, t_, plain_state["opt"][part][n_], DIEN_TRAIN_SCALED_TOL,
+            f"dien train {part} of {n_} against plain, scaled")
+            for n_, t_ in state["opt"][part].items())
+    del initial
+    check(int(state["opt"]["step"]) == TRAIN_STEPS,
+          f"dien train: step count {int(state['opt']['step'])}")
+    kernel_ms, plain_ms = [], []
+    for i in range(E2E_RUNS):
+        batch = batches[TRAIN_STEPS + i]
+        for use_kernel in ((True, False) if i % 2 == 0 else (False, True)):
+            if use_kernel:
+                (state, _), t = timed_call(lambda: step(state, batch))
+                kernel_ms.append(t)
+            else:
+                (plain_state, _), t = timed_call(
+                    lambda: plain(plain_state, batch))
+                plain_ms.append(t)
+    ms = statistics.median(kernel_ms)
+    # embed_bag's backward (torch ops, no kernel of its own) at the step's
+    # shape, timed on the card alone: the user table's gradient for a
+    # random output gradient (the weights take none).
+    users = batches[0]["user_feats"]
+    user_table = state["params"]["user_table"].detach()
+    g_user = torch.randn((users.shape[0], cfg.embed_dim), generator=gen,
+                         device=dev)
+    out_user = embed_bag(users, user_table, mean=True)
+    backward_ms = cuda_ms_turns(torch, {"backward": lambda: embed_bag_backward(
+        g_user, users, user_table, None, out_user, mean=True,
+        need_weights=False)})["backward"]
+    emit({"dien_train": name, "card": card, "batch": shape["batch"],
+          "steps_checked": TRAIN_STEPS,
+          "launches_per_step": {"embed_bag": 1},
+          "loss": [mm["loss"] for mm in metrics["kernel"]],
+          "grad_norm": [mm["grad_norm"] for mm in metrics["kernel"]],
+          "plain_loss": [mm["loss"] for mm in metrics["plain"]],
+          "plain_grad_norm": [mm["grad_norm"] for mm in metrics["plain"]],
+          "max_abs_err_vs_plain": train_err, "tol": DIEN_TRAIN_TOL,
+          "max_scaled_err_vs_plain": train_ratio,
+          f"max_abs_err_vs_cpu_first_{TRAIN_CPU_ROWS}": {
+              "loss": train_cpu_err.pop("loss"),
+              "gradients": max(train_cpu_err.values()),
+              "worst_gradient": max(train_cpu_err, key=train_cpu_err.get)},
+          "cpu_tol": DIEN_TRAIN_CPU_TOL,
+          f"scaled_err_vs_cpu_first_{TRAIN_CPU_ROWS}": train_cpu_ratio,
+          f"tf32_scaled_err_vs_cpu_first_{TRAIN_CPU_ROWS}": tf32_ratio,
+          "scaled_tol": DIEN_TRAIN_SCALED_TOL,
+          "checked_step_ms": step_ms, "ms_median": ms, "ms": kernel_ms,
+          "plain_ms_median": statistics.median(plain_ms),
+          "plain_ms": plain_ms, "rows_per_s": shape["batch"] / (ms / 1e3),
+          "peak_mem_gb": peak_gb, "embed_bag_backward_ms": backward_ms})
+    if args.profile_out is not None:
+        profiles.append(profiled(f"dien {name} step",
+                                 lambda: step(state, batches[-1])))
+    del step, plain, state, plain_state, batches, batch, data, users
+    del user_table, g_user, out_user
+    torch.cuda.empty_cache()
 
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the paths never launched: {launches}")

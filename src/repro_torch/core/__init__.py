@@ -16,14 +16,16 @@ from repro_torch.core.connectivity import (connected_components,
                                            pointer_jump_full)
 from repro_torch.core.euler import (TourNumbering, euler_tour_root,
                                     list_rank_dist_to_end, tour_numbering)
-from repro_torch.core.graph import Graph, resolve_device
+from repro_torch.core.graph import (Graph, build_csr, degrees,
+                                    resolve_device)
 from repro_torch.core.pr_rst import pr_rst
 from repro_torch.core.queries import QueryTables, build_tables
 from repro_torch.core.reroot import (ancestor_tables, link_components,
                                      mark_paths, reverse_and_graft)
 from repro_torch.core.rst import (METHODS, RSTResult, gconn_euler_rst,
                                   rooted_spanning_tree, tree_depth)
-from repro_torch.core.validate import (components_reference, reaches_root,
+from repro_torch.core.validate import (bfs_depths_reference,
+                                       components_reference, reaches_root,
                                        validate_rst)
 
 __all__ = [
@@ -36,7 +38,9 @@ __all__ = [
     "rank_to_root", "reduce_to_root", "roots_of", "wyllie_rank",
     "connected_components", "count_components", "pointer_jump_full",
     "TourNumbering", "euler_tour_root", "list_rank_dist_to_end",
-    "tour_numbering", "Graph", "resolve_device", "METHODS", "RSTResult",
-    "gconn_euler_rst", "rooted_spanning_tree", "tree_depth",
-    "components_reference", "reaches_root", "validate_rst",
+    "tour_numbering", "Graph", "build_csr", "degrees", "resolve_device",
+    "METHODS", "RSTResult", "gconn_euler_rst", "rooted_spanning_tree",
+    "tree_depth",
+    "bfs_depths_reference", "components_reference", "reaches_root",
+    "validate_rst",
 ]

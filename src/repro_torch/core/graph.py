@@ -103,6 +103,32 @@ class Graph:
         return Graph.from_undirected(n_nodes, lo[idx], hi[idx], device)
 
 
+def build_csr(graph: Graph) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """CSR over directed half-edges: (row_ptr[n+1], col[2M], half_edge_id[2M]),
+    int32 on the graph's device.
+
+    ``col`` / ``half_edge_id`` are sorted by (src, dst) lexicographically,
+    ties in half-edge order: the "circular adjacency list" ordering the
+    Euler tour needs.
+    """
+    n = graph.n_nodes
+    src, dst = graph.src.long(), graph.dst.long()
+    order = torch.sort(src * max(n, 1) + dst, stable=True).indices
+    row_ptr = torch.zeros(n + 1, dtype=torch.int32, device=graph.device)
+    row_ptr[1:] = torch.cumsum(degrees(graph.src, n), 0)
+    return row_ptr, graph.dst[order], order.to(torch.int32)
+
+
+def degrees(src: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    """int32[n_nodes]: how many of ``src`` name each vertex. As in the
+    reference's ``jnp.bincount(src, length=n_nodes)``, a negative id counts
+    for vertex 0 and an id from ``n_nodes`` up is not counted."""
+    src = src.long().clamp_min(0)
+    return torch.bincount(src[src < n_nodes],
+                          minlength=n_nodes).to(torch.int32)
+
+
 def _check_ids(n_nodes: int, src: np.ndarray, dst: np.ndarray) -> None:
     # The kernels index with these ids unchecked; JAX would clamp them.
     if n_nodes >= 2**31:

@@ -8,8 +8,8 @@ exact-distance path decomposition.
 ``build_tables`` pays every engine sync once per tour: one ``rank_to_root``
 depth pass plus ⌈log2 n⌉ doubling levels. Each query after it is a fixed
 number of gathers with no sync. ``QueryTables.build_syncs`` carries the
-build's cost; the reference also records it in its ``obs`` ledger, which
-the port does not have yet.
+build's cost, and ``build_tables`` records it in the ambient ``obs`` ledger
+(phase ``build_tables``).
 
 Conventions of every op:
 
@@ -26,6 +26,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.compress import (DEFAULT_JUMPS, _COMBINE,
                                        _table_levels, rank_to_root,
                                        segment_reduce)
@@ -81,7 +82,9 @@ def build_tables(tn: TourNumbering, *,
     """Build the query index from a tour numbering.
 
     One ``rank_to_root`` pass for the depths, then ``levels = ⌈log2 n⌉``
-    doublings ``p = p[p]`` for the ancestor table.
+    doublings ``p = p[p]`` for the ancestor table. Reports ``build_syncs``
+    to the ambient ``obs`` ledger (phase ``build_tables``), lazily: with no
+    ledger installed nothing is evaluated.
     """
     par = tn.parent
     n = par.numel()
@@ -92,8 +95,11 @@ def build_tables(tn: TourNumbering, *,
     up[0] = par
     for k in range(levels):
         up[k + 1] = up[k][up[k].long()]
-    return QueryTables(pre=tn.pre, last=tn.last, comp=tn.comp, parent=par,
-                       depth=depth, up=up, build_syncs=syncs + levels)
+    tables = QueryTables(pre=tn.pre, last=tn.last, comp=tn.comp,
+                         parent=par, depth=depth, up=up,
+                         build_syncs=syncs + levels)
+    obs.record("build_tables", lambda: tables.build_syncs)
+    return tables
 
 
 def _ok(x: torch.Tensor, n: int) -> torch.Tensor:

@@ -9,7 +9,8 @@ A parent array P is a valid RST of G rooted at r iff:
      component (connectivity-based methods).
 
 The port of ``repro.core.validate``. The checks run as tensor code on the
-graph's device; ``components_reference`` is the numpy union-find oracle.
+graph's device; ``bfs_depths_reference`` and ``components_reference`` are
+the numpy BFS and union-find oracles.
 """
 from __future__ import annotations
 
@@ -81,6 +82,27 @@ def validate_rst(graph: Graph, parent: torch.Tensor, root, *,
         "spans": ok_connected,
         "all_ok": ok_root and ok_edges and ok_acyclic and ok_connected,
     }
+
+
+def bfs_depths_reference(graph: Graph, root: int) -> np.ndarray:
+    """Reference BFS distances via numpy/deque (oracle for tests); -1 where
+    the root does not reach."""
+    from collections import deque
+
+    n = graph.n_nodes
+    adj: list[list[int]] = [[] for _ in range(n)]
+    for u, v in zip(graph.src.cpu().tolist(), graph.dst.cpu().tolist()):
+        adj[u].append(v)
+    dist = np.full(n, -1, np.int64)
+    dist[root] = 0
+    q = deque([root])
+    while q:
+        u = q.popleft()
+        for v in adj[u]:
+            if dist[v] < 0:
+                dist[v] = dist[u] + 1
+                q.append(v)
+    return dist
 
 
 def components_reference(graph: Graph) -> np.ndarray:

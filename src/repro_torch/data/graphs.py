@@ -108,6 +108,12 @@ SUITE = {
 }
 
 
+def build_suite(names=None, device=None) -> dict[str, Graph]:
+    """The ``SUITE`` graphs named (all of them by default), by name."""
+    names = names or list(SUITE)
+    return {k: SUITE[k][0](**SUITE[k][1], device=device) for k in names}
+
+
 def resolve_graph(name: str, seed: int = 0, device=None) -> Graph:
     """Build a graph from a suite name or a parametric pattern.
 

@@ -1,8 +1,10 @@
 """Wrappers for the embed_bag kernel (``csrc/embed_bag.cu``).
 
-Forward only: one launch per call, counted by ``embed_bag.launches``. The
-reference's hand-written VJP (``repro/kernels/embed_bag/ops.py``) comes with
-DIEN's training. The kernel runs the plan of ``launch_plan`` (vector width,
+The forward is one launch per call, counted by ``embed_bag.launches``. The
+backward is the reference's hand-written VJP (``repro/kernels/embed_bag/
+ops.py``, ``_vjp_bwd``) in PyTorch ops, ``embed_bag_backward``: one
+``torch.autograd.Function`` puts it behind the kernel and behind the plain
+version alike. The kernel runs the plan of ``launch_plan`` (vector width,
 16-byte index loads), chosen here from the shapes and the tensors'
 addresses; the C entry refuses a plan they do not allow.
 ``embed_bag_previous`` is the previous design (one thread a bag's feature
@@ -101,8 +103,16 @@ def embed_bag(idx: torch.Tensor, table: torch.Tensor,
     raises, on the CPU at once and on the card at the next synchronising
     call (the kernel traps, as ``table[idx]`` asserts there, and the CUDA
     context is lost in both). ``use_kernel`` follows
-    ``repro_torch.kernels.kernel_wanted``.
+    ``repro_torch.kernels.kernel_wanted``. Differentiable in ``table`` and
+    ``weights`` through ``embed_bag_backward``, on either path.
     """
+    return _EmbedBag.apply(idx, table, weights, mean, use_kernel)
+
+
+def _forward(idx: torch.Tensor, table: torch.Tensor,
+             weights: torch.Tensor | None, mean: bool,
+             use_kernel: bool | None) -> torch.Tensor:
+    """The kernel's launch, or the plain version, by ``kernel_wanted``."""
     if not kernel_wanted(idx, use_kernel):
         return embed_bag_ref(idx, weights, table, mean=mean)
     _check("embed_bag", idx, table, weights)
@@ -117,6 +127,62 @@ def embed_bag(idx: torch.Tensor, table: torch.Tensor,
         out.data_ptr(), None if weights is None else weights.data_ptr()))
     embed_bag.launches += 1
     return out
+
+
+def embed_bag_backward(g: torch.Tensor, idx: torch.Tensor,
+                       table: torch.Tensor, weights: torch.Tensor | None,
+                       out: torch.Tensor, *, mean: bool,
+                       need_weights: bool = True):
+    """(d_table, d_weights) of ``embed_bag`` for the output gradient ``g``,
+    the reference's VJP formulas, with s[b] = max(Σ_h w[b, h], 1e-9):
+
+        d_table[idx[b, h]] += ŵ[b, h] · g[b]  in the table's dtype,
+                              ŵ = w (sum) or w / s (mean);
+        d_w[b, h] = g[b] · table[idx[b, h]]                     (sum),
+                  = (g[b] · table[idx[b, h]] − g[b] · out[b]) / s  (mean).
+
+    ``weights=None`` counts as all ones; ``d_weights`` is None unless
+    ``need_weights``. Ids in ``[-V, 0)`` count from the end, as in the
+    forward.
+    """
+    b, hot = idx.shape
+    v, d = table.shape
+    w = (weights if weights is not None
+         else torch.ones((b, hot), dtype=torch.float32, device=idx.device))
+    denom = torch.clamp(w.sum(-1, keepdim=True), min=1e-9) if mean else None
+    w_eff = w / denom if mean else w
+    d_rows = w_eff[..., None] * g[:, None, :]                 # [B, hot, D]
+    rows_at = idx.reshape(-1).long()
+    rows_at = torch.where(rows_at < 0, rows_at + v, rows_at)
+    d_table = torch.zeros_like(table).index_add_(
+        0, rows_at, d_rows.reshape(-1, d).to(table.dtype))
+    if not need_weights:
+        return d_table, None
+    d_w = torch.einsum("bd,bhd->bh", g, table[idx])
+    if mean:
+        d_w = d_w / denom - torch.einsum("bd,bd->b", g, out)[:, None] / denom
+    return d_table, d_w.to(w.dtype)
+
+
+class _EmbedBag(torch.autograd.Function):
+    """``embed_bag``'s forward dispatch with ``embed_bag_backward``."""
+
+    @staticmethod
+    def forward(ctx, idx, table, weights, mean, use_kernel):
+        out = _forward(idx, table, weights, mean, use_kernel)
+        ctx.mean = mean
+        ctx.save_for_backward(idx, table, weights, out)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        idx, table, weights, out = ctx.saved_tensors
+        d_table, d_w = embed_bag_backward(
+            g, idx, table, weights, out, mean=ctx.mean,
+            need_weights=ctx.needs_input_grad[2])
+        return (None, d_table if ctx.needs_input_grad[1] else None, d_w,
+                None, None)
 
 
 embed_bag.launches = 0

@@ -1,11 +1,18 @@
 """Synthetic data for the port's cells (``repro.launch.train``'s
-``synthetic_batches``, recsys family only; the port has no training CLI)."""
+``synthetic_batches``, recsys family only) and its smoke shapes. The
+training CLI (``main``) waits for the fault-tolerant loop and checkpoints
+(ROADMAP §1 items 12 and 15)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from repro_torch.core.graph import resolve_device
+
+
+# The reference's shape of a ``--smoke`` run, by family: the cell named
+# "smoke" (the other families are not ported, ROADMAP §1 item 15).
+SMOKE_SHAPES = {"recsys": dict(kind="train", batch=16)}
 
 
 def synthetic_batches(spec, shape, cfg, seed=0, *,

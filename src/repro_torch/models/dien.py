@@ -1,6 +1,7 @@
-"""DIEN — Deep Interest Evolution Network  [arXiv:1809.03672], serving.
+"""DIEN — Deep Interest Evolution Network  [arXiv:1809.03672].
 
-The port of ``repro.models.dien``'s forward path. Config (assigned):
+The port of ``repro.models.dien``: the forward path, its loss and the
+retrieval scorer. Config (assigned):
 embed_dim=18, seq_len=100, gru_dim=108, mlp=200-80, interaction=augru.
 
 Structure:
@@ -17,10 +18,14 @@ Serving shapes:
       interest GRU runs once, then attention+AUGRU run over candidate
       blocks (a loop over blocks, each a batch of candidates).
 
+Training: ``dien_loss`` (binary cross-entropy on the logits) through the
+same forward; the embed_bag kernel's backward is its wrapper's hand-written
+VJP.
+
 Parameters keep the reference's names and its ``[in, out]`` layout
 (``x @ w + b``), so ``params_from_reference`` transposes nothing. They are
-held without gradients: training (``dien_loss``, the embed_bag backward)
-is ROADMAP §1 item 10.
+built without gradients, for serving; ``params.requires_grad_()`` makes
+them trainable.
 """
 from __future__ import annotations
 
@@ -61,7 +66,9 @@ class DIENParams(nn.Module):
     ``cate_table``, ``user_table``, ``gru1`` and ``augru`` (``wz``, ``wr``,
     ``wh``, ``bz``, ``br``, ``bh``), ``att_w``, ``proj_target`` and ``mlp``
     (a list of ``(w, b)``). ``params[name]`` reads one, as the reference's
-    dict does."""
+    dict does. Built frozen; ``requires_grad_()`` makes them trainable.
+    ``named_parameters()`` names them ``item_table``, ``gru1.wz`` and
+    ``mlp.<layer>.<0 for w, 1 for b>``; ``from_named`` inverts it."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -80,6 +87,23 @@ class DIENParams(nn.Module):
 
     def __getitem__(self, name: str):
         return getattr(self, name)
+
+    @classmethod
+    def from_named(cls, named: dict) -> "DIENParams":
+        """Frozen parameters from tensors under ``named_parameters()``'s
+        names."""
+        tree = {"gru1": {}, "augru": {}}
+        mlp = {}
+        for name, t in named.items():
+            head, *rest = name.split(".")
+            if head == "mlp":
+                mlp.setdefault(int(rest[0]), {})[int(rest[1])] = t
+            elif rest:
+                tree[head][rest[0]] = t
+            else:
+                tree[head] = t
+        tree["mlp"] = [(mlp[i][0], mlp[i][1]) for i in sorted(mlp)]
+        return cls(tree)
 
     @property
     def device(self) -> torch.device:
@@ -181,15 +205,28 @@ def _augru_cell(p, x, h, a):
 def interest_extractor(cfg: DIENConfig, params, behavior):
     """GRU over behavior [B, T, d] → hidden states [B, T, g]."""
     b, t, _ = behavior.shape
-    # Each step writes its state into one preallocated [B, T, g] tensor:
-    # stacking the T states at the end would hold them twice (11.3 GB each
-    # at serve_bulk).
-    hs = behavior.new_empty((b, t, cfg.gru_dim), dtype=cfg.dtype)
     h = behavior.new_zeros((b, cfg.gru_dim), dtype=cfg.dtype)
-    for i in range(t):
-        h = _gru_cell(params["gru1"], behavior[:, i], h)
-        hs[:, i] = h
-    return hs
+    # Without autograd each step writes its state into one preallocated
+    # [B, T, g] tensor: stacking the T states at the end would hold them
+    # twice (11.3 GB each at serve_bulk). Under autograd the states are
+    # kept for the backward anyway, and T writes into one tensor would make
+    # each step's backward copy the whole [B, T, g] gradient, so they are
+    # stacked. The steps' inputs come from one ``unbind``: its backward
+    # stacks their T gradients once, where T ``behavior[:, i]`` would each
+    # add a zero-filled [B, T, d] gradient.
+    tracked = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (behavior, *params["gru1"].values()))
+    if tracked:
+        states = []
+    else:
+        hs = behavior.new_empty((b, t, cfg.gru_dim), dtype=cfg.dtype)
+    for i, x in enumerate(behavior.unbind(1)):
+        h = _gru_cell(params["gru1"], x, h)
+        if tracked:
+            states.append(h)
+        else:
+            hs[:, i] = h
+    return torch.stack(states, 1) if tracked else hs
 
 
 def interest_evolution(cfg: DIENConfig, params, hs, behavior, target_vec,
@@ -208,8 +245,8 @@ def interest_evolution(cfg: DIENConfig, params, hs, behavior, target_vec,
     alpha = torch.softmax(scores.float(), -1).to(cfg.dtype)
 
     h = hs.new_zeros((hs.shape[0], cfg.gru_dim))
-    for i in range(hs.shape[1]):
-        h = _augru_cell(params["augru"], behavior[:, i], h, alpha[:, i])
+    for x, a in zip(behavior.unbind(1), alpha.unbind(1)):
+        h = _augru_cell(params["augru"], x, h, a)
     return h
 
 
@@ -274,6 +311,21 @@ def dien_forward(cfg: DIENConfig, params: DIENParams, batch: dict, *,
     feat = torch.cat([final, tgt, user.to(cfg.dtype), _sumpool(hs, mask)],
                      -1)
     return _mlp(params, feat)
+
+
+def dien_loss(cfg: DIENConfig, params: DIENParams, batch: dict, *,
+              device: str | torch.device | None = None,
+              use_kernel: bool | None = None) -> torch.Tensor:
+    """Mean binary cross-entropy of the logits against ``batch["label"]``
+    ([B] int32, 0 or 1), in float32, in the reference's stable form
+    max(x, 0) − x·y + log1p(exp(−|x|)). Device and ``use_kernel`` as for
+    ``dien_forward``."""
+    logits = dien_forward(cfg, params, batch, device=device,
+                          use_kernel=use_kernel).float()
+    y = batch["label"].to(logits.device, torch.float32)
+    return torch.mean(torch.maximum(logits, logits.new_zeros(()))
+                      - logits * y
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
 def dien_retrieval_score(cfg: DIENConfig, params: DIENParams, batch: dict,

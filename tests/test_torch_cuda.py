@@ -4,9 +4,10 @@ two launches a call, also against their stepwise designs; the two chain
 kernels, one cooperative launch a call, and embed_bag also against their
 previous designs; the doubling
 kernels with their fused convergence flags; the BFS level kernel with its
-flag), and the three RST flavors, biconnectivity, the tree queries and
-DIEN serving on the card against the same call on the CPU and with
-``use_kernel=False``.
+flag; embed_bag's backward behind the kernel against autograd through its
+plain version), and the three RST flavors, biconnectivity, the tree
+queries, DIEN serving and DIEN training on the card against the same call
+on the CPU and with ``use_kernel=False``.
 
 Every test here needs a CUDA card (the kernels have no CPU mode) and skips
 without one. The file imports no JAX, so it also runs on a machine that has
@@ -16,8 +17,13 @@ table, where a NaN must sit where the plain version has one), except
 embed_bag and DIEN, whose float sums run in another order in the kernel:
 1e-6 (float32) and 2e-2 (bf16), abs and rel, the reference's own
 (``tests/test_kernels.py``); embed_bag is bit-equal to its previous kernel.
+embed_bag's gradients are sums over bags or features taken in other orders
+on each side: the same tolerances, relative to the sum of each gradient's
+terms' magnitudes. DIEN training's gradients, moments and changes are
+also held to each leaf's own scale (``TRAIN_SCALED_TOL``).
 """
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -59,7 +65,7 @@ from repro_torch.kernels.segment_table.ops import (launches_per_call,
                                                    segment_table,
                                                    segment_table_stepwise)
 from repro_torch.kernels.segment_table.ref import segment_table_ref
-from repro_torch.launch.train import synthetic_batches
+from repro_torch.launch.train import SMOKE_SHAPES, synthetic_batches
 from repro_torch.train.step import build_cell
 
 pytestmark = pytest.mark.cuda
@@ -71,6 +77,11 @@ SIZES = [1, 100, 3000, 1 << 20]
 # grid2d(4096)'s n.
 ABOVE_ONE_WAVE = 3 * (1 << 21) + 7
 COOP_SIZES = SIZES + [ABOVE_ONE_WAVE, 1 << 24]
+
+# Kernel against plain DIEN training, relative to each leaf's own scale:
+# chip_smoke.py's DIEN_TRAIN_SCALED_TOL (float32 measured at most 9.7e-7
+# there, TF32 matmuls at least 2.7e-4).
+TRAIN_SCALED_TOL = 1e-5
 
 
 @pytest.fixture
@@ -871,3 +882,113 @@ def test_dien_serve_p99_kernel_matches_plain_and_cpu(cuda):
     params.to("cpu")
     want = cpu_step(params, {k: v[:64].cpu() for k, v in batch.items()})
     torch.testing.assert_close(got[:64].cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,hot,v,d", EMBED_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("mean", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_embed_bag_backward_on_the_card(cuda, b, hot, v, d, dtype, tol, mean,
+                                        weighted):
+    """``d_table`` and ``d_w`` through the kernel's forward (one launch)
+    and ``embed_bag_backward``, against autograd through ``embed_bag_ref``
+    on float32 copies of the same values. Each gradient element is a sum
+    (d_table: over the bags that name a row; d_w: over the D features)
+    taken in another order on each side, and in bf16 ours adds in bf16: so
+    each is held to ``tol`` relative to the sum of its terms' magnitudes,
+    |got − want| <= tol · (1 + Σ|term|)."""
+    gen = torch.Generator(device=cuda).manual_seed(b * d + hot + 7)
+    idx = torch.randint(0, v, (b, hot), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    w = (torch.rand((b, hot), generator=gen, device=cuda).requires_grad_()
+         if weighted else None)
+    table = torch.randn((v, d), generator=gen, device=cuda).to(dtype)
+    table.requires_grad_()
+    g = torch.randn((b, d), generator=gen, device=cuda).to(dtype)
+    wrt = [table, w] if weighted else [table]
+    before = embed_bag.launches
+    out = embed_bag(idx, table, w, mean=mean, use_kernel=True)
+    got = torch.autograd.grad(out, wrt, g)
+    torch.cuda.synchronize()
+    assert embed_bag.launches - before == 1
+    t32 = table.detach().float().requires_grad_()
+    w32 = w.detach().clone().requires_grad_() if weighted else None
+    want = torch.autograd.grad(embed_bag_ref(idx, w32, t32, mean=mean),
+                               [t32, w32] if weighted else [t32], g.float())
+    wv = w.detach() if weighted else torch.ones((b, hot), device=cuda)
+    s = wv.sum(-1, keepdim=True).clamp_min(1e-9) if mean else 1.0
+    g_abs = g.float().abs()
+    terms = ((wv / s).abs()[..., None] * g_abs[:, None, :]).reshape(-1, d)
+    t_scale = torch.zeros((v, d), device=cuda).index_add_(
+        0, idx.reshape(-1).long(), terms)
+    assert got[0].dtype == dtype and got[0].shape == (v, d)
+    assert bool(((got[0].float() - want[0]).abs()
+                 <= tol * (1 + t_scale)).all())
+    if weighted:
+        rows = t32.detach()[idx].abs()
+        w_scale = torch.einsum("bd,bhd->bh", g_abs, rows) / s
+        if mean:
+            w_scale = w_scale + torch.einsum(
+                "bd,bd->b", g_abs, out.detach().float().abs())[:, None] / s
+        assert got[1].dtype == torch.float32 and got[1].shape == (b, hot)
+        assert bool(((got[1] - want[1]).abs() <= tol * (1 + w_scale)).all())
+
+
+def _scaled_ratio(got, want, floor=0.0):
+    """(max |got - want| - floor) over max |want|, for a whole tensor."""
+    scale = float(want.double().abs().max())
+    assert scale > 0
+    return (float((got.double() - want.double()).abs().max()) - floor) / scale
+
+
+def test_dien_smoke_training_kernel_matches_plain(cuda):
+    """Three steps of the smoke config's train cell on the card: one
+    embed_bag launch a step, and loss, grad_norm, parameters and moments
+    within 1e-6 of the plain twin's (the same forward; the backward's
+    scatter-adds sum in an order the card does not fix). Most leaves lie
+    wholly below 1e-6, so grad_norm, m, v and each parameter's change over
+    the steps are also held to their own scale, as chip_smoke.py's phase
+    5h holds them: max |got - want| <= TRAIN_SCALED_TOL * max |want|, plus
+    two float32 ulps of the leaf's largest entry for the change (a
+    difference of two rounded parameters)."""
+    spec = dataclasses.replace(get_arch("dien"),
+                               shapes={"smoke": SMOKE_SHAPES["recsys"]})
+    step, state, _ = build_cell(spec, "smoke", smoke=True)
+    plain, plain_state, _ = build_cell(spec, "smoke", smoke=True,
+                                       use_kernel=False)
+    initial = {k: p.detach().clone()
+               for k, p in state["params"].named_parameters()}
+    batches = synthetic_batches(spec, spec.shapes["smoke"],
+                                spec.make_smoke_config(), seed=2)
+    for _ in range(3):
+        _, batch = next(batches)
+        before = embed_bag.launches
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        assert embed_bag.launches - before == 1
+        plain_state, want = plain(plain_state, batch)
+        assert embed_bag.launches - before == 1
+        for k in ("loss", "grad_norm"):
+            assert bool(torch.isfinite(metrics[k]))
+            torch.testing.assert_close(metrics[k], want[k], rtol=1e-6,
+                                       atol=1e-6)
+        assert _scaled_ratio(metrics["grad_norm"],
+                             want["grad_norm"]) <= TRAIN_SCALED_TOL
+    assert int(state["opt"]["step"]) == 3
+    named = dict(plain_state["params"].named_parameters())
+    ulps = 2 * torch.finfo(torch.float32).eps
+    for k, p in state["params"].named_parameters():
+        assert p.is_cuda
+        torch.testing.assert_close(p, named[k], rtol=1e-6, atol=1e-6)
+        floor = ulps * float(initial[k].abs().max())
+        ratio = _scaled_ratio(p.detach() - initial[k],
+                              named[k].detach() - initial[k], floor)
+        assert ratio <= TRAIN_SCALED_TOL, (k, ratio)
+        for part in ("m", "v"):
+            torch.testing.assert_close(state["opt"][part][k],
+                                       plain_state["opt"][part][k],
+                                       rtol=1e-6, atol=1e-6)
+            ratio = _scaled_ratio(state["opt"][part][k],
+                                  plain_state["opt"][part][k])
+            assert ratio <= TRAIN_SCALED_TOL, (part, k, ratio)

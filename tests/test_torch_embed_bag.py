@@ -10,10 +10,16 @@ in another order, and the reference multiplies and sums a bf16 table in
 bf16 where the port rounds once at the end. ``test_torch_cuda.py`` holds
 the CUDA kernel against the plain version on the card; here the plan the
 wrapper gives the kernel (``ops.launch_plan``, a pure function of the shapes
-and addresses) is checked for every case of those card tests.
+and addresses) is checked for every case of those card tests. The backward
+(``ops.embed_bag_backward``, behind the plain forward here as behind the
+kernel on the card) is held against the reference's custom VJP, ``jax.vjp``
+of its ``embed_bag`` with the Pallas forward in interpret mode, at the same
+tolerances: 1e-6 for the float32 ``d_table`` and ``d_w``, 2e-2 for the bf16
+``d_table``.
 """
 import itertools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -156,3 +162,72 @@ def test_launch_plan_output_alignment_and_weights():
     assert launch_plan(8, 128, 4, BASE, BASE, BASE + 8, None).vector == 2
     assert launch_plan(8, 128, 4, BASE, BASE, BASE, BASE + 4) == LaunchPlan(
         4, False)
+
+
+# The backward: the reference's custom VJP (``repro``'s ``embed_bag``, the
+# Pallas forward in interpret mode) against the port's ``embed_bag_backward``
+# behind its plain forward, on the same inputs and output gradient.
+BACKWARD_CASES = [(13, hot, 40, 18) for hot in (1, 8, 9)] + [(6, 4, 30, 7)]
+
+
+@pytest.mark.parametrize("b,hot,v,d", BACKWARD_CASES)
+@pytest.mark.parametrize("mean", [False, True])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_embed_bag_backward_matches_jax_vjp(b, hot, v, d, mean, weighted,
+                                           dtype):
+    """d_table (float32 and bf16) and d_w (float32 weights, given and
+    needing a gradient) within the reference's tolerance; ids include
+    negative ones, which count from the end in both."""
+    idx, w, tab = _inputs(b, hot, v, d, dtype, seed=b * 100 + hot)
+    idx[::3, 0] -= v                                  # some ids in [-V, 0)
+    g = np.random.default_rng(hot).standard_normal((b, d)).astype(np.float32)
+    jdt, tdt, tol = DTYPES[dtype]
+    jt, jg = jnp.asarray(tab, jdt), jnp.asarray(g, jdt)
+    if weighted:
+        _, vjp = jax.vjp(lambda t, ww: jax_embed_bag(jnp.asarray(idx), t, ww,
+                                                      mean=mean),
+                         jt, jnp.asarray(w))
+    else:
+        _, vjp = jax.vjp(lambda t: jax_embed_bag(jnp.asarray(idx), t,
+                                                  mean=mean), jt)
+    want = vjp(jg)
+    table = torch.from_numpy(tab).to(tdt).requires_grad_()
+    weights = torch.from_numpy(w).requires_grad_() if weighted else None
+    out = embed_bag(torch.from_numpy(idx), table, weights, mean=mean)
+    got = torch.autograd.grad(out, (table, weights) if weighted else (table,),
+                              torch.from_numpy(g).to(tdt))
+    assert got[0].dtype == tdt and got[0].shape == (v, d)
+    np.testing.assert_allclose(got[0].float().numpy(),
+                               np.asarray(want[0], np.float32), rtol=tol,
+                               atol=tol)
+    if weighted:
+        assert got[1].dtype == torch.float32 and got[1].shape == (b, hot)
+        if dtype == "float32":
+            np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                                       rtol=tol, atol=tol)
+
+
+def test_embed_bag_backward_weights_gradient_only_when_needed():
+    """The table's gradient alone when the weights need none, and the
+    weights' alone when the table needs none; a forward under
+    ``inference_mode`` (serving) keeps no graph."""
+    from repro_torch.kernels.embed_bag import ops
+    idx, w, tab = _inputs(5, 8, 30, 18, "float32", seed=7)
+    table = torch.from_numpy(tab).requires_grad_()
+    weights = torch.from_numpy(w)
+    out = embed_bag(torch.from_numpy(idx), table, weights, mean=True)
+    d_table, = torch.autograd.grad(out.sum(), table)
+    want, _ = ops.embed_bag_backward(
+        torch.ones(5, 18), torch.from_numpy(idx), table.detach(), weights,
+        out.detach(), mean=True)
+    assert torch.equal(d_table, want)
+    weights.requires_grad_()
+    frozen = table.detach()
+    out = embed_bag(torch.from_numpy(idx), frozen, weights, mean=True)
+    d_w, = torch.autograd.grad(out.sum(), weights)
+    assert d_w.shape == (5, 8)
+    with torch.inference_mode():
+        served = embed_bag(torch.from_numpy(idx), table, weights, mean=True)
+    assert not served.requires_grad
+    assert torch.equal(served, out.detach())
