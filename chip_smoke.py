@@ -100,6 +100,30 @@ Phases, in order; any failure raises and the script exits non-zero:
         give the gradients); then the median of 5 further steps in turns with the plain
         twin, rows a second, peak memory and the time of embed_bag's
         backward at the step's shape on the card alone, one line;
+     i. the streaming layer (``repro_torch.dynamic``): first the 32
+        table4_dynamic / table5_dynamic_bcc smoke rows of BENCH_rst.json
+        (chain(256) and rmat(6, edge_factor=4), churn and sliding_window,
+        B = 4 and 16, seed 0, 6 batches) by the benchmarks' procedure,
+        every derived count equal; then eight full-size configurations,
+        grid2d(4096) and rmat(20, edge_factor=16) × churn and
+        sliding_window × B = 256 and 65,536, seed 0: ``init_state``, a
+        ``ForestView`` (tour and BCC incremental, a query session, every
+        batch) primed on it, ``replay_batch`` + ``view.refresh`` for 6
+        batches (counted: pointer_jump_double, list_rank_double, hook_edges
+        and segment_table each launch, nothing else), every refresh held
+        bit-equal to a full recompute; the 6th batch again from the same
+        pre-state: its host syncs per phase (torch's sync debug mode)
+        beside the ledger's, its apply, tour and BCC times incremental,
+        full and from scratch (the RST and numbering of ``live_graph``),
+        3 runs in turns, the plain path bit-equal in state, stats,
+        numbering and BCC, ``rep`` against scipy's components, the forest
+        a valid rooted spanning forest, the pre-state unchanged; one
+        ``{"stream": ...}`` line each with peak memory. On grid2d(4096)
+        churn B = 65,536 the view's session answers 2^20 seeded pairs of
+        connected, lca, depth, is_bridge and is_articulation, bit-equal to
+        a session over a full recompute and to the plain path, timed; after
+        a 7th batch ``strict`` raises, ``refresh`` answers as a fresh
+        session and ``stale`` counts what it served;
   6. one JSON line listing the kernels, then the result line
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -107,8 +131,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 gconn_euler and one pr_rst run per graph, one bfs run on
 ``rmat(20, edge_factor=16)`` and its first 64 levels on ``grid2d(4096)``,
 one gconn_euler ``biconnectivity`` per
-graph, one DIEN forward at ``serve_p99`` and at ``serve_bulk``, and one DIEN
-training step at ``train_batch``.
+graph, one DIEN forward at ``serve_p99`` and at ``serve_bulk``, one DIEN
+training step at ``train_batch``, and the measured batch of grid2d(4096)
+churn B = 65,536 (apply, incremental tour and BCC).
 Without a CUDA card, or outside the repository, the script exits non-zero
 and prints no result.
 """
@@ -207,6 +232,28 @@ TRAIN_CPU_ROWS = 256
 DIEN_TRAIN_TOL = 1e-6
 DIEN_TRAIN_CPU_TOL = 1e-6
 DIEN_TRAIN_SCALED_TOL = 1e-5
+# Phase 5i: the streams (the regimes table4_dynamic and table5_dynamic_bcc
+# measure), the batch sizes (the reference benchmark's largest, and 2^16),
+# the batches of each (5 warm, then the measured one; a 7th is made only to
+# make the query session stale), the timed runs of the measured batch, and
+# the configuration whose final state answers a batch of queries.
+STREAM_KINDS = ("churn", "sliding_window")
+STREAM_BATCHES = (256, 65536)
+STREAM_N_BATCHES = 6
+STREAM_RUNS = 3
+STREAM_QUERY_CASE = ("grid2d(4096)", "churn", 65536)
+STREAM_QUERY_PAIRS = 1 << 20
+TOUR_FIELDS = ("pre", "size", "last", "comp", "parent")
+DYN_STATE = ("parent", "rep", "pool_src", "pool_dst", "pool_valid",
+             "tree_mask", "dirty")
+DYN_STATS = ("cuts", "links", "rounds", "overflow", "pending",
+             "deletes_found")
+# Every tensor field of DynamicBCC; incremental and full refresh agree on
+# these and on n_bcc (their aux_rounds, seg_syncs and dirty_count differ by
+# design: the incremental refresh works on the dirty components only).
+DYN_BCC = ("parent", "pool_src", "pool_dst", "pool_valid", "tree_mask",
+           "pre", "rep", "low", "high", "articulation", "bridge", "edge_bcc")
+DYN_BCC_COUNTS = ("n_bcc", "aux_rounds", "seg_syncs", "dirty_count")
 
 
 def fail(msg: str):
@@ -338,6 +385,390 @@ def scaled_err(torch, got, want, tol: float, what: str,
           f"{what}: differs by up to {diff} against {tol} * {scale} "
           f"+ {floor}")
     return max(diff - floor, 0.0) / scale
+
+
+def host_syncs(torch, fn):
+    """``(fn(), n)``: n is the synchronizing CUDA calls ``fn`` made (host
+    reads of the card and blocking copies), as torch's sync debug mode
+    reports them."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def stream_smoke_counts(g, kind, batch) -> dict:
+    """The derived counts of one configuration's table4_dynamic and
+    table5_dynamic_bcc smoke rows, by the benchmarks' procedure: 5 warm
+    batches and a refresh, then the 6th batch incrementally (replay,
+    incremental tour, incremental BCC) and from scratch (replay, full
+    numbering, full BCC)."""
+    from repro_torch import dynamic, obs
+    from repro_torch.core import tour_numbering
+    from repro_torch.data import streams as stream_gen
+    s_ = stream_gen.STREAMS[kind](g.to("cpu"), batch=batch, seed=0,
+                                  n_batches=STREAM_N_BATCHES)
+    state = dynamic.init_state(s_, device=g.device)
+    for b in s_.batches[:-1]:
+        state, _ = dynamic.replay_batch(state, b)
+    tn, state = dynamic.refresh_tour(state, None)
+    bcc = dynamic.refresh_bcc(state, None, tour=tn)
+    b = s_.batches[-1]
+    s2, stats = dynamic.replay_batch(state, b)
+    with obs.SyncLedger() as led_i:
+        tn2, s2 = dynamic.refresh_tour(s2, tn, incremental=True)
+        bcc_i = dynamic.refresh_bcc(s2, bcc, tour=tn2, incremental=True)
+    s3, _ = dynamic.replay_batch(state, b)
+    with obs.SyncLedger() as led_f:
+        bcc_f = dynamic.refresh_bcc(s3, None, tour=tour_numbering(s3.parent),
+                                    incremental=False)
+    live = int(s3.n_live_edges)
+    out = {"table4/incremental": {"rounds": stats["rounds"], "live": live},
+           "table4/recompute": {"live": live}}
+    for tag, bc, led in (("incremental", bcc_i, led_i),
+                         ("recompute", bcc_f, led_f)):
+        check(led.total("refresh_bcc") == bc.seg_syncs + bc.aux_rounds,
+              f"{kind} b{batch}: the ledger's refresh_bcc syncs differ from "
+              "the DynamicBCC counts")
+        out[f"table5/{tag}"] = {
+            "sync_total": led.total("refresh_bcc"),
+            "seg_syncs": bc.seg_syncs, "aux_rounds": bc.aux_rounds,
+            "dirty": bc.dirty_count, "n_bcc": bc.n_bcc,
+            "bridges": int(bc.n_bridges)}
+    return out
+
+
+def queries_of_session(sess, state, u, v) -> dict:
+    """One batch of each query kind phase 5i serves."""
+    return {"connected": lambda: sess.connected(state, u, v),
+            "lca": lambda: sess.lca(state, u, v),
+            "depth": lambda: sess.depth(state, v),
+            "is_bridge": lambda: sess.is_bridge(state, u, v),
+            "is_articulation": lambda: sess.is_articulation(state, v)}
+
+
+def same_partition(torch, a, b) -> bool:
+    """Two labelings of the same vertices name the same partition."""
+    n = a.numel()
+    pairs = torch.unique(a.long() * n + b.long()).numel()
+    return pairs == torch.unique(a).numel() == torch.unique(b).numel()
+
+
+def stream_config(torch, g_cpu, glabel, kind, batch, card, counted,
+                  timed_call, with_queries, profile) -> dict:
+    """Phase 5i for one graph, stream and batch size; returns its line.
+
+    The main path, counted: ``init_state``, a ``ForestView`` (tour and BCC
+    incremental, a query session, every batch) primed on it, then
+    ``replay_batch`` and ``view.refresh`` for each of the 6 batches. After
+    every refresh the view's numbering and BCC are held against a full
+    recompute. Then the 6th batch again from the same pre-state: its host
+    syncs per phase, its times in turns (incremental; full numbering and
+    BCC; the from-scratch RST and numbering of the live graph), the plain
+    path, the partition against scipy, the tree's validity and the
+    pre-state left unchanged. ``counted(fn)`` runs ``fn`` with the launch
+    counts set to 0 before and returns ``(fn(), the counts after)``;
+    ``profile(what, fn)``, where given, profiles one run.
+    """
+    import numpy as np
+    import scipy.sparse
+    import scipy.sparse.csgraph
+    from repro_torch import dynamic, obs
+    from repro_torch.core import (rooted_spanning_tree, tour_numbering,
+                                  validate_rst)
+    from repro_torch.data import streams as stream_gen
+
+    t_cfg = time.perf_counter()
+    label = f"{glabel}/{kind}/b{batch}"
+    s_ = stream_gen.STREAMS[kind](g_cpu, batch=batch, seed=0,
+                                  n_batches=STREAM_N_BATCHES + 1)
+    path, extra = s_.batches[:STREAM_N_BATCHES], s_.batches[-1]
+    n = g_cpu.n_nodes
+    dev = torch.device("cuda")
+    gen_s = time.perf_counter() - t_cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got = {}
+
+    def on_path(fn):
+        """``fn()`` on the main path, its launches added to ``got``."""
+        out, counts = counted(fn)
+        for k, v in counts.items():
+            got[k] = got.get(k, 0) + v
+        return out
+
+    view = dynamic.ForestView(dynamic.CadencePolicy(
+        tour="incremental", bcc="incremental", queries=True, every=1))
+
+    def full(state):
+        tn_f = tour_numbering(state.parent)
+        return tn_f, dynamic.refresh_bcc_once(state, None, tour=tn_f,
+                                              incremental=False)
+
+    def check_caches(state, tn, bcc, what):
+        tn_f, bcc_f = full(state)
+        for f in TOUR_FIELDS:
+            check(torch.equal(getattr(tn, f), getattr(tn_f, f)),
+                  f"{label} {what}: incremental tour {f} differs from full")
+        for f in DYN_BCC:
+            check(torch.equal(getattr(bcc, f), getattr(bcc_f, f)),
+                  f"{label} {what}: incremental BCC {f} differs from full")
+        check(bcc.n_bcc == bcc_f.n_bcc,
+              f"{label} {what}: n_bcc {bcc.n_bcc} != {bcc_f.n_bcc}")
+        return tn_f, bcc_f
+
+    state, init_ms = on_path(lambda: timed_call(
+        lambda: view.prime(dynamic.init_state(s_, device=dev))))
+    check_caches(state, view.tn, view.bcc, "seed")
+    warm_rounds = []
+    for i, b in enumerate(path[:-1]):
+        state, stats = on_path(lambda: dynamic.replay_batch(state, b))
+        state = on_path(lambda: view.refresh(state, step=i))
+        warm_rounds.append(stats["rounds"])
+        check_caches(state, view.tn, view.bcc, f"batch {i}")
+
+    # The measured batch through the main path, under a ledger.
+    pre, tn0, bcc0 = state, view.tn, view.bcc
+    snap = {f: getattr(pre, f).clone() for f in DYN_STATE}
+    b6 = path[-1]
+    with obs.SyncLedger() as led:
+        s6, stats6 = on_path(lambda: dynamic.replay_batch(pre, b6))
+        s6 = on_path(lambda: view.refresh(s6, step=STREAM_N_BATCHES - 1))
+    tn_f, bcc_f = check_caches(s6, view.tn, view.bcc, "measured batch")
+    ledger = led.totals()
+
+    # The same batch, phase by phase, counting host syncs.
+    (s_a, st_a), sync_apply = host_syncs(
+        torch, lambda: dynamic.replay_batch(pre, b6))
+    (tn_a, s_b), sync_tour = host_syncs(
+        torch, lambda: dynamic.refresh_tour_once(s_a, tn0))
+    bcc_a, sync_bcc = host_syncs(
+        torch, lambda: dynamic.refresh_bcc_once(s_b, bcc0, tour=tn_a))
+    for f in DYN_STATE:
+        check(torch.equal(getattr(s_b, f), getattr(s6, f)),
+              f"{label}: the measured batch's {f} differs between two runs")
+
+    # The plain path from the same pre-state.
+    p_a, pst = dynamic.replay_batch(pre, b6, use_kernel=False)
+    ptn, p_b = dynamic.refresh_tour_once(p_a, tn0, use_kernel=False)
+    pbcc = dynamic.refresh_bcc_once(p_b, bcc0, tour=ptn, use_kernel=False)
+    for f in DYN_STATE:
+        check(torch.equal(getattr(p_a, f), getattr(s_a, f)),
+              f"{label}: state {f} differs from the plain path")
+    check(all(int(pst[k]) == int(st_a[k]) for k in DYN_STATS),
+          f"{label}: stats differ from the plain path")
+    for f in TOUR_FIELDS:
+        check(torch.equal(getattr(ptn, f), getattr(tn_a, f)),
+              f"{label}: tour {f} differs from the plain path")
+    for f in DYN_BCC:
+        check(torch.equal(getattr(pbcc, f), getattr(bcc_a, f)),
+              f"{label}: BCC {f} differs from the plain path")
+    check(all(getattr(pbcc, c) == getattr(bcc_a, c) for c in DYN_BCC_COUNTS),
+          f"{label}: BCC counts differ from the plain path")
+    del p_a, p_b, pst, ptn, pbcc, s_a, s_b, tn_a, bcc_a
+
+    # Times in turns, each run from the same pre-state.
+    def ms_since(t):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        return (now - t) * 1e3, now
+
+    def run_incremental():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s, _ = dynamic.replay_batch(pre, b6)
+        apply_ms, t = ms_since(t)
+        tn, s = dynamic.refresh_tour_once(s, tn0)
+        tour_ms, t = ms_since(t)
+        dynamic.refresh_bcc_once(s, bcc0, tour=tn)
+        bcc_ms, _ = ms_since(t)
+        return {"apply": apply_ms, "tour": tour_ms, "bcc": bcc_ms}
+
+    def run_full():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s, _ = dynamic.replay_batch(pre, b6)
+        apply_ms, t = ms_since(t)
+        tn = tour_numbering(s.parent)
+        tour_ms, t = ms_since(t)
+        dynamic.refresh_bcc_once(s, None, tour=tn, incremental=False)
+        bcc_ms, _ = ms_since(t)
+        return {"apply": apply_ms, "tour": tour_ms, "bcc": bcc_ms}
+
+    root = int(s6.rep[0])
+    live = dynamic.live_graph(s6)
+
+    def run_recompute():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = rooted_spanning_tree(live, root, "gconn_euler")
+        rst_ms, t = ms_since(t)
+        tour_numbering(res.parent)
+        tour_ms, _ = ms_since(t)
+        return {"rst": rst_ms, "tour": tour_ms}
+
+    runs = {"incremental": run_incremental, "full": run_full,
+            "recompute": run_recompute}
+    times = {name: [] for name in runs}
+    order = list(runs)
+    for r in range(STREAM_RUNS):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            times[name].append(runs[name]())
+    med = {name: {k: statistics.median(t[k] for t in ts)
+                  for k in ts[0]} for name, ts in times.items()}
+    if profile is not None and (glabel, kind, batch) == STREAM_QUERY_CASE:
+        profile(f"{label} measured batch, incremental", run_incremental)
+
+    # The from-scratch tree, the partition and the pool's tree.
+    res = rooted_spanning_tree(live, root, "gconn_euler")
+    check(validate_rst(live, res.parent, root, connected=False)["all_ok"],
+          f"{label}: the from-scratch tree is not valid")
+    check(same_partition(torch, res.rep, s6.rep),
+          f"{label}: rep differs from the from-scratch components")
+    valid = s6.pool_valid
+    pu = s6.pool_src[valid].cpu().numpy()
+    pv = s6.pool_dst[valid].cpu().numpy()
+    adj = scipy.sparse.coo_matrix((np.ones(pu.size, np.int8), (pu, pv)),
+                                  shape=(n, n))
+    n_comp, labels = scipy.sparse.csgraph.connected_components(
+        adj, directed=False)
+    check(same_partition(torch, torch.from_numpy(labels).to(dev), s6.rep),
+          f"{label}: rep differs from scipy's components")
+    check(int(s6.n_components) == n_comp,
+          f"{label}: {int(s6.n_components)} components, scipy {n_comp}")
+    check(validate_rst(live, s6.parent, root, connected=False)["all_ok"],
+          f"{label}: the dynamic forest is not a valid rooted spanning forest")
+    check(all(torch.equal(getattr(pre, f), snap[f]) for f in DYN_STATE),
+          f"{label}: apply_batch wrote into its input state")
+    del res, adj, labels, pu, pv
+
+    need = ("pointer_jump_double", "list_rank_double", "hook_edges",
+            "segment_table")
+    check(all(got[k] > 0 for k in need)
+          and all(v == 0 for k, v in got.items() if k not in need),
+          f"{label}: launches {got}")
+
+    applied = int(st_a["deletes_found"]) + int(
+        ((b6.ins_u < n) & (b6.ins_u != b6.ins_v)).sum()) \
+        - int(st_a["overflow"])
+    inc = med["incremental"]
+    line = {"stream": label, "card": card, "n": n,
+            "capacity": s6.capacity, "batch": batch,
+            "events": int((b6.ins_u < n).sum() + (b6.del_u < n).sum()),
+            "applied": applied, "rounds": stats6["rounds"],
+            "warm_rounds": warm_rounds,
+            "cuts": int(stats6["cuts"]), "links": int(stats6["links"]),
+            "init_ms": init_ms,
+            "apply_ms": inc["apply"], "tour_ms": inc["tour"],
+            "bcc_ms": inc["bcc"],
+            "full_apply_ms": med["full"]["apply"],
+            "full_tour_ms": med["full"]["tour"],
+            "full_bcc_ms": med["full"]["bcc"],
+            "recompute_rst_ms": med["recompute"]["rst"],
+            "recompute_tour_ms": med["recompute"]["tour"],
+            "runs": STREAM_RUNS,
+            "updates_per_s": applied / (sum(inc.values()) / 1e3),
+            "apply_updates_per_s": applied / (inc["apply"] / 1e3),
+            "ledger_syncs": ledger,
+            "host_syncs": {"apply": sync_apply, "refresh_tour": sync_tour,
+                           "refresh_bcc": sync_bcc},
+            "dirty_count": view.bcc.dirty_count,
+            "live": int(s6.n_live_edges),
+            "components": n_comp, "n_bcc": view.bcc.n_bcc,
+            "bridges": int(view.bcc.n_bridges),
+            "aux_rounds": view.bcc.aux_rounds,
+            "seg_syncs": view.bcc.seg_syncs,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": got,
+            "checks": {"incremental_equals_full": True,
+                       "kernel_equals_plain": True,
+                       "rep_equals_scipy": True, "valid_rst": True,
+                       "input_unchanged": True}}
+    if with_queries:
+        line["queries"] = stream_queries(torch, view, s6, tn_f, bcc_f, extra,
+                                         label)
+    line["seconds"] = time.perf_counter() - t_cfg
+    line["stream_gen_s"] = gen_s
+    del view, state, pre, s6, tn0, bcc0, tn_f, bcc_f, live, snap
+    torch.cuda.empty_cache()
+    return line
+
+
+def stream_queries(torch, view, s6, tn_f, bcc_f, extra, label) -> dict:
+    """The view's session after the measured batch: 2^20 seeded pairs of
+    each kind, bit-equal to a session over a full recompute and to one on
+    the plain path; its times; then one more batch, under each policy."""
+    from repro_torch import dynamic
+    dev = torch.device("cuda")
+    sess = view.session
+    check(sess.is_fresh(s6) and sess.bcc is view.bcc,
+          f"{label}: the view's session is not over the measured batch")
+    n = s6.n_nodes
+    qgen = torch.Generator(device=dev).manual_seed(17)
+    u = torch.randint(0, n, (STREAM_QUERY_PAIRS,), generator=qgen,
+                      device=dev, dtype=torch.int32)
+    v = torch.randint(0, n, (STREAM_QUERY_PAIRS,), generator=qgen,
+                      device=dev, dtype=torch.int32)
+    # Half the bridge pairs are live pool edges, so some are bridges.
+    valid_slots = torch.nonzero(s6.pool_valid).flatten()
+    pick = valid_slots[torch.randint(0, valid_slots.numel(),
+                                     (STREAM_QUERY_PAIRS // 2,),
+                                     generator=qgen, device=dev)]
+    u[:pick.numel()] = s6.pool_src[pick]
+    v[:pick.numel()] = s6.pool_dst[pick]
+    batch = queries_of_session(sess, s6, u, v)
+    answers = {k: f() for k, f in batch.items()}
+    fresh = dynamic.QuerySession.from_state(s6, tn_f, bcc_f)
+    plain = dynamic.QuerySession.from_state(s6, tn_f, bcc_f,
+                                            use_kernel=False)
+    for other, what in ((fresh, "a session over a full recompute"),
+                        (plain, "the plain path")):
+        for k, f in queries_of_session(other, s6, u, v).items():
+            check(torch.equal(f(), answers[k]),
+                  f"{label} queries: {k} differs from {what}")
+    ms = {k: cuda_ms(torch, f) for k, f in batch.items()}
+
+    # One more batch: strict raises, refresh answers as a fresh session,
+    # stale serves the old view and counts it.
+    s7, _ = dynamic.replay_batch(s6, extra)
+    strict = dynamic.QuerySession.from_state(s6, view.tn, view.bcc,
+                                             policy="strict")
+    try:
+        strict.connected(s7, u, v)
+        fail(f"{label} queries: a strict session answered a stale query")
+    except dynamic.StaleQueryError:
+        pass
+    refresh = dynamic.QuerySession.from_state(s6, view.tn, view.bcc,
+                                              policy="refresh")
+    stale = dynamic.QuerySession.from_state(s6, view.tn, view.bcc,
+                                            policy="stale")
+    tn7, _ = dynamic.refresh_tour_once(s7, None)
+    fresh7 = dynamic.QuerySession.from_state(
+        s7, tn7, dynamic.refresh_bcc_once(s7, None, tour=tn7))
+    for k, f in queries_of_session(refresh, s7, u, v).items():
+        want = queries_of_session(fresh7, s7, u, v)[k]()
+        check(torch.equal(f(), want),
+              f"{label} queries: refresh policy {k} differs from a fresh "
+              "session")
+    for k, f in queries_of_session(stale, s7, u, v).items():
+        check(torch.equal(f(), answers[k]),
+              f"{label} queries: stale policy {k} differs from the old view")
+    check(refresh.auto_refreshes == 1 and refresh.builds == 2
+          and stale.stale_served == len(batch),
+          f"{label} queries: counters {refresh.sync_stats()} "
+          f"{stale.sync_stats()}")
+    return {"pairs": STREAM_QUERY_PAIRS, "ms_per_batch": ms,
+            "build_syncs": sess.tables.build_syncs,
+            "session": sess.sync_stats(),
+            "bridges_asked": int(answers["is_bridge"].sum()),
+            "articulation_asked": int(answers["is_articulation"].sum()),
+            "strict_raised": True,
+            "refresh": refresh.sync_stats(), "stale": stale.sync_stats()}
 
 
 def main() -> int:
@@ -1420,6 +1851,8 @@ def main() -> int:
     # 5g. DIEN serving at the full config, through build_cell, after the
     # graphs are freed: serve_bulk holds hs [262144, 100, 108] (11.3 GB)
     # and behavior (3.8 GB). Float32 matmuls stay in full float32.
+    # Host copies of the two graphs, for phase 5i's streams.
+    stream_graphs = tuple((label, g.to("cpu")) for label, g, _ in cases)
     del grid, rmat, cases, small, g, gconn_parent, summary
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1666,6 +2099,62 @@ def main() -> int:
     del step, plain, state, plain_state, batches, batch, data, users
     del user_table, g_user, out_user
     torch.cuda.empty_cache()
+
+    # 5i. The streaming layer: the table4/table5 smoke rows' counts on
+    # small streams, then the eight full-size stream configurations.
+    stream_rows = {}
+    for r in json.loads((ROOT / "BENCH_rst.json").read_text()):
+        if r.get("name", "").startswith(("table4_dynamic/smoke_",
+                                         "table5_dynamic_bcc/smoke_")):
+            stream_rows[r["name"]] = dict(
+                kv.split("=") for kv in r["derived"].split(";"))
+    check(len(stream_rows) == 32, f"{len(stream_rows)} table4/table5 smoke "
+          "rows in BENCH_rst.json, want 32")
+    t_streams = time.perf_counter()
+    for glabel, make in (("smoke_chain_256", lambda: graphs.chain(256)),
+                         ("smoke_rmat_6",
+                          lambda: graphs.rmat(6, edge_factor=4, seed=0))):
+        g = make()
+        for kind in ("sliding_window", "churn"):
+            for batch in (4, 16):
+                zero_counts()
+                counts = stream_smoke_counts(g, kind, batch)
+                got = read_counts()
+                for name in launches:
+                    launches[name] += got[name]
+                for table, prefix in (("table4", "table4_dynamic"),
+                                      ("table5", "table5_dynamic_bcc")):
+                    for tag in ("incremental", "recompute"):
+                        row = f"{prefix}/{glabel}/{kind}/b{batch}/{tag}"
+                        mine = {k: str(v) for k, v in
+                                counts[f"{table}/{tag}"].items()}
+                        want = {k: stream_rows[row][k] for k in mine}
+                        check(mine == want, f"{row}: {mine}, want {want}")
+    emit({"phase": "streams small", "rows": len(stream_rows),
+          "seconds": time.perf_counter() - t_streams})
+
+    def counted(fn):
+        zero_counts()
+        out = fn()
+        return out, read_counts()
+
+    def profile(what, fn):
+        profiles.append(profiled(what, fn))
+
+    for glabel, g_cpu in stream_graphs:
+        for kind in STREAM_KINDS:
+            for batch in STREAM_BATCHES:
+                line = stream_config(
+                    torch, g_cpu, glabel, kind, batch, card, counted,
+                    timed_call, (glabel, kind, batch) == STREAM_QUERY_CASE,
+                    profile if args.profile_out is not None else None)
+                for name in launches:
+                    launches[name] += line["launches"][name]
+                line["launches"] = {k: v for k, v in line["launches"].items()
+                                    if v}
+                emit(line)
+    del stream_graphs
+    emit({"phase": "streams", "seconds": time.perf_counter() - t_streams})
 
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the paths never launched: {launches}")

@@ -42,7 +42,8 @@ def connected_components(graph: Graph, *, max_rounds: int | None = None,
     """Connectivity + spanning forest via alternating hook / compress rounds.
 
     Inputs may carry parallel edges and self-loops; at most one half-edge
-    per undirected edge is marked and self-loops never are.
+    per undirected edge is marked and self-loops never are. A ``padded``
+    graph's ids outside [0, n) are clamped into it first (``Graph.clamped``).
 
     Returns:
       rep:         int32[n] component representative per vertex (a root id).
@@ -54,6 +55,10 @@ def connected_components(graph: Graph, *, max_rounds: int | None = None,
                    ``compress_full`` call, summed (the pointer_jump kernel
                    launches once per check).
     """
+    # A sentinel row (n, n) of a padded graph reads vertex n - 1 twice in
+    # the reference, so it never crosses, hooks or wins; clamped, it is
+    # that self-loop, and no id that reaches hook_edges lies outside rep.
+    graph = graph.clamped()
     n = graph.n_nodes
     src, dst = graph.src, graph.dst
     dev = src.device

@@ -32,11 +32,18 @@ class Graph:
     Attributes:
       n_nodes: number of vertices.
       src, dst: int32[2M] half-edges on one device; ``rev(e) = (e + M) % 2M``.
+      padded: the half-edges may hold ids outside [0, n): the sentinel rows
+        ``src = dst = n`` of a dynamic forest's edge pool
+        (``dynamic.forest.live_graph``). ``connected_components`` clamps
+        such ids into [0, n), as the reference's gathers clamp them, before
+        any kernel sees them; graphs built by the constructors below hold
+        only valid ids and pay nothing.
     """
 
     n_nodes: int
     src: torch.Tensor
     dst: torch.Tensor
+    padded: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -56,8 +63,20 @@ class Graph:
         m = self.n_edges
         return (e + m) % (2 * m)
 
+    def clamped(self) -> "Graph":
+        """The graph with every id clamped into [0, n), as the reference's
+        gathers read it: a ``padded`` graph's sentinel row (n, n) becomes
+        the self-loop (n - 1, n - 1), which never crosses components. A
+        graph that is not ``padded`` is returned as it is."""
+        if not self.padded:
+            return self
+        n = self.n_nodes
+        return Graph(n, torch.clamp(self.src, 0, n - 1),
+                     torch.clamp(self.dst, 0, n - 1))
+
     def to(self, device: str | torch.device) -> "Graph":
-        return Graph(self.n_nodes, self.src.to(device), self.dst.to(device))
+        return Graph(self.n_nodes, self.src.to(device), self.dst.to(device),
+                     self.padded)
 
     @staticmethod
     def from_reference_arrays(n_nodes: int, src: np.ndarray, dst: np.ndarray,

@@ -93,11 +93,14 @@ def rooted_spanning_tree(graph: Graph, root, method: Method = "gconn_euler",
     and ``n_jumps`` for ``pr_rst``; ``gconn_euler`` takes none.
 
     Steps: BFS levels (the tree's depth), or rounds minus one. ``bfs``
-    spans only the root's component.
+    spans only the root's component. A ``padded`` graph (a dynamic forest's
+    pool, ``dynamic.forest.live_graph``) is clamped first.
     """
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; choose from {METHODS}")
-    graph = graph.to(resolve_device(device))
+    # A padded graph's sentinel rows become self-loops, as the reference's
+    # clamped gathers read them (``Graph.clamped``).
+    graph = graph.to(resolve_device(device)).clamped()
     if method == "bfs":
         parent, dist, levels = bfs_rst(graph, root, use_kernel=use_kernel,
                                        **kwargs)

@@ -6,8 +6,10 @@ previous designs; the doubling
 kernels with their fused convergence flags; the BFS level kernel with its
 flag; embed_bag's backward behind the kernel against autograd through its
 plain version), and the three RST flavors, biconnectivity, the tree
-queries, DIEN serving and DIEN training on the card against the same call
-on the CPU and with ``use_kernel=False``.
+queries, DIEN serving, DIEN training and the streaming layer (a stream of
+each kind, the padded live graph, ``apply_batch``'s input left unchanged)
+on the card against the same call on the CPU and with
+``use_kernel=False``.
 
 Every test here needs a CUDA card (the kernels have no CPU mode) and skips
 without one. The file imports no JAX, so it also runs on a machine that has
@@ -992,3 +994,118 @@ def test_dien_smoke_training_kernel_matches_plain(cuda):
             ratio = _scaled_ratio(state["opt"][part][k],
                                   plain_state["opt"][part][k])
             assert ratio <= TRAIN_SCALED_TOL, (part, k, ratio)
+
+
+# ---- the streaming layer -------------------------------------------------------
+
+DYN_STATE = ("parent", "rep", "pool_src", "pool_dst", "pool_valid",
+             "tree_mask", "dirty")
+DYN_STATS = ("cuts", "links", "rounds", "overflow", "pending",
+             "deletes_found")
+DYN_BCC = ("pre", "rep", "low", "high", "articulation", "bridge", "edge_bcc")
+DYN_BCC_COUNTS = ("n_bcc", "aux_rounds", "seg_syncs", "dirty_count")
+
+
+def _stream_run(g, stream, batch, use_kernel):
+    """Replay a stream with an incremental tour and BCC refresh after every
+    batch; per batch the state, stats, numbering and BCC."""
+    from repro_torch import dynamic
+    from repro_torch.data import streams
+    s_ = streams.STREAMS[stream](g.to("cpu"), batch=batch, seed=0,
+                                 n_batches=6)
+    s = dynamic.init_state(s_, device=g.device, use_kernel=use_kernel)
+    tn = bcc = None
+    out = []
+    for b in s_.batches:
+        s, stats = dynamic.replay_batch(s, b, use_kernel=use_kernel)
+        tn, s2 = dynamic.refresh_tour(s, tn, use_kernel=use_kernel)
+        bcc = dynamic.refresh_bcc(s2, bcc, tour=tn, use_kernel=use_kernel)
+        out.append((s, stats, tn, bcc))
+        s = s2
+    return out
+
+
+@pytest.mark.parametrize("stream", ["sliding_window", "insert_heavy",
+                                    "churn"])
+@pytest.mark.parametrize("name,kwargs", [
+    ("grid2d", dict(side=24)), ("rmat", dict(scale=9, edge_factor=4))])
+def test_stream_on_card_matches_plain_and_cpu(cuda, name, kwargs, stream):
+    g = getattr(graphs, name)(**kwargs, device=cuda)
+    kernels = (pointer_jump_double_k, list_rank_double_k, hook_edges,
+               segment_table)
+    before = [k.launches for k in kernels]
+    got = _stream_run(g, stream, 16, None)
+    torch.cuda.synchronize()
+    assert all(k.launches > b for k, b in zip(kernels, before))
+    want = _stream_run(g, stream, 16, False)
+    cpu = _stream_run(g.to("cpu"), stream, 16, None)
+    for (s, st, tn, b), (ps, pst, ptn, pb), (cs, cst, ctn, cb) in zip(
+            got, want, cpu):
+        for f in DYN_STATE:
+            assert torch.equal(getattr(s, f), getattr(ps, f)), f
+            assert torch.equal(getattr(s, f).cpu(), getattr(cs, f)), f
+        for k in DYN_STATS:
+            assert int(st[k]) == int(pst[k]) == int(cst[k]), k
+        for f in ("pre", "size", "last", "comp"):
+            assert torch.equal(getattr(tn, f), getattr(ptn, f)), f
+            assert torch.equal(getattr(tn, f).cpu(), getattr(ctn, f)), f
+        for f in DYN_BCC:
+            assert torch.equal(getattr(b, f), getattr(pb, f)), f
+            assert torch.equal(getattr(b, f).cpu(), getattr(cb, f)), f
+        for k in DYN_BCC_COUNTS:
+            assert getattr(b, k) == getattr(pb, k) == getattr(cb, k), k
+
+
+def test_apply_batch_on_card_leaves_its_input_unchanged(cuda):
+    from repro_torch import dynamic
+    from repro_torch.data import streams
+    g = graphs.rmat(10, edge_factor=4, device="cpu")
+    s_ = streams.churn(g, batch=64, n_batches=3)
+    s = dynamic.init_state(s_, device=cuda)
+    s, _ = dynamic.replay_batch(s, s_.batches[0])
+    before = {f: getattr(s, f).clone() for f in DYN_STATE}
+    s2, _ = dynamic.replay_batch(s, s_.batches[1])
+    torch.cuda.synchronize()
+    for f in DYN_STATE:
+        assert torch.equal(getattr(s, f), before[f]), f
+    assert not torch.equal(s2.pool_src, s.pool_src)
+
+
+def test_padded_live_graph_on_card(cuda, monkeypatch):
+    """A padded live graph through connected_components and
+    rooted_spanning_tree on the card: equal to the plain path and the CPU,
+    and hook_edges never receives an id outside [0, n)."""
+    from repro_torch import dynamic
+    from repro_torch.core import connected_components, connectivity
+    from repro_torch.data import streams
+    g = graphs.rmat(10, edge_factor=4, device="cpu")
+    s_ = streams.sliding_window(g, batch=256, n_batches=5)
+    s = dynamic.init_state(s_, dynamic.stream_capacity(s_, 100), device=cuda)
+    for b in s_.batches:
+        s, _ = dynamic.replay_batch(s, b)
+    lg = dynamic.live_graph(s)
+    n = lg.n_nodes
+    assert lg.padded and bool((lg.src == n).any())
+    seen = []
+    real = connectivity.hook_edges
+
+    def hook(src, dst, rep, use_min, **kw):
+        seen.append(int(torch.maximum(src.max(), dst.max())))
+        return real(src, dst, rep, use_min, **kw)
+    monkeypatch.setattr(connectivity, "hook_edges", hook)
+    before = hook_edges.launches
+    got = connected_components(lg)
+    assert hook_edges.launches > before
+    want = connected_components(lg, use_kernel=False)
+    cpu = connected_components(lg.to("cpu"))
+    for a, b, c in zip(got[:2], want[:2], cpu[:2]):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+    assert got[2] == want[2] == cpu[2]
+    root = int(s.rep[0])
+    r = rooted_spanning_tree(lg, root)
+    p = rooted_spanning_tree(lg, root, use_kernel=False)
+    c = rooted_spanning_tree(lg.to("cpu"), root, device="cpu")
+    assert torch.equal(r.parent, p.parent)
+    assert torch.equal(r.parent.cpu(), c.parent)
+    assert seen and max(seen) < n
+    assert validate_rst(lg, r.parent, root, connected=False)["all_ok"]

@@ -71,6 +71,16 @@ def test_default_device_without_cuda_raises(monkeypatch):
         rooted_spanning_tree(g, 0)
     assert rooted_spanning_tree(g, 0, device="cpu").parent.tolist() == [0, 0, 1]
 
+    from repro_torch.data.streams import churn
+    from repro_torch.dynamic import forest_empty, init_state
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        forest_empty(3, 4)
+    stream = churn(g, batch=2, n_batches=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_state(stream)
+    assert forest_empty(3, 4, device="cpu").parent.device.type == "cpu"
+    assert init_state(stream, device="cpu").rep.tolist() == [0, 0, 2]
+
     from repro_torch.configs import get_arch
     from repro_torch.launch.train import synthetic_batches
     from repro_torch.models.dien import dien_forward, dien_init
