@@ -124,6 +124,28 @@ Phases, in order; any failure raises and the script exits non-zero:
         a session over a full recompute and to the plain path, timed; after
         a 7th batch ``strict`` raises, ``refresh`` answers as a fresh
         session and ``stale`` counts what it served;
+     j. the self-healing layer (``dynamic.chaos``, ``audit``,
+        ``recovery``, ``launch.resilient``, ``launch.serve_stream``): the 13
+        table6_robustness/grid_32 rows of BENCH_rst.json by the benchmark's
+        procedure, every derived count equal; then, from phase 5i's
+        measured churn B = 65,536 states of both large graphs, each of the
+        six injectors at K = 1 and 4 effective faults: the audit flags it,
+        ``recover`` heals it (its mode in the expected set, a fresh audit
+        healthy), the scoped repair and the full rebuild give one partition,
+        scipy's; everything bit-equal to ``use_kernel=False``, the pre-state
+        unchanged, only the four kernels of the path launched; one
+        ``{"heal": ...}`` line each with the audit, repair, rebuild and
+        recover times (3 runs in turns at K = 1), the ledger's syncs beside
+        the host syncs, and at K = 1 the re-rooting tables' share of a
+        repair; then ``ResilientStreamLoop`` at full size: rmat churn B =
+        65,536, 12 polluted batches under chaos, audits, the sanitizer and
+        checkpoints, killed after batch 8 and resumed bit-identical to the
+        uninterrupted run (checkpoint MB, save and restore ms), and grid
+        churn B = 65,536, 8 batches with a fault every batch (updates/s,
+        recoveries by mode), one ``{"heal_loop": ...}`` line each; then
+        ``serve_stream.main`` with scripts/chaos_smoke.sh's first command
+        line, its trace's audit_violation and recovery events checked as
+        that script checks them (one ``{"heal_cli": ...}`` line);
   6. one JSON line listing the kernels, then the result line
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -254,6 +276,29 @@ DYN_STATS = ("cuts", "links", "rounds", "overflow", "pending",
 DYN_BCC = ("parent", "pool_src", "pool_dst", "pool_valid", "tree_mask",
            "pre", "rep", "low", "high", "articulation", "bridge", "edge_bcc")
 DYN_BCC_COUNTS = ("n_bcc", "aux_rounds", "seg_syncs", "dirty_count")
+# Phase 5j: the self-healing layer. The injectors and fault counts of each
+# full-size case (phase 5i's churn B = 65,536 states), the runs in turns of
+# the single-fault cases, the kernels its path may launch, the table6 rows'
+# injectors (benchmarks/table6_robustness.py), the resilient loop's batches
+# (rmat: killed after LOOP_KILL and resumed; grid: no checkpoint), and the
+# AuditReport fields held against the plain path.
+HEAL_INJECTORS = ("parent_bitflip", "parent_cycle", "rep_corrupt",
+                  "tree_mask_desync", "pool_desync", "stale_bcc")
+HEAL_FAULTS = (1, 4)
+HEAL_RUNS = 3
+HEAL_KERNELS = ("pointer_jump_double", "list_rank_double", "hook_edges",
+                "segment_table")
+HEAL_CASE = ("churn", 65536)
+TABLE6_INJECTORS = ("parent_bitflip", "rep_corrupt", "tree_mask_desync")
+LOOP_BATCH = 65536
+LOOP_BATCHES = 12
+LOOP_KILL = 8
+GRID_LOOP_BATCHES = 8
+REPORT_FIELDS = ("acyclic", "roots_fixed", "rep_consistent",
+                 "tree_cover_ok", "tree_slots_ok", "spanning_ok",
+                 "counts_ok", "forest_ok", "tour_fresh", "bcc_fresh",
+                 "healthy", "violating", "comp_violating", "sever", "stale",
+                 "bad_slots", "n_violating")
 
 
 def fail(msg: str):
@@ -460,8 +505,10 @@ def same_partition(torch, a, b) -> bool:
 
 
 def stream_config(torch, g_cpu, glabel, kind, batch, card, counted,
-                  timed_call, with_queries, profile) -> dict:
-    """Phase 5i for one graph, stream and batch size; returns its line.
+                  timed_call, with_queries, profile) -> tuple:
+    """Phase 5i for one graph, stream and batch size; returns its line, and
+    for ``HEAL_CASE`` the measured state, numbering, BCC and scipy's labels
+    of its pool (phase 5j's starting points; else None).
 
     The main path, counted: ``init_state``, a ``ForestView`` (tour and BCC
     incremental, a query session, every batch) primed on it, then
@@ -645,6 +692,11 @@ def stream_config(torch, g_cpu, glabel, kind, batch, card, counted,
           f"{label}: the dynamic forest is not a valid rooted spanning forest")
     check(all(torch.equal(getattr(pre, f), snap[f]) for f in DYN_STATE),
           f"{label}: apply_batch wrote into its input state")
+    # Phase 5j starts from this configuration's measured state.
+    kept = None
+    if (kind, batch) == HEAL_CASE:
+        kept = {"state": s6, "tn": view.tn, "bcc": view.bcc,
+                "labels": torch.from_numpy(labels).to(dev)}
     del res, adj, labels, pu, pv
 
     need = ("pointer_jump_double", "list_rank_double", "hook_edges",
@@ -696,7 +748,7 @@ def stream_config(torch, g_cpu, glabel, kind, batch, card, counted,
     line["stream_gen_s"] = gen_s
     del view, state, pre, s6, tn0, bcc0, tn_f, bcc_f, live, snap
     torch.cuda.empty_cache()
-    return line
+    return line, kept
 
 
 def stream_queries(torch, view, s6, tn_f, bcc_f, extra, label) -> dict:
@@ -769,6 +821,531 @@ def stream_queries(torch, view, s6, tn_f, bcc_f, extra, label) -> dict:
             "articulation_asked": int(answers["is_articulation"].sum()),
             "strict_raised": True,
             "refresh": refresh.sync_stats(), "stale": stale.sync_stats()}
+
+
+def bench_rows(prefix: str) -> dict:
+    """The derived counts of BENCH_rst.json's rows under ``prefix``."""
+    rows = {}
+    for r in json.loads((ROOT / "BENCH_rst.json").read_text()):
+        if r.get("name", "").startswith(prefix):
+            rows[r["name"]] = dict(kv.split("=")
+                                   for kv in r["derived"].split(";"))
+    return rows
+
+
+def land_faults(dynamic, injector, state, tn, bcc, k):
+    """K effective injections, table6's procedure: from seed 1000·K, each
+    re-audited and kept only if the damage shows (a later fault can cancel
+    an earlier one), the seed bumped every try. A structural fault shows in
+    the bare audit's ``forest_ok``; ``stale_bcc`` in the audit with the
+    caches. Returns ``(state, bcc, descriptions)``."""
+    bad, bad_bcc, descs = state, bcc, []
+    seed, tries = 1000 * k, 0
+    while len(descs) < k and tries < 16 * k:
+        nxt, nxt_bcc, desc = dynamic.inject(injector, bad, bad_bcc,
+                                            seed=seed)
+        seed += 1
+        tries += 1
+        if injector == "stale_bcc":
+            shows = not bool(dynamic.audit_forest(nxt, tn, nxt_bcc).healthy)
+        else:
+            shows = not bool(dynamic.audit_forest(nxt).forest_ok)
+        if shows:
+            bad, bad_bcc = nxt, nxt_bcc
+            descs.append(desc)
+    return bad, bad_bcc, descs
+
+
+def heal_table6(torch, dev, counted) -> dict:
+    """Phase 5j a: the 13 table6_robustness/grid_32 rows on the card, by
+    benchmarks/table6_robustness.py's procedure (grid2d(32) churn at batch
+    16, seed 0, 6 batches, tour and BCC refreshed; K = 1 and 4 effective
+    injections; every derived count equal). Returns the launches."""
+    from repro_torch import dynamic, obs
+    from repro_torch.data import graphs
+    from repro_torch.data import streams as stream_gen
+    rows = bench_rows("table6_robustness/grid_32/")
+    check(len(rows) == 13, f"{len(rows)} table6 grid_32 rows, want 13")
+
+    def run():
+        got = {}
+        g = graphs.grid2d(32, device="cpu")
+        s_ = stream_gen.STREAMS["churn"](g, batch=16, seed=0)
+        state = dynamic.init_state(s_, device=dev)
+        for b in s_.batches[:6]:
+            state, _ = dynamic.replay_batch(state, b)
+        tn, state = dynamic.refresh_tour(state, None)
+        bcc = dynamic.refresh_bcc(state, None, tour=tn)
+        base = "table6_robustness/grid_32"
+        with obs.SyncLedger() as led:
+            report = dynamic.audit_forest(state, tn, bcc)
+        check(led.total("audit") == report.syncs, "table6: audit ledger")
+        got[f"{base}/audit"] = {"syncs": led.total("audit"),
+                                "healthy": int(bool(report.healthy))}
+        for injector in TABLE6_INJECTORS:
+            for k in HEAL_FAULTS:
+                bad, _, _ = land_faults(dynamic, injector, state, tn, bcc, k)
+                rep = dynamic.audit_forest(bad)
+                check(not bool(rep.forest_ok), f"table6 {injector} f{k}: "
+                      "the faults do not show")
+                with obs.SyncLedger() as led_s:
+                    fixed, rs = dynamic.repair_forest(bad, rep)
+                with obs.SyncLedger() as led_f:
+                    rebuilt, bs = dynamic.rebuild_forest(bad)
+                check(led_s.total("repair") == rs["sync_total"]
+                      and led_f.total("rebuild") == bs["sync_total"],
+                      f"table6 {injector} f{k}: ledger")
+                check(bool(dynamic.audit_forest(fixed).forest_ok)
+                      and bool(dynamic.audit_forest(rebuilt).forest_ok)
+                      and same_partition(torch, fixed.rep, rebuilt.rep),
+                      f"table6 {injector} f{k}: repair and rebuild disagree")
+                kb = f"{base}/{injector}/f{k}"
+                got[f"{kb}/scoped"] = {
+                    "sync_total": led_s.total("repair"),
+                    "rounds": rs["rounds"], "severed": int(rs["severed"]),
+                    "repaired": int(rs["repaired"]),
+                    "audit_syncs": rep.syncs}
+                got[f"{kb}/full"] = {
+                    "sync_total": led_f.total("rebuild"),
+                    "cc_rounds": bs["cc_rounds"],
+                    "rank_syncs": bs["rank_syncs"]}
+        return got
+
+    got, counts = counted(run)
+    check(set(got) == set(rows), f"table6 rows {sorted(set(got) ^ set(rows))}")
+    for name, derived in got.items():
+        mine = {k: str(v) for k, v in derived.items()}
+        check(mine == rows[name], f"{name}: {mine}, want {rows[name]}")
+    check(all(v == 0 for k, v in counts.items() if k not in HEAL_KERNELS),
+          f"table6: launches {counts}")
+    return counts
+
+
+def heal_equal(torch, a, b, what) -> None:
+    """Two heal results, as ``heal_outputs`` returns them, hold the same
+    values: states, numberings, caches, reports, stats and info."""
+    for key in a:
+        x, y = a[key], b[key]
+        if isinstance(x, torch.Tensor):
+            check(torch.equal(x, y), f"{what}: {key} differs")
+        else:
+            check(x == y, f"{what}: {key} {x} != {y}")
+
+
+def heal_outputs(res) -> dict:
+    """Every output of one pass of the heal path as a flat dict."""
+    out = {}
+    for name in ("audit", "bare_audit"):
+        rep = res[name]
+        out.update({f"{name}.{f}": getattr(rep, f) for f in REPORT_FIELDS})
+        out[f"{name}.syncs"] = rep.syncs
+    state, tn, bcc, rep0, info = res["recover"]
+    for f in DYN_STATE:
+        out[f"recover.state.{f}"] = getattr(state, f)
+    out["recover.state.version"] = state.version
+    if tn is not None:
+        for f in TOUR_FIELDS:
+            out[f"recover.tour.{f}"] = getattr(tn, f)
+    if bcc is not None:
+        for f in DYN_BCC:
+            out[f"recover.bcc.{f}"] = getattr(bcc, f)
+        for f in DYN_BCC_COUNTS:
+            out[f"recover.bcc.{f}"] = getattr(bcc, f)
+    out["recover.report.healthy"] = rep0.healthy
+    out["recover.info"] = info
+    for name in ("repair", "rebuild"):
+        st, stats = res[name]
+        for f in DYN_STATE:
+            out[f"{name}.state.{f}"] = getattr(st, f)
+        out[f"{name}.state.version"] = st.version
+        out[f"{name}.stats"] = {k: int(v) for k, v in stats.items()}
+    return out
+
+
+def pool_labels(torch, state):
+    """scipy's connected components of the live pool, as a tensor on the
+    state's device, and their count."""
+    import numpy as np
+    import scipy.sparse
+    import scipy.sparse.csgraph
+    n = state.n_nodes
+    valid = state.pool_valid
+    pu = state.pool_src[valid].cpu().numpy()
+    pv = state.pool_dst[valid].cpu().numpy()
+    adj = scipy.sparse.coo_matrix((np.ones(pu.size, np.int8), (pu, pv)),
+                                  shape=(n, n))
+    n_comp, labels = scipy.sparse.csgraph.connected_components(
+        adj, directed=False)
+    return torch.from_numpy(labels).to(state.device), n_comp
+
+
+def heal_case(torch, glabel, base, injector, k, card, counted) -> dict:
+    """Phase 5j b for one graph, injector and fault count; returns its line.
+
+    ``base`` holds phase 5i's measured state, numbering, BCC and scipy's
+    labels of its pool. K effective injections; then the heal path,
+    counted, each call under the ``obs`` ledger and torch's sync debug
+    mode: the audit with the caches (it must flag the fault), the bare
+    audit, ``recover`` (its mode in the expected set, a fresh audit of its
+    result healthy), and ``repair_forest`` and ``rebuild_forest`` on the bare
+    report (each passing a fresh audit, one partition, scipy's). Then the
+    same calls with ``use_kernel=False``, every output bit-equal; the
+    pre-state unchanged; times (HEAL_RUNS runs in turns at K = 1, else one),
+    and at K = 1 the re-rooting tables' share of one repair."""
+    from repro_torch import dynamic, obs
+    from repro_torch.core import reroot
+    label = f"{glabel}/{injector}/f{k}"
+    state, tn, bcc = base["state"], base["tn"], base["bcc"]
+    t_case = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bad, bad_bcc, descs = land_faults(dynamic, injector, state, tn, bcc, k)
+    check(len(descs) == k, f"{label}: {len(descs)} of {k} faults landed")
+    snap = {f: getattr(bad, f).clone() for f in DYN_STATE}
+    structural = injector != "stale_bcc"
+
+    def calls(use_kernel, res):
+        """The heal path's calls, in order; ``repair`` reads the bare
+        audit from ``res``."""
+        return (
+            ("audit", lambda: dynamic.audit_forest(
+                bad, tn, bad_bcc, use_kernel=use_kernel)),
+            ("bare_audit", lambda: dynamic.audit_forest(
+                bad, use_kernel=use_kernel)),
+            ("recover", lambda: dynamic.recover(
+                bad, tn, bad_bcc, use_kernel=use_kernel)),
+            ("repair", lambda: dynamic.repair_forest(
+                bad, res["bare_audit"], use_kernel=use_kernel)),
+            ("rebuild", lambda: dynamic.rebuild_forest(
+                bad, use_kernel=use_kernel)))
+
+    def heal_path():
+        res, ledger, hsyncs = {}, {}, {}
+        for name, fn in calls(None, res):
+            with obs.SyncLedger() as led:
+                res[name], hsyncs[name] = host_syncs(torch, fn)
+            ledger[name] = led.total()
+        return res, ledger, hsyncs
+
+    (res, ledger, hsyncs), got = counted(heal_path)
+    check(all(v == 0 for kk, v in got.items() if kk not in HEAL_KERNELS),
+          f"{label}: launches {got}")
+    report = res["audit"]
+    if structural:
+        check(not bool(report.forest_ok), f"{label}: the audit missed it")
+    else:
+        check(bool(report.forest_ok) and not bool(report.bcc_fresh),
+              f"{label}: the audit missed the stale cache")
+    s2, tn2, bcc2, _, info = res["recover"]
+    want_modes = ("scoped", "full") if structural else ("refresh",)
+    check(info["mode"] in want_modes, f"{label}: recover mode {info}")
+    check(bool(dynamic.audit_forest(s2, tn2, bcc2).healthy),
+          f"{label}: the recovered state fails a fresh audit")
+    fixed, rstats = res["repair"]
+    rebuilt, bstats = res["rebuild"]
+    check(bool(dynamic.audit_forest(fixed).forest_ok)
+          and bool(dynamic.audit_forest(rebuilt).forest_ok),
+          f"{label}: the repair or the rebuild fails a fresh audit")
+    same_pool = all(torch.equal(getattr(bad, f), getattr(state, f))
+                    for f in ("pool_src", "pool_dst", "pool_valid"))
+    labels = base["labels"] if same_pool else pool_labels(torch, bad)[0]
+    check(same_partition(torch, fixed.rep, rebuilt.rep)
+          and same_partition(torch, fixed.rep, labels)
+          and same_partition(torch, s2.rep, labels),
+          f"{label}: partitions of repair, rebuild, recover and scipy "
+          "disagree")
+
+    # The plain path, every output bit-equal; the pre-state unchanged.
+    res_p = {}
+    for name, fn in calls(False, res_p):
+        res_p[name] = fn()
+    heal_equal(torch, heal_outputs(res), heal_outputs(res_p),
+               f"{label} kernel vs plain")
+    check(all(torch.equal(getattr(bad, f), snap[f]) for f in DYN_STATE),
+          f"{label}: the heal path wrote into its input state")
+    del res_p
+
+    # Times: runs in turns (K = 1), each call timed on its own.
+    def ms(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+    timed = {name: fn for name, fn in calls(None, res)
+             if name != "bare_audit"}
+    runs = HEAL_RUNS if k == 1 else 1
+    times = {name: [] for name in timed}
+    order = list(timed)
+    for r in range(runs):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            times[name].append(ms(timed[name]))
+    line = {"heal": label, "card": card, "faults": descs,
+            "mode": info["mode"], "reason": info.get("reason"),
+            "n_violating": info["n_violating"], "runs": runs}
+    for name, t in times.items():
+        line[f"{name}_ms"] = statistics.median(t)
+        line[f"{name}_ms_runs"] = t
+    if k == 1:
+        # One more repair, the re-rooting tables' build timed inside it.
+        real, spent = reroot.ancestor_tables, []
+
+        def tables(p, levels):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real(p, levels)
+            torch.cuda.synchronize()
+            spent.append((time.perf_counter() - t) * 1e3)
+            return out
+        reroot.ancestor_tables = tables
+        try:
+            total = ms(timed["repair"])
+        finally:
+            reroot.ancestor_tables = real
+        line["repair_tables_ms"] = sum(spent)
+        line["repair_tables_share"] = sum(spent) / total if total else 0.0
+        line["repair_tables_calls"] = len(spent)
+    line.update({
+        "audit_syncs": report.syncs,
+        "repair": {"sync_total": rstats["sync_total"],
+                   "rounds": rstats["rounds"], "links": int(rstats["links"]),
+                   "severed": int(rstats["severed"]),
+                   "repaired": int(rstats["repaired"])},
+        "rebuild": {"sync_total": bstats["sync_total"],
+                    "cc_rounds": bstats["cc_rounds"],
+                    "rank_syncs": bstats["rank_syncs"]},
+        "ledger_syncs": ledger, "host_syncs": hsyncs,
+        "launches": got,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "checks": {"detected": True, "recovered_healthy": True,
+                   "repair_equals_rebuild_and_scipy": True,
+                   "kernel_equals_plain": True, "input_unchanged": True},
+        "seconds": time.perf_counter() - t_case})
+    del res, bad, bad_bcc, snap, s2, tn2, bcc2, fixed, rebuilt
+    return line
+
+
+def loop_equal(torch, a, b, what) -> None:
+    """Two resilient loops end in the same state, numbering and cache."""
+    for f in DYN_STATE:
+        check(torch.equal(getattr(a.state, f), getattr(b.state, f)),
+              f"{what}: state {f} differs")
+    check(a.state.version == b.state.version, f"{what}: version differs")
+    for f in TOUR_FIELDS:
+        check(torch.equal(getattr(a.tn, f), getattr(b.tn, f)),
+              f"{what}: tour {f} differs")
+    for f in DYN_BCC:
+        check(torch.equal(getattr(a.bcc, f), getattr(b.bcc, f)),
+              f"{what}: BCC {f} differs")
+    check(all(getattr(a.bcc, c) == getattr(b.bcc, c)
+              for c in DYN_BCC_COUNTS), f"{what}: BCC counts differ")
+
+
+def dir_mb(path) -> float:
+    return sum(f.stat().st_size for f in pathlib.Path(path).rglob("*")
+               if f.is_file()) / 1e6
+
+
+def heal_loops(torch, dev, g_rmat, g_grid, card, counted) -> tuple:
+    """Phase 5j c: ``ResilientStreamLoop`` at full size; returns (lines,
+    launches).
+
+    rmat: churn B = 65,536, LOOP_BATCHES batches of the stream after every
+    polluter, every injector on a cadence of 3, audits every 4, the
+    sanitizer, tour and BCC incremental, checkpoints every 4 into a
+    directory under build/; killed after LOOP_KILL batches and resumed, it
+    must end bit-identical to the uninterrupted run (state, tour, BCC,
+    injected steps, recoveries). grid: churn B = 65,536, every injector one
+    batch apart, audits every 4, no checkpoint."""
+    import shutil
+    import tempfile
+    from repro_torch import dynamic
+    from repro_torch.data import streams as stream_gen
+    from repro_torch.launch.resilient import ResilientStreamLoop
+    from repro_torch.train import checkpoint as ckpt
+    lines, launches = [], {}
+
+    def add(counts):
+        for kk, v in counts.items():
+            launches[kk] = launches.get(kk, 0) + v
+        check(all(v == 0 for kk, v in counts.items()
+                  if kk not in HEAL_KERNELS), f"resilient loop: {counts}")
+
+    t0 = time.perf_counter()
+    s_ = stream_gen.STREAMS["churn"](g_rmat, batch=LOOP_BATCH, seed=0,
+                                     n_batches=LOOP_BATCHES)
+    polluted = dynamic.pollute_stream(s_, tuple(dynamic.POLLUTERS), seed=0)
+    batches = list(polluted.batches[:LOOP_BATCHES])
+    gen_s = time.perf_counter() - t0
+    cfg = dict(tour_mode="incremental", bcc_mode="incremental",
+               tour_every=4, audit_every=4, chaos=tuple(dynamic.INJECTORS),
+               chaos_every=3, chaos_seed=0, sanitize=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a = ResilientStreamLoop.from_stream(polluted, device=dev, **cfg)
+    t = time.perf_counter()
+    _, counts = counted(lambda: a.run(batches))
+    run_s = time.perf_counter() - t
+    add(counts)
+    check(bool(a.audit_now().healthy), "rmat loop: the final state fails "
+          "its audit")
+    root = pathlib.Path(ROOT / "build")
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="heal-ckpt-", dir=root))
+    try:
+        b1 = ResilientStreamLoop.from_stream(
+            polluted, device=dev, ckpt_dir=tmp / "loop", ckpt_every=4, **cfg)
+        _, counts = counted(lambda: b1.run(batches[:LOOP_KILL]))
+        add(counts)
+        del b1
+        b2 = ResilientStreamLoop.from_stream(
+            polluted, device=dev, ckpt_dir=tmp / "loop", ckpt_every=4, **cfg)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cursor = b2.resume()
+        torch.cuda.synchronize()
+        resume_ms = (time.perf_counter() - t) * 1e3
+        check(cursor == LOOP_KILL, f"rmat loop: resumed at {cursor}")
+        _, counts = counted(lambda: b2.run(batches))
+        add(counts)
+        loop_equal(torch, a, b2, "rmat loop, killed and resumed")
+        check(b2.injected == [x for x in a.injected if x[0] >= LOOP_KILL]
+              and [(s, i) for s, i in b2.recoveries] ==
+              [(s, i) for s, i in a.recoveries if s >= LOOP_KILL],
+              f"rmat loop: injections {b2.injected} / {a.injected}")
+        ck_mb = dir_mb(tmp / "loop" / f"step_{LOOP_BATCHES:010d}")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ckpt.save(tmp / "timed", a._ckpt_tree(), LOOP_BATCHES)
+        save_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        tree, _ = ckpt.restore(tmp / "timed", a._ckpt_tree())
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t) * 1e3
+        check(all(torch.equal(getattr(tree["forest"], f),
+                              getattr(a.state, f)) for f in DYN_STATE)
+              and tree["forest"].version == a.state.version,
+              "rmat loop: a restored checkpoint differs")
+        del tree, b2
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    modes = {}
+    for _, info in a.recoveries:
+        modes[info["mode"]] = modes.get(info["mode"], 0) + 1
+    lines.append({
+        "heal_loop": f"rmat/churn/b{LOOP_BATCH}", "n": g_rmat.n_nodes,
+        "card": card,
+        "batches": LOOP_BATCHES, "killed_after": LOOP_KILL,
+        "polluters": list(dynamic.POLLUTERS), "chaos_every": 3,
+        "audit_every": 4, "injected": a.injected,
+        "recoveries_by_mode": modes, "quarantine": a.quarantine,
+        "applied": a.applied, "run_s": run_s,
+        "applied_updates_per_s": a.applied / run_s,
+        "batch_ms_median": statistics.median(a.lat) * 1e3,
+        "checkpoint_mb": ck_mb, "save_ms": save_ms,
+        "restore_ms": restore_ms, "resume_ms": resume_ms,
+        "stream_gen_s": gen_s,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "checks": {"resumed_bit_identical": True, "final_audit_healthy": True,
+                   "restore_equal": True}})
+    del a
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    s_ = stream_gen.STREAMS["churn"](g_grid, batch=LOOP_BATCH, seed=0,
+                                     n_batches=GRID_LOOP_BATCHES)
+    gen_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loop = ResilientStreamLoop.from_stream(
+        s_, device=dev, tour_mode="incremental", bcc_mode="incremental",
+        tour_every=4, audit_every=4, chaos=tuple(dynamic.INJECTORS),
+        chaos_every=1, chaos_seed=0, sanitize=True)
+    t = time.perf_counter()
+    _, counts = counted(lambda: loop.run(list(s_.batches)))
+    run_s = time.perf_counter() - t
+    add(counts)
+    check(bool(loop.audit_now().healthy), "grid loop: the final state fails "
+          "its audit")
+    modes = {}
+    for _, info in loop.recoveries:
+        modes[info["mode"]] = modes.get(info["mode"], 0) + 1
+    check(len(loop.injected) == GRID_LOOP_BATCHES and loop.recoveries,
+          f"grid loop: {len(loop.injected)} injected, {modes}")
+    lines.append({
+        "heal_loop": f"grid/churn/b{LOOP_BATCH}", "n": g_grid.n_nodes,
+        "card": card,
+        "batches": GRID_LOOP_BATCHES, "chaos_every": 1, "audit_every": 4,
+        "injected": loop.injected, "recoveries_by_mode": modes,
+        "recovery_steps": [s for s, _ in loop.recoveries],
+        "applied": loop.applied, "run_s": run_s,
+        "applied_updates_per_s": loop.applied / run_s,
+        "batch_ms_median": statistics.median(loop.lat) * 1e3,
+        "tour_ms_median": statistics.median(loop.tour_lat) * 1e3,
+        "bcc_ms_median": statistics.median(loop.bcc_lat) * 1e3,
+        "stream_gen_s": gen_s,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "checks": {"final_audit_healthy": True}})
+    del loop
+    torch.cuda.empty_cache()
+    return lines, launches
+
+
+def heal_cli(torch, counted) -> tuple:
+    """Phase 5j d: ``serve_stream.main`` with scripts/chaos_smoke.sh's first
+    command line on the card, its trace asserted as that script asserts it
+    (audit_violation and recovery events, each recovery with a known mode
+    and reason). Returns (line, launches)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from repro_torch import obs
+    from repro_torch.launch import serve_stream
+    root = pathlib.Path(ROOT / "build")
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="heal-cli-", dir=root))
+    cli = ["--graph", "grid_64", "--stream", "churn", "--batch", "64",
+           "--steps", "24", "--tour", "incremental", "--tour-every", "4",
+           "--bcc", "incremental", "--chaos", "all", "--chaos-every", "4",
+           "--audit-every", "4", "--sanitize", "--validate"]
+    argv = cli + ["--trace-out", str(tmp / "trace.jsonl")]
+    try:
+        out = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            _, counts = counted(lambda: serve_stream.main(argv))
+        seconds = time.perf_counter() - t
+        records = obs.read_jsonl(str(tmp / "trace.jsonl"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    events = [r for r in records if r["type"] == "event"]
+    violations = [e for e in events if e["name"] == "audit_violation"]
+    recoveries = [e for e in events if e["name"] == "recovery"]
+    check(violations and recoveries, "cli: no audit_violation or recovery "
+          "events in the trace")
+    for e in violations:
+        check(e["args"]["violations"] and e["args"]["n_violating"] > 0,
+              f"cli: {e}")
+    for e in recoveries:
+        check(e["args"]["mode"] in ("scoped", "full", "refresh")
+              and e["args"]["reason"] in ("scoped_repair",
+                                          "sever_insufficient",
+                                          "reaudit_failed", "caches_stale"),
+              f"cli: {e}")
+    text = out.getvalue()
+    check("partition==from-scratch: True" in text, "cli: --validate")
+    check(all(v == 0 for kk, v in counts.items() if kk not in HEAL_KERNELS),
+          f"cli: launches {counts}")
+    return ({"heal_cli": " ".join(cli),
+             "audit_violations": len(violations),
+             "recoveries": len(recoveries),
+             "modes": sorted({e["args"]["mode"] for e in recoveries}),
+             "seconds": seconds,
+             "report": [ln for ln in text.splitlines()
+                        if ln.startswith(("sustained", "chaos:",
+                                          "final audit", "validate"))]},
+            counts)
 
 
 def main() -> int:
@@ -1036,7 +1613,12 @@ def main() -> int:
           "input": "relabelled random forest; also the 2^24 chain and the "
                    "first compress_full table of connected_components on "
                    "grid2d(4096) and rmat(20, 16)",
-          **kernel_line(rows["pointer_jump_double"]), "inputs": pj})
+          **kernel_line(rows["pointer_jump_double"]),
+          # The call's k passes, each reading and writing the table once;
+          # and with each pass's gather one random 32-byte sector.
+          "k_pass_bound_ms": bound(N_JUMPS * 8 * n_tab, 0)[0],
+          "sector_bound_ms": bound(N_JUMPS * (8 + 32) * n_tab, 0)[0],
+          "inputs": pj})
     del pj_inputs
 
     lr, err = {}, 0
@@ -1072,7 +1654,10 @@ def main() -> int:
           "card": card, "coop_blocks": build.cooperative_blocks(
               "list_rank", "list_rank_double_blocks", chain.device, n_list),
           "input": "Euler successor list of grid2d(4096); also rmat(20, 16)'s",
-          **kernel_line(rows["list_rank_double"]), "inputs": lr})
+          **kernel_line(rows["list_rank_double"]),
+          "k_pass_bound_ms": bound(N_JUMPS * 16 * n_list, 0)[0],
+          "sector_bound_ms": bound(N_JUMPS * (16 + 32) * n_list, 0)[0],
+          "inputs": lr})
     del lr_inputs, succ, dist, outs, fns
 
     # The chain variants (rows 5 and 6): pointer_jump_k follows each of
@@ -2141,20 +2726,67 @@ def main() -> int:
     def profile(what, fn):
         profiles.append(profiled(what, fn))
 
+    heal_bases = {}
     for glabel, g_cpu in stream_graphs:
         for kind in STREAM_KINDS:
             for batch in STREAM_BATCHES:
-                line = stream_config(
+                line, kept = stream_config(
                     torch, g_cpu, glabel, kind, batch, card, counted,
                     timed_call, (glabel, kind, batch) == STREAM_QUERY_CASE,
                     profile if args.profile_out is not None else None)
+                if kept is not None:
+                    heal_bases[glabel] = kept
                 for name in launches:
                     launches[name] += line["launches"][name]
                 line["launches"] = {k: v for k, v in line["launches"].items()
                                     if v}
                 emit(line)
-    del stream_graphs
     emit({"phase": "streams", "seconds": time.perf_counter() - t_streams})
+
+    # 5j. Self-healing: the table6 rows, the six injectors at K = 1 and 4 on
+    # phase 5i's two churn B = 65,536 states, the resilient loop at full
+    # size (with a kill and resume), and the streaming CLI under chaos.
+    t_heal = time.perf_counter()
+    heal_launches = dict.fromkeys(HEAL_KERNELS, 0)
+
+    def add_heal(counts):
+        for name in launches:
+            launches[name] += counts[name]
+        for name in HEAL_KERNELS:
+            heal_launches[name] += counts[name]
+
+    add_heal(heal_table6(torch, dev, counted))
+    emit({"phase": "heal table6", "rows": 13,
+          "seconds": time.perf_counter() - t_heal})
+    from repro_torch.dynamic import audit_forest
+    for glabel, base in heal_bases.items():
+        check(bool(audit_forest(base["state"], base["tn"],
+                                base["bcc"]).healthy),
+              f"{glabel}: phase 5i's measured state fails its audit")
+        for injector in HEAL_INJECTORS:
+            for k in HEAL_FAULTS:
+                line = heal_case(torch, glabel, base, injector, k, card,
+                                 counted)
+                add_heal(line["launches"])
+                line["launches"] = {kk: v for kk, v in
+                                    line["launches"].items() if v}
+                emit(line)
+    check(len(heal_bases) == 2, f"heal bases: {sorted(heal_bases)}")
+    del heal_bases
+    torch.cuda.empty_cache()
+    loop_lines, counts = heal_loops(torch, dev, stream_graphs[1][1],
+                                    stream_graphs[0][1], card, counted)
+    for line in loop_lines:
+        emit(line)
+    add_heal(counts)
+    line, counts = heal_cli(torch, counted)
+    add_heal(counts)
+    emit(line)
+    del stream_graphs
+    check(all(v > 0 for v in heal_launches.values()),
+          f"a kernel of the heal path never launched: {heal_launches}")
+    emit({"phase": "heal", "launches": heal_launches,
+          "seconds": time.perf_counter() - t_heal})
 
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the paths never launched: {launches}")

@@ -19,7 +19,10 @@ from repro_torch.core.euler import (TourNumbering, euler_tour_root,
 from repro_torch.core.graph import (Graph, build_csr, degrees,
                                     resolve_device)
 from repro_torch.core.pr_rst import pr_rst
-from repro_torch.core.queries import QueryTables, build_tables
+from repro_torch.core.queries import (QueryTables, build_tables, connected,
+                                      depth_of, edge_membership,
+                                      is_ancestor, lca, path_agg,
+                                      subtree_agg)
 from repro_torch.core.reroot import (ancestor_tables, link_components,
                                      mark_paths, reverse_and_graft)
 from repro_torch.core.rst import (METHODS, RSTResult, gconn_euler_rst,
@@ -31,7 +34,9 @@ from repro_torch.core.validate import (bfs_depths_reference,
 __all__ = [
     "queries", "depths", "subtree_sizes", "BCCResult", "bcc_batch",
     "bcc_from_parent", "bcc_from_tour", "biconnectivity", "segment_reduce",
-    "segment_reduce_scoped", "QueryTables", "build_tables",
+    "segment_reduce_scoped", "QueryTables", "build_tables", "connected",
+    "depth_of", "edge_membership", "is_ancestor", "lca", "path_agg",
+    "subtree_agg",
     "bfs_rst", "pr_rst", "ancestor_tables", "link_components", "mark_paths",
     "reverse_and_graft",
     "DEFAULT_JUMPS", "compress_full", "compress_scoped", "jump_k",

@@ -115,13 +115,16 @@ class DynamicForest:
 def _mark(size: int, idx: torch.Tensor, keep: torch.Tensor,
           base: torch.Tensor | None = None) -> torch.Tensor:
     """bool[size]: ``base`` (or all False) with True at ``idx`` where
-    ``keep``; the other writers go to spread drop slots past the end."""
+    ``keep``; the other writers go to spread drop slots past the end.
+    ``index_fill_`` takes the True as a kernel argument: assigned through a
+    tensor index (``out[idx] = True``), a Python scalar is first copied to
+    the card, one stream synchronization a call."""
     dev = idx.device
     out = torch.zeros(2 * size, dtype=torch.bool, device=dev)
     if base is not None:
         out[:size] = base
-    out[torch.where(keep, idx.long(), _drop_slots(idx.numel(), size, dev))] \
-        = True
+    out.index_fill_(0, torch.where(keep, idx.long(),
+                                   _drop_slots(idx.numel(), size, dev)), True)
     return out[:size]
 
 

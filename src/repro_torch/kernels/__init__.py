@@ -40,6 +40,11 @@ wrapper takes ``use_kernel: bool | None``. ``None`` launches the kernel for a
 CUDA tensor and runs the plain version for a CPU tensor; ``True`` on a CPU
 tensor raises; ``False`` runs the plain version on either device. A kernel
 that fails to build or launch raises; nothing swaps in the plain version.
+
+Not ported, as TPU plumbing with no counterpart here: the reference's
+``pad_to_tile`` (the (8, 128) TPU tile), ``auto_interpret`` and
+``core.compress.default_interpret`` (Pallas interpret mode off the TPU);
+``kernel_wanted`` takes their place.
 """
 from __future__ import annotations
 

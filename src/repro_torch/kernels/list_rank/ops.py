@@ -3,7 +3,7 @@
 ``list_rank_double_k`` is one group of ``n_steps`` Wyllie doubling steps
 in one cooperative launch, which can also return whether any list is still
 open; the convergence loop around it lives in
-``repro_torch.core.compress.wyllie_rank``. ``list_rank_k`` is the chain
+``repro_torch.core.compress.wyllie_rank`` (``list_rank`` calls it). ``list_rank_k`` is the chain
 variant, ``n_steps`` updates against one snapshot, composed from squarings
 in one cooperative launch. ``list_rank_double_stepwise`` and
 ``list_rank_chain_previous`` are the previous designs of the two kernels
@@ -86,6 +86,16 @@ def list_rank_double_k(succ: torch.Tensor, dist: torch.Tensor, *,
 
 list_rank_double_k.launches = 0
 
+
+
+def list_rank(succ: torch.Tensor, valid: torch.Tensor, *, n_steps: int = 5,
+              use_kernel: bool | None = None) -> torch.Tensor:
+    """Distance-to-end ranks: the engine's ``wyllie_rank``, one
+    ``list_rank_double_k`` group per convergence check. The reference's
+    convenience entry; ``use_kernel`` follows
+    ``repro_torch.kernels.kernel_wanted``."""
+    from repro_torch.core.compress import wyllie_rank
+    return wyllie_rank(succ, valid, n_jumps=n_steps, use_kernel=use_kernel)
 
 def _launch_double(succ: torch.Tensor, dist: torch.Tensor, n_steps: int,
                    blocks: int = 0):

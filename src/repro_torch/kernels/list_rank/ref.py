@@ -29,3 +29,13 @@ def list_rank_steps_ref(succ: torch.Tensor, dist: torch.Tensor,
         dist = dist + torch.where(has, dist_tab[safe], 0)
         succ = torch.where(has, succ_tab[safe], NO_SUCC)
     return succ, dist
+
+
+def list_rank_full_ref(succ: torch.Tensor, valid: torch.Tensor
+                       ) -> torch.Tensor:
+    """Distance-to-end for every list element: Wyllie steps until no list
+    is open (the full-convergence oracle)."""
+    dist = (valid & (succ != NO_SUCC)).to(torch.int32)
+    while bool(torch.any(succ != NO_SUCC)):
+        succ, dist = list_rank_double_ref(succ, dist, 1)
+    return dist

@@ -3,7 +3,7 @@
 ``pointer_jump_double_k`` is one group of ``n_jumps`` doubling steps in
 one cooperative launch, which can also return the group's convergence
 flag; the convergence loop around it lives in
-``repro_torch.core.compress``. ``pointer_jump_k`` is the chain variant,
+``repro_torch.core.compress`` (``pointer_jump_until_converged`` calls it). ``pointer_jump_k`` is the chain variant,
 ``n_jumps + 1`` hops against one fixed table, composed from squarings in
 one cooperative launch. ``pointer_jump_double_stepwise`` and
 ``pointer_jump_chain_previous`` are the previous designs of the two
@@ -72,6 +72,17 @@ def pointer_jump_double_k(p: torch.Tensor, *, n_jumps: int = 5,
 
 pointer_jump_double_k.launches = 0
 
+
+
+def pointer_jump_until_converged(p: torch.Tensor, *, n_jumps: int = 5,
+                                 use_kernel: bool | None = None
+                                 ) -> torch.Tensor:
+    """Fully compress ``p``: the engine's ``compress_full``, one
+    ``pointer_jump_double_k`` group per convergence check
+    (⌈log2(depth)/n_jumps⌉ + 1 of them). The reference's convenience
+    entry; ``use_kernel`` follows ``repro_torch.kernels.kernel_wanted``."""
+    from repro_torch.core.compress import compress_full
+    return compress_full(p, n_jumps=n_jumps, use_kernel=use_kernel)
 
 def _launch_double(p: torch.Tensor, n_jumps: int, blocks: int = 0):
     """One cooperative launch of the doubling kernel on a grid of

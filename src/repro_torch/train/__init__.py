@@ -1,1 +1,2 @@
-"""Cell factories of the port (``step.build_cell``)."""
+"""Cell factories of the port (``step.build_cell``), checkpoints
+(``checkpoint``) and the watchdog's timeout (``fault.StepTimeout``)."""

@@ -1109,3 +1109,166 @@ def test_padded_live_graph_on_card(cuda, monkeypatch):
     assert torch.equal(r.parent.cpu(), c.parent)
     assert seen and max(seen) < n
     assert validate_rst(lg, r.parent, root, connected=False)["all_ok"]
+
+
+# ---- self-healing on the card ------------------------------------------------
+
+HEAL_REPORT = ("acyclic", "roots_fixed", "rep_consistent", "tree_cover_ok",
+               "tree_slots_ok", "spanning_ok", "counts_ok", "forest_ok",
+               "tour_fresh", "bcc_fresh", "healthy", "violating",
+               "comp_violating", "sever", "stale", "bad_slots",
+               "n_violating")
+
+
+def _steady_on(g, use_kernel):
+    """A churn steady state (8 batches of 32, seed 0) with a full tour and
+    BCC, on ``g``'s device."""
+    from repro_torch import dynamic
+    from repro_torch.data import streams
+    s_ = streams.churn(g.to("cpu"), batch=32, n_batches=8, seed=0)
+    s = dynamic.init_state(s_, device=g.device, use_kernel=use_kernel)
+    for b in s_.batches:
+        s, _ = dynamic.replay_batch(s, b, use_kernel=use_kernel)
+    tn, s = dynamic.refresh_tour(s, None, use_kernel=use_kernel)
+    return s, tn, dynamic.refresh_bcc(s, None, tour=tn,
+                                      use_kernel=use_kernel)
+
+
+def _same_heal(a, b, on_cpu=False):
+    """Two (state, tn, bcc) triples hold the same values."""
+    def same(x, y):
+        return torch.equal(x.cpu() if on_cpu else x, y)
+    (s, tn, bcc), (s2, tn2, bcc2) = a, b
+    for f in DYN_STATE:
+        assert same(getattr(s, f), getattr(s2, f)), f
+    assert s.version == s2.version
+    for f in ("pre", "size", "last", "comp", "parent"):
+        assert same(getattr(tn, f), getattr(tn2, f)), f
+    for f in DYN_BCC:
+        assert same(getattr(bcc, f), getattr(bcc2, f)), f
+    for k in DYN_BCC_COUNTS:
+        assert getattr(bcc, k) == getattr(bcc2, k), k
+
+
+@pytest.mark.parametrize("injector", ["parent_bitflip", "parent_cycle",
+                                      "rep_corrupt", "tree_mask_desync",
+                                      "pool_desync", "stale_bcc"])
+@pytest.mark.parametrize("name,kwargs", [
+    ("grid2d", dict(side=24)), ("rmat", dict(scale=9, edge_factor=4))])
+def test_audit_and_recover_on_card_match_plain_and_cpu(cuda, name, kwargs,
+                                                       injector):
+    """Inject, audit and recover with the kernels, against
+    ``use_kernel=False`` on the card and the same calls on the CPU: every
+    report field, the healed state, tour and BCC, and ``info``; the
+    pre-state unchanged; only the four kernels of the path launch."""
+    from repro_torch import dynamic
+    g = getattr(graphs, name)(**kwargs, device=cuda)
+    state, tn, bcc = _steady_on(g, None)
+    cpu = _steady_on(g.to("cpu"), None)
+    _same_heal((state, tn, bcc), cpu, on_cpu=True)
+    bad, bad_bcc, desc = dynamic.inject(injector, state, bcc, seed=4)
+    bad_c, bad_bcc_c, desc_c = dynamic.inject(injector, *cpu[::2], seed=4)
+    assert desc == desc_c
+    snap = {f: getattr(bad, f).clone() for f in DYN_STATE}
+    counted = (pointer_jump_double_k, list_rank_double_k, hook_edges,
+               segment_table)
+    others = (frontier_relax, bfs_level, pointer_jump_k, list_rank_k,
+              embed_bag)
+    torch.cuda.synchronize()
+    before = [k.launches for k in counted + others]
+    rep = dynamic.audit_forest(bad, tn, bad_bcc)
+    out = dynamic.recover(bad, tn, bad_bcc)
+    torch.cuda.synchronize()
+    after = [k.launches for k in counted + others]
+    assert after[0] > before[0]
+    assert after[len(counted):] == before[len(counted):]
+    rep_p = dynamic.audit_forest(bad, tn, bad_bcc, use_kernel=False)
+    out_p = dynamic.recover(bad, tn, bad_bcc, use_kernel=False)
+    rep_c = dynamic.audit_forest(bad_c, cpu[1], bad_bcc_c)
+    out_c = dynamic.recover(bad_c, cpu[1], bad_bcc_c)
+    for f in HEAL_REPORT:
+        assert torch.equal(getattr(rep, f), getattr(rep_p, f)), f
+        assert torch.equal(getattr(rep, f).cpu(), getattr(rep_c, f)), f
+    assert rep.syncs == rep_p.syncs == rep_c.syncs
+    assert not bool(rep.healthy)
+    _same_heal((out[0], out[1], out[2]), (out_p[0], out_p[1], out_p[2]))
+    _same_heal((out[0], out[1], out[2]), (out_c[0], out_c[1], out_c[2]),
+               on_cpu=True)
+    assert out[4] == out_p[4] == out_c[4]
+    assert bool(dynamic.audit_forest(*out[:3]).healthy)
+    for f, t in snap.items():
+        assert torch.equal(getattr(bad, f), t), f
+
+
+def test_audit_of_a_cyclic_table_runs_to_its_bound_on_card(cuda):
+    """A parent cycle keeps the bounded compression open: 64 convergence
+    checks, one cooperative launch each."""
+    from repro_torch import dynamic
+    from repro_torch.dynamic.audit import AUDIT_MAX_SYNCS
+    g = graphs.grid2d(24, device=cuda)
+    state, _, _ = _steady_on(g, None)
+    bad, _, _ = dynamic.inject("parent_cycle", state, None, seed=2)
+    torch.cuda.synchronize()
+    before = pointer_jump_double_k.launches
+    report = dynamic.audit_forest(bad)
+    torch.cuda.synchronize()
+    assert report.syncs == AUDIT_MAX_SYNCS
+    assert pointer_jump_double_k.launches - before == AUDIT_MAX_SYNCS
+    assert not bool(report.acyclic)
+
+
+def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    """A state saved from the card comes back on the card, bit-equal, its
+    host ints as ints; a state saved on the CPU restores onto the card."""
+    from repro_torch.train import checkpoint as ckpt
+    g = graphs.grid2d(16, device=cuda)
+    state, tn, bcc = _steady_on(g, None)
+    ckpt.save(tmp_path / "a", {"forest": state, "tour": tn, "bcc": bcc},
+              step=1)
+    like = {"forest": dataclasses.replace(state, version=0), "tour": tn,
+            "bcc": bcc}
+    tree, _ = ckpt.restore(tmp_path / "a", like)
+    assert tree["forest"].parent.is_cuda and tree["bcc"].edge_bcc.is_cuda
+    assert tree["forest"].version == state.version
+    _same_heal((tree["forest"], tree["tour"], tree["bcc"]),
+               (state, tn, bcc))
+    cpu = _steady_on(g.to("cpu"), None)
+    ckpt.save(tmp_path / "b", {"forest": cpu[0]}, step=2)
+    tree, _ = ckpt.restore(tmp_path / "b", {"forest": state})
+    assert tree["forest"].rep.is_cuda
+    for f in DYN_STATE:
+        assert torch.equal(getattr(tree["forest"], f), getattr(state, f)), f
+
+
+def test_resilient_loop_kill_resume_on_card(cuda, tmp_path):
+    """Chaos, audits and checkpoints on the card: a run killed after batch
+    8 and resumed is bit-identical to the uninterrupted run, and both to the
+    same loop on the CPU."""
+    from repro_torch.data import streams
+    from repro_torch.launch.resilient import ResilientStreamLoop
+    g = graphs.grid2d(16, device="cpu")
+    s_ = streams.churn(g, batch=32, n_batches=12, seed=2)
+    batches = list(s_.batches)
+    cfg = dict(tour_mode="incremental", bcc_mode="incremental",
+               tour_every=4, audit_every=4, chaos=("parent_cycle",
+                                                   "pool_desync",
+                                                   "stale_bcc"),
+               chaos_every=3, chaos_seed=9, sanitize=True)
+    a = ResilientStreamLoop.from_stream(s_, device=cuda, **cfg)
+    a.run(batches)
+    b1 = ResilientStreamLoop.from_stream(s_, device=cuda,
+                                         ckpt_dir=tmp_path, ckpt_every=4,
+                                         **cfg)
+    b1.run(batches[:8])
+    b2 = ResilientStreamLoop.from_stream(s_, device=cuda,
+                                         ckpt_dir=tmp_path, ckpt_every=4,
+                                         **cfg)
+    assert b2.resume() == 8
+    b2.run(batches)
+    c = ResilientStreamLoop.from_stream(s_, device="cpu", **cfg)
+    c.run(batches)
+    assert b2.injected == [x for x in a.injected if x[0] >= 8]
+    assert a.injected == c.injected and a.recoveries == c.recoveries
+    _same_heal((b2.state, b2.tn, b2.bcc), (a.state, a.tn, a.bcc))
+    _same_heal((a.state, a.tn, a.bcc), (c.state, c.tn, c.bcc), on_cpu=True)
+    assert a.state.parent.is_cuda and b2.state.parent.is_cuda

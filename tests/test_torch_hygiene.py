@@ -55,6 +55,32 @@ def test_port_sources_import_no_jax_or_repro(path):
                 f"{path.relative_to(ROOT)}:{node.lineno} imports {name}"
 
 
+#: The packages the card machine is documented to have beyond the standard
+#: library (no JAX; nothing can be installed there).
+CARD_PACKAGES = {"torch", "numpy", "scipy", "triton", "einops", "repro_torch"}
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_import_only_what_the_card_machine_has(path):
+    """Every import of the port and of ``chip_smoke.py`` is the standard
+    library or a package the card machine is documented to have (so no
+    msgpack: a checkpoint's manifest is JSON)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                continue
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top in sys.stdlib_module_names or top in CARD_PACKAGES, \
+                f"{path.relative_to(ROOT)}:{node.lineno} imports {name}"
+
 def test_default_device_without_cuda_raises(monkeypatch):
     from repro_torch.core import Graph, resolve_device, rooted_spanning_tree
     from repro_torch.data import graphs
