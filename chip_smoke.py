@@ -146,6 +146,29 @@ Phases, in order; any failure raises and the script exits non-zero:
         ``serve_stream.main`` with scripts/chaos_smoke.sh's first command
         line, its trace's audit_violation and recovery events checked as
         that script checks them (one ``{"heal_cli": ...}`` line);
+     k. the multi-tenant fleet (``dynamic.fleet``, ``launch.serve_fleet``):
+        two schemas, 16 × grid2d(1024) and 32 × rmat(16, edge_factor=16),
+        each tenant its own churn stream (seed t, B = 4,096 a tick): 5
+        ticks of ``apply_batches``, full refreshes, then the measured 6th
+        tick with incremental ``refresh_tours`` / ``refresh_bccs`` and
+        ``build_fleet_tables`` (counted: the four kernels of the path and
+        nothing else), every lane after every tick bit-equal to its
+        sequential twin (T separate ``replay_batch`` calls), the stacked
+        caches to the twins' refreshes, the 6th tick also on the plain
+        path; the ledger's syncs and the host syncs per phase on both
+        sides (fleet below sequential, a fleet tick's host syncs those of
+        its slowest lane), the tick, refresh and table times, 3 runs in
+        turns with the twin, the re-rooting tables' share of a tick, 2^20
+        query pairs through the ``FleetQuerySession``, peak memory; one
+        ``{"fleet": ...}`` line each. Then a ``BucketedFleet`` of both
+        schemas (20 grid tenants over 16 slots, 40 rmat over 32, drain 2,
+        tours every 2, a second wave of units once the first has drained,
+        so evicted tenants come back through the prefetch): every tenant bit-equal to
+        its replayed twin, its partition to a rebuild and to scipy's; then
+        ``serve_fleet.main`` with the README's two fleet drives; the 8
+        table8_fleet and 2 table9_buckets smoke rows' counts; ``bcc_batch``
+        over 16 relabelled grid2d(256) graphs against 16 separate
+        ``biconnectivity`` calls and its plain path;
   6. one JSON line listing the kernels, then the result line
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -299,6 +322,28 @@ REPORT_FIELDS = ("acyclic", "roots_fixed", "rep_consistent",
                  "counts_ok", "forest_ok", "tour_fresh", "bcc_fresh",
                  "healthy", "violating", "comp_violating", "sever", "stale",
                  "bad_slots", "n_violating")
+
+
+# Phase 5k: the multi-tenant fleet (``dynamic.fleet``). Two schemas, each
+# holding as many vertices and pool slots in all as phase 5i's grid state:
+# 16 × grid2d(1024) and 32 × rmat(16, edge_factor=16), churn B = 4,096 a
+# tenant a tick (seed t for tenant t), the 6th tick measured, 3 runs in
+# turns with the sequential twin; the kernels of the path; the table
+# fields held lane by lane; the two CLI drives (and their tenants);
+# bcc_batch's graphs and grid side.
+FLEET_BATCH = 4096
+FLEET_N_BATCHES = 6
+FLEET_RUNS = 3
+FLEET_QUERY_PAIRS = 1 << 20
+FLEET_KERNELS = ("pointer_jump_double", "list_rank_double", "hook_edges",
+                 "segment_table")
+FLEET_TABLE_FIELDS = ("pre", "last", "comp", "parent", "depth", "up")
+FLEET_CLI = (("--graph grid_64 --stream churn --batch 32 --steps 10 "
+              "--tenants 5 --slots 3 --bcc incremental --read-ratio 0.3 "
+              "--validate", 5),
+             ("--buckets chain_64:12:4,rmat_9:2:2:32 --stream churn "
+              "--batch 8 --steps 8 --validate", 14))
+BCC_BATCH = (16, 256)
 
 
 def fail(msg: str):
@@ -1346,6 +1391,745 @@ def heal_cli(torch, counted) -> tuple:
                         if ln.startswith(("sustained", "chaos:",
                                           "final audit", "validate"))]},
             counts)
+
+
+def fleet_lanes_equal(torch, fleet, twins, stats, seq, what) -> None:
+    """Every lane of ``fleet`` bit-equal to its sequential twin: the state,
+    the version and every per-lane stat."""
+    for t, twin in enumerate(twins):
+        lane = fleet.tenant(t)
+        for f in DYN_STATE:
+            check(torch.equal(getattr(lane, f), getattr(twin, f)),
+                  f"{what}: lane {t} {f} differs from its sequential twin")
+        check(lane.version == twin.version,
+              f"{what}: lane {t} version {lane.version} != {twin.version}")
+    if stats is not None:
+        for k in DYN_STATS:
+            mine = stats[k].tolist()
+            want = [int(s[k]) for s in seq]
+            check(mine == want, f"{what}: {k} {mine}, twins {want}")
+
+
+def fleet_caches_equal(torch, tn, bcc, tables, tns, bccs, tabs, what):
+    """The stacked numbering, BCC and tables, lane by lane, bit-equal to
+    the sequential twins' single-tenant refreshes."""
+    from repro_torch.dynamic.fleet import tenant_slice
+    for t in range(len(tns)):
+        for f in TOUR_FIELDS:
+            check(torch.equal(getattr(tn, f)[t], getattr(tns[t], f)),
+                  f"{what}: lane {t} tour {f} differs from its twin's")
+        lane = tenant_slice(bcc, t)
+        for f in DYN_BCC:
+            check(torch.equal(getattr(lane, f), getattr(bccs[t], f)),
+                  f"{what}: lane {t} BCC {f} differs from its twin's")
+        for c in DYN_BCC_COUNTS:
+            check(int(getattr(lane, c)) == int(getattr(bccs[t], c)),
+                  f"{what}: lane {t} BCC {c} differs from its twin's")
+        tab = tenant_slice(tables, t)
+        for f in FLEET_TABLE_FIELDS:
+            check(torch.equal(getattr(tab, f), getattr(tabs[t], f)),
+                  f"{what}: lane {t} table {f} differs from its twin's")
+        check(int(tab.build_syncs) == int(tabs[t].build_syncs),
+              f"{what}: lane {t} build_syncs differs from its twin's")
+
+
+def fleet_schema(torch, glabel, g_cpu, tenants, card, counted) -> dict:
+    """Phase 5k a, one schema: ``tenants`` lanes of ``g_cpu``, each its own
+    churn stream (seed t, as ``serve_fleet`` seeds tenants, B = 4,096 a
+    tenant a tick), against the sequential twin, T separate
+    ``replay_batch`` calls over the same streams.
+
+    The main path, counted: ``init_state`` per tenant into ``fleet_empty``,
+    5 ticks of ``apply_batches``, a full ``refresh_tours`` /
+    ``refresh_bccs`` / ``build_fleet_tables``, then the measured 6th tick
+    and incremental refreshes (table4's procedure). Every tick every lane
+    is held bit-equal to its twin; after the refreshes the stacked caches
+    to the twins' single-tenant refreshes. Then the 6th tick again from the
+    same pre-state: host syncs per phase beside the ledger's, the plain
+    path, 3 runs in turns (fleet, fleet with full refreshes, sequential),
+    the re-rooting tables' share of a tick, and 2^20 query pairs through
+    the ``FleetQuerySession`` on two lanes.
+    """
+    import numpy as np
+    from repro_torch import dynamic, obs
+    from repro_torch.core import queries as q
+    from repro_torch.core import reroot
+    from repro_torch.data import streams as stream_gen
+    from repro_torch.dynamic import fleet as fl
+
+    t_cfg = time.perf_counter()
+    dev = torch.device("cuda")
+    ss = [stream_gen.churn(g_cpu, batch=FLEET_BATCH,
+                           n_batches=FLEET_N_BATCHES, seed=t)
+          for t in range(tenants)]
+    n = g_cpu.n_nodes
+    cap = max(dynamic.stream_capacity(s) for s in ss)
+    check(all(len(s.batches) == FLEET_N_BATCHES for s in ss),
+          f"{glabel}: a stream has fewer than {FLEET_N_BATCHES} batches")
+    blocks = [tuple(np.stack([getattr(s.batches[i], f) for s in ss])
+                    for f in ("ins_u", "ins_v", "del_u", "del_v"))
+              for i in range(FLEET_N_BATCHES)]
+    gen_s = time.perf_counter() - t_cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got = {}
+
+    def on_path(fn):
+        out, counts = counted(fn)
+        for k, v in counts.items():
+            got[k] = got.get(k, 0) + v
+        return out
+
+    def seeds():
+        return [dynamic.init_state(s, cap, device=dev) for s in ss]
+
+    twins = seeds()
+    fleet = on_path(lambda: fl.fleet_empty(tenants, n, cap, device=dev))
+    for t, s in enumerate(on_path(seeds)):
+        fleet.set_tenant(t, s)
+    fleet_lanes_equal(torch, fleet, twins, None, None, f"{glabel} seed")
+    bill = {"fleet": 0, "sequential": 0}
+    warm_rounds = []
+    for i in range(FLEET_N_BATCHES - 1):
+        fleet, stats = on_path(lambda: fl.apply_batches(fleet, *blocks[i]))
+        seq = []
+        for t, s in enumerate(ss):
+            twins[t], st = dynamic.replay_batch(twins[t], s.batches[i])
+            seq.append(st)
+        fleet_lanes_equal(torch, fleet, twins, stats, seq,
+                          f"{glabel} tick {i}")
+        bill["fleet"] += fl.fleet_sync_cost(stats)
+        bill["sequential"] += sum(st["rounds"] + 1 for st in seq)
+        warm_rounds.append(stats["link_rounds"])
+    tn, fleet = on_path(lambda: fl.refresh_tours(fleet, None))
+    bcc = on_path(lambda: fl.refresh_bccs(fleet, None, tour=tn))
+    on_path(lambda: fl.build_fleet_tables(tn))
+    tns, bccs = [], []
+    for t in range(tenants):
+        tn_t, twins[t] = dynamic.refresh_tour_once(twins[t], None)
+        tns.append(tn_t)
+        bccs.append(dynamic.refresh_bcc_once(twins[t], None, tour=tn_t))
+
+    # The measured tick through the main path, under a ledger each side.
+    pre, tn0, bcc0 = fleet, tn, bcc
+    pre_twins, tns0, bccs0 = list(twins), list(tns), list(bccs)
+    blk = blocks[-1]
+    with obs.SyncLedger() as led_f:
+        f6, st6 = on_path(lambda: fl.apply_batches(pre, *blk))
+        tn6, f6 = on_path(lambda: fl.refresh_tours(f6, tn0))
+        bcc6 = on_path(lambda: fl.refresh_bccs(f6, bcc0, tour=tn6))
+        tab6 = on_path(lambda: fl.build_fleet_tables(tn6))
+    seq6, tns6, bccs6, tabs6, s6 = [], [], [], [], []
+    with obs.SyncLedger() as led_s:
+        for t, s in enumerate(ss):
+            x, st = dynamic.replay_batch(pre_twins[t], s.batches[-1])
+            seq6.append(st)
+            tn_t, x = dynamic.refresh_tour_once(x, tns0[t])
+            tns6.append(tn_t)
+            bccs6.append(dynamic.refresh_bcc_once(x, bccs0[t], tour=tn_t))
+            tabs6.append(q.build_tables(tn_t))
+            s6.append(x)
+    fleet_lanes_equal(torch, f6, s6, st6, seq6, f"{glabel} measured tick")
+    fleet_caches_equal(torch, tn6, bcc6, tab6, tns6, bccs6, tabs6,
+                       f"{glabel} measured tick")
+    bill["fleet"] += fl.fleet_sync_cost(st6)
+    bill["sequential"] += sum(st["rounds"] + 1 for st in seq6)
+    ledger = {"fleet": led_f.totals(), "sequential": led_s.totals()}
+    sync_total = {"fleet": led_f.total(), "sequential": led_s.total()}
+    check(fl.fleet_sync_cost(st6) == int(st6["rounds"].max()) + 1
+          == led_f.total("fleet_apply"),
+          f"{glabel}: fleet_sync_cost {fl.fleet_sync_cost(st6)}, rounds "
+          f"{st6['rounds'].tolist()}, ledger {led_f.totals()}")
+    check(sync_total["fleet"] < sync_total["sequential"]
+          and bill["fleet"] < bill["sequential"],
+          f"{glabel}: fleet syncs {sync_total} {bill} not below sequential")
+
+    # The measured tick again, phase by phase, counting host syncs.
+    (fa, sta), h_apply = host_syncs(torch, lambda: fl.apply_batches(
+        pre, *blk))
+    (tna, fb), h_tour = host_syncs(torch, lambda: fl.refresh_tours(fa, tn0))
+    bcca, h_bcc = host_syncs(torch, lambda: fl.refresh_bccs(
+        fb, bcc0, tour=tna))
+    taba, h_tab = host_syncs(torch, lambda: fl.build_fleet_tables(tna))
+    h_seq = {"apply": [], "refresh_tour": 0, "refresh_bcc": 0,
+             "build_tables": 0}
+    for t, s in enumerate(ss):
+        (x, _), h = host_syncs(torch, lambda: dynamic.replay_batch(
+            pre_twins[t], s.batches[-1]))
+        h_seq["apply"].append(h)
+        (tn_t, x), h = host_syncs(torch, lambda: dynamic.refresh_tour_once(
+            x, tns0[t]))
+        h_seq["refresh_tour"] += h
+        _, h = host_syncs(torch, lambda: dynamic.refresh_bcc_once(
+            x, bccs0[t], tour=tn_t))
+        h_seq["refresh_bcc"] += h
+        _, h = host_syncs(torch, lambda: q.build_tables(tn_t))
+        h_seq["build_tables"] += h
+    # One read a round for all lanes: the tick's host syncs are those of
+    # its slowest lane, not the lanes' sum.
+    check(h_apply <= 2 * max(h_seq["apply"]) < sum(h_seq["apply"]),
+          f"{glabel}: a fleet tick's host syncs {h_apply} against the "
+          f"lanes' own {h_seq['apply']}")
+    for f in DYN_STATE:
+        check(torch.equal(getattr(fb, f), getattr(f6, f)),
+              f"{glabel}: the measured tick's {f} differs between two runs")
+
+    # The plain path from the same pre-state.
+    pa, pst = fl.apply_batches(pre, *blk, use_kernel=False)
+    ptn, pb = fl.refresh_tours(pa, tn0, use_kernel=False)
+    pbcc = fl.refresh_bccs(pb, bcc0, tour=ptn, use_kernel=False)
+    for f in DYN_STATE:
+        check(torch.equal(getattr(pa, f), getattr(fa, f)),
+              f"{glabel}: fleet {f} differs from the plain path")
+    check(all(torch.equal(pst[k], sta[k]) for k in DYN_STATS),
+          f"{glabel}: fleet stats differ from the plain path")
+    for f in TOUR_FIELDS:
+        check(torch.equal(getattr(ptn, f), getattr(tna, f)),
+              f"{glabel}: fleet tour {f} differs from the plain path")
+    for f in DYN_BCC + DYN_BCC_COUNTS:
+        check(torch.equal(getattr(pbcc, f), getattr(bcca, f)),
+              f"{glabel}: fleet BCC {f} differs from the plain path")
+    del pa, pb, pst, ptn, pbcc, fa, fb, tna, bcca, taba
+
+    # Times in turns, each run from the same pre-states.
+    def ms_since(t):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        return (now - t) * 1e3, now
+
+    def run_fleet():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        f, _ = fl.apply_batches(pre, *blk)
+        tick, t = ms_since(t)
+        tnx, f = fl.refresh_tours(f, tn0)
+        tour, t = ms_since(t)
+        fl.refresh_bccs(f, bcc0, tour=tnx)
+        bcc_ms, t = ms_since(t)
+        fl.build_fleet_tables(tnx)
+        tables, _ = ms_since(t)
+        return {"tick": tick, "tour": tour, "bcc": bcc_ms, "tables": tables}
+
+    def run_fleet_full():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        f, _ = fl.apply_batches(pre, *blk)
+        tick, t = ms_since(t)
+        tnx, f = fl.refresh_tours(f, None)
+        tour, t = ms_since(t)
+        fl.refresh_bccs(f, None, tour=tnx)
+        bcc_ms, _ = ms_since(t)
+        return {"tick": tick, "tour": tour, "bcc": bcc_ms}
+
+    def run_seq():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        xs = [dynamic.replay_batch(pre_twins[i], s.batches[-1])[0]
+              for i, s in enumerate(ss)]
+        tick, t = ms_since(t)
+        tx = []
+        for i in range(tenants):
+            tn_i, xs[i] = dynamic.refresh_tour_once(xs[i], tns0[i])
+            tx.append(tn_i)
+        tour, t = ms_since(t)
+        for i in range(tenants):
+            dynamic.refresh_bcc_once(xs[i], bccs0[i], tour=tx[i])
+        bcc_ms, t = ms_since(t)
+        for i in range(tenants):
+            q.build_tables(tx[i])
+        tables, _ = ms_since(t)
+        return {"tick": tick, "tour": tour, "bcc": bcc_ms, "tables": tables}
+
+    runs = {"fleet": run_fleet, "fleet_full": run_fleet_full,
+            "sequential": run_seq}
+    times = {name: [] for name in runs}
+    order = list(runs)
+    for r in range(FLEET_RUNS):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            times[name].append(runs[name]())
+    med = {name: {k: statistics.median(t[k] for t in ts) for k in ts[0]}
+           for name, ts in times.items()}
+
+    # The re-rooting tables' share of a tick (one instrumented run).
+    spent = []
+    real_tables = reroot.ancestor_tables
+
+    def timed_tables(p, levels):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_tables(p, levels)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return out
+
+    reroot.ancestor_tables = timed_tables
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fl.apply_batches(pre, *blk)
+        torch.cuda.synchronize()
+        instr_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        reroot.ancestor_tables = real_tables
+    tables_share = sum(spent) * 1e3 / instr_ms
+
+    # Reads: 2^20 seeded pairs on two lanes, against the twins' tables.
+    gen = torch.Generator(device=dev).manual_seed(7)
+    u = torch.randint(0, n, (FLEET_QUERY_PAIRS,), generator=gen,
+                      device=dev, dtype=torch.int32)
+    v = torch.randint(0, n, (FLEET_QUERY_PAIRS,), generator=gen,
+                      device=dev, dtype=torch.int32)
+    sess = on_path(lambda: fl.FleetQuerySession.from_fleet(
+        f6, tn6, bcc6, policy="strict"))
+    queries = {}
+    for t in (0, tenants - 1):
+        for op in ("lca", "connected"):
+            mine = getattr(sess, op)(f6, t, u, v)
+            want = getattr(q, op)(tabs6[t], u, v)
+            check(torch.equal(mine, want),
+                  f"{glabel}: lane {t} {op} differs from its twin's tables")
+    for op in ("lca", "connected"):
+        queries[f"{op}_ms"] = cuda_ms(
+            torch, lambda: getattr(sess, op)(f6, tenants - 1, u, v))
+    queries["pairs"] = FLEET_QUERY_PAIRS
+    queries["build_syncs"] = tab6.build_syncs.tolist()
+
+    check(all(got.get(k, 0) > 0 for k in FLEET_KERNELS)
+          and all(v_ == 0 for k, v_ in got.items()
+                  if k not in FLEET_KERNELS),
+          f"{glabel}: fleet launches {got}")
+    applied = int(sum(int(st6["deletes_found"][t]) - int(st6["overflow"][t])
+                      + int(((blk[0][t] < n) & (blk[0][t] != blk[1][t])
+                             ).sum()) for t in range(tenants)))
+    fm, sm = med["fleet"], med["sequential"]
+    line = {"fleet": glabel, "card": card, "tenants": tenants, "n": n,
+            "union_n": tenants * n, "capacity": cap,
+            "union_capacity": tenants * cap, "batch": FLEET_BATCH,
+            "events": int(sum((b < n).sum() for b in (blk[0], blk[2]))),
+            "applied": applied, "rounds": st6["rounds"].tolist(),
+            "link_rounds": st6["link_rounds"], "warm_link_rounds":
+                warm_rounds,
+            "tick_ms": fm["tick"], "seq_tick_ms": sm["tick"],
+            "tour_ms": fm["tour"], "tour_full_ms": med["fleet_full"]["tour"],
+            "seq_tour_ms": sm["tour"],
+            "bcc_ms": fm["bcc"], "bcc_full_ms": med["fleet_full"]["bcc"],
+            "seq_bcc_ms": sm["bcc"],
+            "tables_ms": fm["tables"], "seq_tables_ms": sm["tables"],
+            "runs": FLEET_RUNS, "times": times,
+            "updates_per_s": applied / (fm["tick"] / 1e3),
+            "seq_updates_per_s": applied / (sm["tick"] / 1e3),
+            "ledger_syncs": ledger, "sync_total": sync_total,
+            "run_apply_syncs": bill,
+            "host_syncs": {"fleet": {"apply": h_apply, "refresh_tour": h_tour,
+                                     "refresh_bcc": h_bcc,
+                                     "build_tables": h_tab},
+                           "sequential": h_seq},
+            "reroot_tables_share": tables_share,
+            "reroot_tables_ms": sum(spent) * 1e3,
+            "instrumented_tick_ms": instr_ms,
+            "n_bcc": bcc6.n_bcc.tolist()[:4], "queries": queries,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": got, "stream_gen_s": gen_s,
+            "checks": {"lanes_equal_twins": True, "caches_equal_twins": True,
+                       "kernel_equals_plain": True,
+                       "fleet_syncs_below_sequential": True,
+                       "host_syncs_of_the_slowest_lane": True}}
+    line["seconds"] = time.perf_counter() - t_cfg
+    del fleet, pre, f6, twins, pre_twins, s6, tns, bccs, tns6, bccs6, tabs6
+    del tn, bcc, tn0, bcc0, tn6, bcc6, tab6, sess
+    torch.cuda.empty_cache()
+    return line
+
+
+def fleet_buckets(torch, g_grid, g_rmat, card, counted) -> dict:
+    """Phase 5k b: a ``BucketedFleet`` with both schemas as two buckets,
+    20 grid tenants over 16 slots and 40 rmat tenants over 32, ``max_drain``
+    2, tours every 2, two waves of 2 units a tenant (the second offered
+    once the first has drained, so evicted tenants come back through the
+    async prefetch). Every tenant, evicted and re-admitted or not, is
+    then held bit-identical to a twin that replayed the same units, and its
+    partition to a from-scratch rebuild and to scipy's components."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import scipy.sparse
+    import scipy.sparse.csgraph
+    from repro_torch import dynamic
+    from repro_torch.core import rooted_spanning_tree
+    from repro_torch.data import streams as stream_gen
+    from repro_torch.dynamic import fleet as fl
+    from repro_torch.dynamic.view import CadencePolicy
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    root = pathlib.Path(ROOT / "build")
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="fleet-buckets-", dir=root))
+    saves, restores = [], []
+    real_save, real_restore = fl.ckpt.save, fl.ckpt.restore
+
+    def timed(fn, out):
+        def call(*a, **k):
+            t = time.perf_counter()
+            res = fn(*a, **k)
+            out.append((time.perf_counter() - t) * 1e3)
+            return res
+        return call
+
+    groups = []
+    bf = fl.BucketedFleet(tmp, max_drain=2, device=dev)
+    try:
+        fl.ckpt.save = timed(real_save, saves)
+        fl.ckpt.restore = timed(real_restore, restores)
+        for name, g, tenants, slots in (("grid", g_grid, 20, 16),
+                                        ("rmat", g_rmat, 40, 32)):
+            ss = [stream_gen.churn(g, batch=FLEET_BATCH, n_batches=4,
+                                   seed=t) for t in range(tenants)]
+            cap = max(dynamic.stream_capacity(s) for s in ss)
+            schema = fl.FleetSchema(g.n_nodes, cap, FLEET_BATCH)
+            bf.add_bucket(schema, slots, name=name,
+                          cadence=CadencePolicy(tour="incremental",
+                                                every=2))
+            for j, s in enumerate(ss):
+                bf.route(f"{name}.{j}", schema,
+                         seed=dynamic.init_state(s, cap, device=dev))
+            groups.append((name, ss, cap))
+        steps, idle = 0, 0
+
+        def serve():
+            # Two waves of 2 units a tenant, the second offered once the
+            # first has drained, so evicted tenants come back through the
+            # prefetch. A step that serves nothing only waits for in-flight
+            # restores (``BucketedFleet.run`` spins the same way).
+            nonlocal steps, idle
+            for wave in (slice(0, 2), slice(2, 4)):
+                for name, ss, _ in groups:
+                    for j, s in enumerate(ss):
+                        for unit in s.batches[wave]:
+                            bf.offer(f"{name}.{j}", unit)
+                while bf.pending():
+                    if bf.step(steps):
+                        steps += 1
+                    else:
+                        idle += 1
+            bf.finalize()
+
+        _, launches = counted(serve)
+        serve_s = time.perf_counter() - t0
+    finally:
+        fl.ckpt.save, fl.ckpt.restore = real_save, real_restore
+    ckpt_mb = sum(f.stat().st_size for f in tmp.rglob("*")
+                  if f.is_file()) / 1e6
+    buckets = {}
+    for b in bf.buckets.values():
+        m = b.manager
+        buckets[b.name] = {
+            "slots": m.fleet.n_slots, "tenants": len(b.tenants),
+            "ticks": b.ticks, "blocks": b.blocks,
+            "sync_apply": b.sync_apply, "sync_refresh": b.sync_refresh,
+            "padded_rows": b.padded_rows, "padded_events": b.padded_events,
+            "admissions": m.admissions, "evictions": m.evictions,
+            "restores": m.restores, "prefetches": m.prefetches,
+            "max_backlog": b.max_backlog}
+        check(m.evictions > 0 and m.restores > 0 and m.prefetches > 0,
+              f"buckets: {b.name} never evicted, restored or prefetched: "
+              f"{buckets[b.name]}")
+
+    # Every tenant against its twin, its rebuild and scipy.
+    for name, ss, cap in groups:
+        mgr = bf.buckets[name].manager
+        for j, s in enumerate(ss):
+            tid = f"{name}.{j}"
+            check(mgr.cursors[tid] == 4, f"buckets: {tid} applied "
+                  f"{mgr.cursors[tid]} units of 4")
+            twin = dynamic.init_state(s, cap, device=dev)
+            for unit in s.batches[:4]:
+                twin, _ = dynamic.replay_batch(twin, unit)
+            f = bf.tenant_forest(tid)
+            for fld in ("parent", "rep", "pool_src", "pool_dst",
+                        "pool_valid", "tree_mask"):
+                check(torch.equal(getattr(f, fld), getattr(twin, fld)),
+                      f"buckets: {tid} {fld} differs from its twin")
+            live = dynamic.live_graph(f)
+            res = rooted_spanning_tree(live, int(f.rep[0]), "gconn_euler")
+            check(same_partition(torch, res.rep, f.rep),
+                  f"buckets: {tid} differs from a from-scratch rebuild")
+            valid = f.pool_valid
+            pu = f.pool_src[valid].cpu().numpy()
+            pv = f.pool_dst[valid].cpu().numpy()
+            adj = scipy.sparse.coo_matrix(
+                (np.ones(pu.size, np.int8), (pu, pv)),
+                shape=(f.n_nodes, f.n_nodes))
+            _, labels = scipy.sparse.csgraph.connected_components(
+                adj, directed=False)
+            check(same_partition(torch, torch.from_numpy(labels).to(dev),
+                                 f.rep),
+                  f"buckets: {tid} differs from scipy's components")
+    bf.close()
+    shutil.rmtree(tmp, ignore_errors=True)
+    check(all(launches.get(k, 0) > 0 for k in FLEET_KERNELS[:2]),
+          f"buckets: launches {launches}")
+    return ({"fleet_buckets": "grid 20/16 + rmat 40/32, drain 2",
+             "card": card, "steps": steps, "idle_steps": idle,
+             "serve_s": serve_s,
+             "sync_total": bf.sync_total(),
+             "applied": bf.applied_events(),
+             "padded_rows": bf.padded_rows(), "buckets": buckets,
+             "checkpoint_mb": ckpt_mb,
+             "save_ms": statistics.median(saves) if saves else None,
+             "restore_ms": statistics.median(restores) if restores
+             else None, "saves": len(saves), "restore_calls": len(restores),
+             "launches": {k: v for k, v in launches.items() if v},
+             "seconds": time.perf_counter() - t0,
+             "checks": {"tenants_equal_twins": True,
+                        "partition_equals_rebuild_and_scipy": True}},
+            launches)
+
+
+def fleet_cli(torch, counted) -> tuple:
+    """Phase 5k c: ``serve_fleet.main`` on the card with the README's flat
+    drive and with its bucketed drive; every tenant's
+    ``partition==from-scratch`` must be True."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from repro_torch.launch import serve_fleet
+    root = pathlib.Path(ROOT / "build")
+    root.mkdir(parents=True, exist_ok=True)
+    lines, total = [], {}
+    for cli, tenants in FLEET_CLI:
+        tmp = pathlib.Path(tempfile.mkdtemp(prefix="fleet-cli-", dir=root))
+        out = io.StringIO()
+        t = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                _, counts = counted(lambda: serve_fleet.main(
+                    cli.split() + ["--evict-dir", str(tmp)]))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        seconds = time.perf_counter() - t
+        text = out.getvalue()
+        check(text.count("partition==from-scratch: True") == tenants
+              and "partition==from-scratch: False" not in text,
+              f"fleet cli {cli!r}: --validate")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        lines.append({"fleet_cli": cli, "seconds": seconds,
+                      "report": [ln for ln in text.splitlines()
+                                 if ln.startswith(("fleet:", "admission",
+                                                   "sync accounting",
+                                                   "bucket "))],
+                      "launches": {k: v for k, v in counts.items() if v}})
+    return lines, total
+
+
+def fleet_smoke_counts(torch, counted) -> tuple:
+    """Phase 5k d: the 8 table8_fleet and 2 table9_buckets smoke rows of
+    BENCH_rst.json by the benchmarks' procedures on the card, every
+    sync_total (and table9's padded_rows) equal."""
+    import tempfile
+    import numpy as np
+    from repro_torch import dynamic, obs
+    from repro_torch.data import graphs, streams as stream_gen
+    from repro_torch.dynamic import fleet as fl
+    from repro_torch.dynamic.view import CadencePolicy
+    dev = torch.device("cuda")
+    rows = bench_rows("table8_fleet/")
+    rows.update(bench_rows("table9_buckets/"))
+    check(len(rows) == 10, f"{len(rows)} table8/table9 rows, want 10")
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    for glabel, g in (("smoke_chain_256", graphs.chain(256, device="cpu")),
+                      ("smoke_rmat_6", graphs.rmat(6, edge_factor=4, seed=0,
+                                                   device="cpu"))):
+        for kind in ("churn", "sliding_window"):
+            def pair():
+                ss = [stream_gen.STREAMS[kind](g, batch=16, n_batches=6,
+                                               seed=t) for t in range(4)]
+                steps = min(6, min(len(s.batches) for s in ss))
+                cap = max(dynamic.stream_capacity(s) for s in ss)
+                fleet = fl.fleet_empty(4, g.n_nodes, cap, device=dev)
+                for t, s in enumerate(ss):
+                    fleet.set_tenant(t, dynamic.init_state(s, cap,
+                                                           device=dev))
+                tn = None
+                with obs.SyncLedger() as led:
+                    for i in range(steps):
+                        blk = tuple(np.stack([getattr(s.batches[i], f)
+                                              for s in ss])
+                                    for f in ("ins_u", "ins_v", "del_u",
+                                              "del_v"))
+                        fleet, _ = fl.apply_batches(fleet, *blk)
+                        if (i + 1) % 2 == 0:
+                            tn, fleet = fl.refresh_tours(fleet, tn)
+                    fl.refresh_tours(fleet, tn)
+                states = [dynamic.init_state(s, cap, device=dev)
+                          for s in ss]
+                tns = [None] * 4
+                with obs.SyncLedger() as led_s:
+                    for i in range(steps):
+                        for t, s in enumerate(ss):
+                            states[t], _ = dynamic.replay_batch(
+                                states[t], s.batches[i])
+                            if (i + 1) % 2 == 0:
+                                tns[t], states[t] = dynamic.refresh_tour(
+                                    states[t], tns[t])
+                    for t in range(4):
+                        dynamic.refresh_tour(states[t], tns[t])
+                fleet_lanes_equal(torch, fleet, states, None, None,
+                                  f"table8 {glabel}/{kind}")
+                return led.total("fleet_apply"), led_s.total("apply")
+
+            (f_sync, s_sync), counts = counted(pair)
+            add(counts)
+            base = f"table8_fleet/{glabel}/{kind}/T4/b16"
+            check(str(f_sync) == rows[f"{base}/fleet"]["sync_total"]
+                  and str(s_sync) == rows[f"{base}/sequential"]["sync_total"],
+                  f"{base}: {f_sync} / {s_sync}")
+
+    # table9: the smoke mix, bucketed and single-schema.
+    mix = (("chain_64", 8, 4, 8, 6), ("rmat_8", 2, 2, 32, 3))
+    cadence = CadencePolicy(tour="full", bcc="off", every=2, queries=False)
+
+    def table9():
+        groups, seed = [], 0
+        for graph, tenants, slots, batch, units in mix:
+            g = graphs.resolve_graph(graph, device="cpu")
+            ss = []
+            for _ in range(tenants):
+                ss.append(stream_gen.churn(g, batch=batch, n_batches=units,
+                                           seed=seed))
+                seed += 1
+            units = min(units, min(len(s.batches) for s in ss))
+            cap = max(dynamic.stream_capacity(s) for s in ss)
+            groups.append((graph, ss, units, min(slots, tenants),
+                           fl.FleetSchema(g.n_nodes, cap, batch)))
+        out = {}
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            bucketed = fl.BucketedFleet(pathlib.Path(tmp) / "b", device=dev)
+            for graph, ss, units, slots, schema in groups:
+                bucketed.add_bucket(schema, slots, cadence=cadence,
+                                    name=graph)
+                for j, s in enumerate(ss):
+                    bucketed.route(f"{graph}.{j}", schema,
+                                   seed=dynamic.init_state(
+                                       s, schema.capacity, device=dev))
+                    for unit in s.batches[:units]:
+                        bucketed.offer(f"{graph}.{j}", unit)
+            bucketed.run()
+            bucketed.finalize()
+            out["bucketed"] = (bucketed.sync_total(),
+                               bucketed.padded_rows())
+            bucketed.close()
+            wide = fl.FleetSchema(max(x[4].n_nodes for x in groups),
+                                  max(x[4].capacity for x in groups),
+                                  max(x[4].batch for x in groups))
+            total_t = sum(len(x[1]) for x in groups)
+            budget = sum(x[3] * x[4].slot_cost for x in groups)
+            single = fl.BucketedFleet(pathlib.Path(tmp) / "s", device=dev)
+            single.add_bucket(wide, min(total_t, max(
+                1, budget // wide.slot_cost)), cadence=cadence,
+                name="single")
+            for graph, ss, units, slots, schema in groups:
+                for j, s in enumerate(ss):
+                    seed_f = dynamic.forest_empty(wide.n_nodes,
+                                                  wide.capacity, device=dev)
+                    seed_f, _ = dynamic.apply_batch(
+                        seed_f, torch.from_numpy(s.init_u).to(dev),
+                        torch.from_numpy(s.init_v).to(dev),
+                        torch.zeros(wide.capacity, dtype=torch.bool,
+                                    device=dev))
+                    single.route(f"{graph}.{j}", wide, seed=seed_f)
+                    for unit in s.batches[:units]:
+                        def pad(a):
+                            o = np.full(wide.batch, wide.n_nodes, np.int32)
+                            o[:a.shape[0]] = np.where(
+                                a == schema.n_nodes, wide.n_nodes, a)
+                            return o
+                        single.offer(f"{graph}.{j}", type(unit)(
+                            pad(unit.ins_u), pad(unit.ins_v),
+                            pad(unit.del_u), pad(unit.del_v)))
+            single.run()
+            single.finalize()
+            out["single_schema"] = (single.sync_total(),
+                                    single.padded_rows())
+            single.close()
+        return out
+
+    got, counts = counted(table9)
+    add(counts)
+    for side, (sync, padded) in got.items():
+        want = rows[f"table9_buckets/8xchain_64+2xrmat_8/T10/{side}"]
+        check((str(sync), str(padded)) == (want["sync_total"],
+                                           want["padded_rows"]),
+              f"table9 {side}: {sync} / {padded}, want {want}")
+    return {"phase": "fleet smoke", "rows": len(rows),
+            "table9": {k: list(v) for k, v in got.items()}}, total
+
+
+def fleet_bcc_batch(torch, card, counted) -> tuple:
+    """Phase 5k e: ``bcc_batch`` over B = 16 relabelled grid2d(256) graphs
+    as one union program, against B separate ``biconnectivity`` calls and
+    its plain path; launches and times of both."""
+    import numpy as np
+    from repro_torch.core import Graph, bcc_batch, biconnectivity
+    from repro_torch.data import graphs
+    dev = torch.device("cuda")
+    b, side = BCC_BATCH
+    n = side * side
+    g = graphs.grid2d(side, device="cpu")
+    rng = np.random.default_rng(0)
+    perms = [torch.from_numpy(rng.permutation(n).astype(np.int32))
+             for _ in range(b)]
+    src = torch.stack([p[g.src.long()] for p in perms]).to(dev)
+    dst = torch.stack([p[g.dst.long()] for p in perms]).to(dev)
+    roots = torch.from_numpy(rng.integers(0, n, b).astype(np.int32))
+    union, c_union = counted(lambda: bcc_batch(src, dst, roots, n_nodes=n,
+                                               device=dev))
+    singles, c_single = counted(lambda: [
+        biconnectivity(Graph(n, src[i], dst[i]), int(roots[i]), device=dev)
+        for i in range(b)])
+    plain = bcc_batch(src, dst, roots, n_nodes=n, use_kernel=False,
+                      device=dev)
+    for f in BCC_FIELDS + BCC_COUNTS:
+        check(torch.equal(getattr(union, f), getattr(plain, f)),
+              f"bcc_batch: {f} differs from its plain path")
+        for i, one in enumerate(singles):
+            mine = getattr(union, f)[i]
+            want = getattr(one, f)
+            check(torch.equal(mine, want) if isinstance(want, torch.Tensor)
+                  else int(mine) == int(want),
+                  f"bcc_batch: graph {i} {f} differs from its own call")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    runs = {"union": lambda: bcc_batch(src, dst, roots, n_nodes=n,
+                                       device=dev),
+            "separate": lambda: [biconnectivity(
+                Graph(n, src[i], dst[i]), int(roots[i]), device=dev)
+                for i in range(b)]}
+    times = {k: [] for k in runs}
+    for r in range(FLEET_RUNS):
+        for k in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+            times[k].append(timed(runs[k]))
+    return ({"bcc_batch": f"{b} x grid2d({side})", "card": card,
+             "union_ms": statistics.median(times["union"]),
+             "separate_ms": statistics.median(times["separate"]),
+             "launches_union": {k: v for k, v in c_union.items() if v},
+             "launches_separate": {k: v for k, v in c_single.items() if v},
+             "rst_steps": union.rst_steps.tolist(),
+             "aux_rounds": union.aux_rounds.tolist()},
+            c_union, c_single)
 
 
 def main() -> int:
@@ -2787,6 +3571,46 @@ def main() -> int:
           f"a kernel of the heal path never launched: {heal_launches}")
     emit({"phase": "heal", "launches": heal_launches,
           "seconds": time.perf_counter() - t_heal})
+
+    # 5k. The fleet: both schemas at full width against their sequential
+    # twins, the buckets, the CLI, the table8/table9 smoke rows and the
+    # union bcc_batch.
+    t_fleet = time.perf_counter()
+    fleet_launches = dict.fromkeys(launches, 0)
+
+    def add_fleet(counts):
+        for name in launches:
+            launches[name] += counts.get(name, 0)
+            fleet_launches[name] += counts.get(name, 0)
+
+    g_grid = graphs.grid2d(1024, device="cpu")
+    g_rmat = graphs.rmat(16, edge_factor=16, device="cpu")
+    for glabel, g_cpu, tenants in (("grid2d(1024)", g_grid, 16),
+                                   ("rmat(16, 16)", g_rmat, 32)):
+        line = fleet_schema(torch, glabel, g_cpu, tenants, card, counted)
+        add_fleet(line["launches"])
+        line["launches"] = {k: v for k, v in line["launches"].items() if v}
+        emit(line)
+    line, counts = fleet_buckets(torch, g_grid, g_rmat, card, counted)
+    add_fleet(counts)
+    emit(line)
+    del g_grid, g_rmat
+    torch.cuda.empty_cache()
+    lines, counts = fleet_cli(torch, counted)
+    add_fleet(counts)
+    for line in lines:
+        emit(line)
+    line, counts = fleet_smoke_counts(torch, counted)
+    add_fleet(counts)
+    emit(line)
+    line, counts, _separate = fleet_bcc_batch(torch, card, counted)
+    add_fleet(counts)
+    emit(line)
+    check(all(fleet_launches[k] > 0 for k in FLEET_KERNELS),
+          f"a kernel of the fleet path never launched: {fleet_launches}")
+    emit({"phase": "fleet", "launches": {k: v for k, v in
+                                         fleet_launches.items() if v},
+          "seconds": time.perf_counter() - t_fleet})
 
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the paths never launched: {launches}")

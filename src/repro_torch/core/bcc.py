@@ -40,7 +40,10 @@ from repro_torch.core.compress import (_table_levels, segment_reduce,
 from repro_torch.core.connectivity import connected_components
 from repro_torch.core.euler import TourNumbering, tour_numbering
 from repro_torch.core.graph import Graph, resolve_device
-from repro_torch.core.rst import METHODS, rooted_spanning_tree
+from repro_torch.core.bfs import bfs_rst
+from repro_torch.core.pr_rst import pr_rst
+from repro_torch.core.rst import (METHODS, gconn_euler_rst,
+                                  rooted_spanning_tree)
 
 INF32 = torch.iinfo(torch.int32).max
 
@@ -84,7 +87,8 @@ class BCCResult:
 def bcc_from_tour(graph: Graph, parent: torch.Tensor, tn: TourNumbering, *,
                   tree_mask: torch.Tensor | None = None,
                   scope: torch.Tensor | None = None,
-                  use_kernel: bool | None = None) -> dict:
+                  use_kernel: bool | None = None,
+                  lanes: int | None = None) -> dict:
     """Tarjan–Vishkin core driven by an existing ``TourNumbering``.
 
     Args:
@@ -104,6 +108,11 @@ def bcc_from_tour(graph: Graph, parent: torch.Tensor, tn: TourNumbering, *,
         without a scope.
       use_kernel: see ``repro_torch.kernels.kernel_wanted`` (the scoped
         low/high build has no kernel).
+      lanes: the graph, ``parent`` and ``tn`` are a disjoint union of T
+        equal lanes of vertices (see ``core.compress``; ``tn`` numbers each
+        lane as its own numbering plus the lane's offset). The tables
+        build a lane's ⌈log2 L⌉ levels, and ``n_bcc``, ``aux_rounds`` and
+        ``seg_syncs`` come back as int32[T], each lane's own.
 
     Returns:
       dict with articulation, bridge, edge_bcc, rep (int32[n] aux label per
@@ -150,16 +159,22 @@ def bcc_from_tour(graph: Graph, parent: torch.Tensor, tn: TourNumbering, *,
     a_high = torch.zeros_like(pre)
     a_high[pre64] = loc_high
     if scope is None:
+        levels = _table_levels(n if lanes is None else n // lanes)
         low = segment_reduce(a_low, pre, tn.last, "min",
-                             use_kernel=use_kernel)
+                             use_kernel=use_kernel, levels=levels)
         high = segment_reduce(a_high, pre, tn.last, "max",
-                              use_kernel=use_kernel)
-        seg_syncs = 2 * _table_levels(n)
+                              use_kernel=use_kernel, levels=levels)
+        seg_syncs = 2 * levels
+        if lanes is not None:
+            seg_syncs = torch.full((lanes,), seg_syncs, dtype=torch.int32,
+                                   device=dev)
     else:
         low, s_lo = segment_reduce_scoped(a_low, pre, tn.last, in_scope,
-                                          "min", return_syncs=True)
+                                          "min", return_syncs=True,
+                                          lanes=lanes)
         high, s_hi = segment_reduce_scoped(a_high, pre, tn.last, in_scope,
-                                           "max", return_syncs=True)
+                                           "max", return_syncs=True,
+                                           lanes=lanes)
         seg_syncs = s_lo + s_hi
 
     # Aux edges. R1: unrelated non-tree edges, once per undirected edge
@@ -182,7 +197,8 @@ def bcc_from_tour(graph: Graph, parent: torch.Tensor, tn: TourNumbering, *,
                          torch.where(r2, par, last_v),
                          torch.where(r3, par, last_v)])
     rep, _forest, aux_rounds = connected_components(
-        Graph(n_nodes=n, src=aux_src, dst=aux_dst), use_kernel=use_kernel)
+        Graph(n_nodes=n, src=aux_src, dst=aux_dst), use_kernel=use_kernel,
+        lanes=lanes)
 
     # Every edge belongs to the block of the tree edge above its deeper
     # (larger-preorder) endpoint.
@@ -197,7 +213,9 @@ def bcc_from_tour(graph: Graph, parent: torch.Tensor, tn: TourNumbering, *,
 
     # One block per aux component that holds a tree edge; pure-min hooking
     # makes its representative its smallest (non-root) member.
-    n_bcc = int(torch.sum(nonroot & (rep == verts)))
+    block = nonroot & (rep == verts)
+    n_bcc = (int(torch.sum(block)) if lanes is None
+             else block.view(lanes, -1).sum(1, dtype=torch.int32))
 
     return dict(articulation=articulation, bridge=bridge, edge_bcc=edge_bcc,
                 rep=rep, n_bcc=n_bcc, low=low, high=high,
@@ -228,7 +246,8 @@ def _articulation(par: torch.Tensor, rep: torch.Tensor) -> torch.Tensor:
 
 
 def bcc_from_parent(graph: Graph, parent: torch.Tensor, *,
-                    use_kernel: bool | None = None) -> dict:
+                    use_kernel: bool | None = None,
+                    lanes: int | None = None) -> dict:
     """Tarjan–Vishkin biconnectivity from an already-built parent array.
 
     Numbers the tour, then runs ``bcc_from_tour``. Vertices the parent
@@ -236,11 +255,14 @@ def bcc_from_parent(graph: Graph, parent: torch.Tensor, *,
     edges carry label −1, are never bridges, and they are never
     articulation points.
 
+    ``lanes``: see ``bcc_from_tour``.
+
     Returns:
       dict with the ``BCCResult`` fields except ``rst_steps`` and ``method``.
     """
-    tn = tour_numbering(parent, use_kernel=use_kernel)
-    out = bcc_from_tour(graph, parent, tn, use_kernel=use_kernel)
+    tn = tour_numbering(parent, use_kernel=use_kernel, lanes=lanes)
+    out = bcc_from_tour(graph, parent, tn, use_kernel=use_kernel,
+                        lanes=lanes)
     out.pop("rep")
     return dict(pre=tn.pre, size=tn.size, **out)
 
@@ -276,10 +298,17 @@ def bcc_batch(src: torch.Tensor, dst: torch.Tensor, roots: torch.Tensor, *,
               n_nodes: int, rst_flavor: str = "gconn_euler",
               use_kernel: bool | None = None,
               device: str | torch.device | None = None) -> BCCResult:
-    """Biconnectivity of many same-shape graphs, one after another.
+    """Biconnectivity of many same-shape graphs in one union program.
 
-    The reference vmaps ``biconnectivity``; here a host loop runs it per
-    graph and stacks the fields, which gives the vmap lanes' values.
+    The reference vmaps ``biconnectivity``. Here the B graphs are one
+    disjoint union of B·n vertices (graph b's vertex v is b·n + v) run
+    once through the flavor's RST and the Tarjan–Vishkin core with
+    ``lanes=B``: a converged graph is a fixed point of every loop, so each
+    lane's values and counts are those of a call of its own, at the host
+    reads of the slowest graph. The union's half-edges are every graph's
+    first halves, then every graph's second halves, so that within a lane
+    the canonical half (``e < M``) and the edge order GConn's forest
+    selection reads are the graph's own.
 
     Args:
       src, dst: int32[B, 2M] stacked half-edge lists, ids in [0, n_nodes).
@@ -290,23 +319,49 @@ def bcc_batch(src: torch.Tensor, dst: torch.Tensor, roots: torch.Tensor, *,
       BCCResult whose tensors carry a leading batch axis; ``n_bcc``,
       ``rst_steps``, ``aux_rounds`` and ``seg_syncs`` are int32[B].
     """
+    if rst_flavor not in METHODS:
+        raise ValueError(
+            f"unknown rst_flavor {rst_flavor!r}; choose from {METHODS}")
     dev = resolve_device(device)
     src, dst = src.to(dev), dst.to(dev)
     if src.numel() and bool((torch.minimum(src.min(), dst.min()) < 0)
                             | (torch.maximum(src.max(), dst.max())
                                >= n_nodes)):
         raise ValueError(f"bcc_batch: vertex ids outside [0, {n_nodes})")
-    outs = [biconnectivity(Graph(n_nodes, src[i], dst[i]), int(roots[i]),
-                           rst_flavor=rst_flavor, use_kernel=use_kernel,
-                           device=dev)
-            for i in range(src.shape[0])]
-    fields = {}
-    for f in dataclasses.fields(BCCResult):
-        if f.name == "method":
-            continue
-        vals = [getattr(o, f.name) for o in outs]
-        fields[f.name] = (torch.stack(vals) if isinstance(vals[0],
-                                                          torch.Tensor)
-                          else torch.tensor(vals, dtype=torch.int32,
-                                            device=dev))
-    return BCCResult(method=rst_flavor, **fields)
+    b, m2 = src.shape
+    m = m2 // 2
+    n = n_nodes
+    off = (torch.arange(b, dtype=torch.int32, device=dev) * n)[:, None]
+
+    def union_halves(x: torch.Tensor) -> torch.Tensor:
+        x = (x + off).to(torch.int32)
+        return torch.cat([x[:, :m].reshape(-1), x[:, m:].reshape(-1)])
+
+    def lane_halves(x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([x[:b * m].view(b, m), x[b * m:].view(b, m)], 1)
+
+    graph = Graph(n_nodes=b * n, src=union_halves(src), dst=union_halves(dst))
+    roots_u = roots.to(dev, torch.int32) + off[:, 0]
+    if rst_flavor == "bfs":
+        parent, _dist, steps = bfs_rst(graph, roots_u, use_kernel=use_kernel,
+                                       lanes=b)
+    elif rst_flavor == "pr_rst":
+        parent, steps = pr_rst(graph, roots_u, use_kernel=use_kernel,
+                               lanes=b)
+    else:
+        res = gconn_euler_rst(graph, roots_u, use_kernel=use_kernel, lanes=b)
+        parent, steps = res.parent, res.steps
+    out = bcc_from_parent(graph, parent, use_kernel=use_kernel, lanes=b)
+
+    def local(x: torch.Tensor) -> torch.Tensor:
+        return x.view(b, n) - off
+
+    edge_bcc = lane_halves(out["edge_bcc"])
+    return BCCResult(
+        articulation=out["articulation"].view(b, n),
+        bridge=lane_halves(out["bridge"]),
+        edge_bcc=torch.where(edge_bcc >= 0, edge_bcc - off, edge_bcc),
+        n_bcc=out["n_bcc"], pre=local(out["pre"]), size=out["size"].view(b, n),
+        low=local(out["low"]), high=local(out["high"]), rst_steps=steps,
+        aux_rounds=out["aux_rounds"], seg_syncs=out["seg_syncs"],
+        method=rst_flavor)

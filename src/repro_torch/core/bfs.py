@@ -25,7 +25,7 @@ INF32 = torch.iinfo(torch.int32).max
 
 
 def bfs_rst(graph: Graph, root, *, max_levels: int | None = None,
-            use_kernel: bool | None = None):
+            use_kernel: bool | None = None, lanes: int | None = None):
     """Level-synchronous edge-centric BFS spanning tree.
 
     Args:
@@ -34,6 +34,12 @@ def bfs_rst(graph: Graph, root, *, max_levels: int | None = None,
       max_levels: optional bound on loop bodies (defaults to n_nodes).
       use_kernel: each level through the ``bfs_level`` kernel (see
         ``repro_torch.kernels.kernel_wanted``).
+      lanes: the graph is a disjoint union of that many equal lanes of
+        vertices (``core.bcc.bcc_batch``) and ``root`` an int32 tensor of
+        one root a lane: one search from all roots, each lane's tree its
+        own search's (the smallest proposer keeps its order in a lane),
+        and ``levels`` int32[lanes], each lane's deepest level (its own
+        loop's bodies minus one).
 
     Returns:
       parent: int32[n] parent array (-1 = unreachable, parent[root] = root).
@@ -44,12 +50,16 @@ def bfs_rst(graph: Graph, root, *, max_levels: int | None = None,
     n = graph.n_nodes
     src, dst = graph.src, graph.dst
     dev = src.device
-    root = int(root)
-
     dist = torch.full((n,), INF32, dtype=torch.int32, device=dev)
-    dist[root] = 0
     parent = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    parent[root] = root
+    if lanes is None:
+        root = int(root)
+        dist[root] = 0
+        parent[root] = root
+    else:
+        roots = root.to(dev, torch.int32)
+        dist[roots.long()] = 0
+        parent[roots.long()] = roots
 
     # What the levels share: the kernel's proposal buffer, or the plain
     # version's graph constants.
@@ -57,10 +67,14 @@ def bfs_rst(graph: Graph, root, *, max_levels: int | None = None,
         cand, consts = bfs_level_buffer(n, dev), None
     else:
         cand, consts = None, level_constants(src, dst, n)
-    bound = n if max_levels is None else max_levels
+    bound = (n if lanes is None else n // lanes) if max_levels is None \
+        else max_levels
     level, changed = 0, True
     while changed and level < bound:
         changed = bfs_level(dist, parent, cand, src, dst, level,
                             consts=consts, use_kernel=use_kernel)
         level += 1
+    if lanes is not None:
+        reached = torch.where(dist < INF32, dist, 0).view(lanes, -1)
+        return parent, dist, torch.amax(reached, 1)
     return parent, dist, level - 1

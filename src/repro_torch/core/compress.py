@@ -20,6 +20,16 @@ A "sync" is one host read of a convergence flag (``.item()`` through
 ``bool``); on CUDA it is the device round-trip the paper counts. ``syncs``
 counts loop bodies exactly as the reference does.
 
+``lanes=T`` (the convergence loops and ``segment_reduce_scoped``) runs the
+call over a disjoint union of T equal lanes, lane t holding entries
+``[t·L, (t+1)·L)`` and never pointing outside them (the fleet's and
+``bcc_batch``'s layout). A converged lane is a fixed point of every step,
+so the loop runs until the slowest lane converges, with the same host
+reads as one call, and each lane's values are those of a call of its own.
+``syncs`` then comes back as int32[T]: each lane's own count, as the
+reference's vmapped ``while_loop`` keeps it, accumulated on the device
+from per-lane flags (row reductions over the [T, L] view).
+
 ``use_kernel`` (``None`` | ``True`` | ``False``) follows
 ``repro_torch.kernels.kernel_wanted``: ``jump_k`` runs the pointer_jump
 kernel, ``wyllie_rank`` the list_rank kernel and ``segment_reduce`` the
@@ -51,9 +61,14 @@ def jump_k(p: torch.Tensor, n_jumps: int = DEFAULT_JUMPS, *,
     return pointer_jump_double_k(p, n_jumps=n_jumps, use_kernel=use_kernel)
 
 
+def _lane_any(x: torch.Tensor, lanes: int) -> torch.Tensor:
+    """bool[lanes]: any True in each lane of the union mask ``x``."""
+    return x.view(lanes, -1).any(1)
+
+
 def compress_full(p: torch.Tensor, *, n_jumps: int = DEFAULT_JUMPS,
                   use_kernel: bool | None = None, return_syncs: bool = False,
-                  max_syncs: int | None = None):
+                  max_syncs: int | None = None, lanes: int | None = None):
     """Fully compress ``p`` (every entry ends on its chain's fixed point).
 
     Args:
@@ -64,18 +79,28 @@ def compress_full(p: torch.Tensor, *, n_jumps: int = DEFAULT_JUMPS,
       use_kernel: see the module docstring.
       return_syncs: also return the number of convergence checks (int).
       max_syncs: optional bound on convergence checks.
+      lanes: see the module docstring (syncs int32[lanes]).
 
     Returns:
       compressed table, or ``(compressed, syncs)`` if ``return_syncs``.
     """
     q, changed, syncs = p, True, 0
+    # A lane counts the first check, then one more for every group that
+    # still changed it.
+    lane_syncs = (torch.ones(lanes, dtype=torch.int32, device=p.device)
+                  if lanes is not None and return_syncs else None)
     while changed and (max_syncs is None or syncs < max_syncs):
         # The group's flag, any(q2 != q), comes with the table (fused into
         # the kernel's last step on the card): one host read per group.
-        q, flag = pointer_jump_double_k(q, n_jumps=n_jumps,
-                                        use_kernel=use_kernel,
-                                        return_changed=True)
+        q2, flag = pointer_jump_double_k(q, n_jumps=n_jumps,
+                                         use_kernel=use_kernel,
+                                         return_changed=True)
+        if lane_syncs is not None:
+            lane_syncs += _lane_any(q2 != q, lanes)
+        q = q2
         changed, syncs = bool(flag), syncs + 1
+    if lane_syncs is not None:
+        syncs = lane_syncs
     return (q, syncs) if return_syncs else q
 
 
@@ -101,22 +126,34 @@ _COMBINE = {"add": torch.add, "min": minimum, "max": maximum}
 
 def reduce_to_root(parent: torch.Tensor, payload: torch.Tensor,
                    op: str = "add", *, n_jumps: int = DEFAULT_JUMPS,
-                   return_syncs: bool = False):
+                   return_syncs: bool = False, lanes: int | None = None):
     """Pointer doubling with a payload combine along every v→root path.
 
     Returns ``(red, root)``: red[v] = ``op`` over the payload of every vertex
     from v to its root (both inclusive), root[v] = the chain's fixed point;
     plus ``syncs`` if requested. For ``op="add"`` the payload at roots must
-    be 0. ``parent`` must be an acyclic self-rooted forest.
+    be 0. ``parent`` must be an acyclic self-rooted forest. ``lanes``: see
+    the module docstring (a converged lane's steps fold its roots' 0).
     """
     combine = _COMBINE[op]
     red, hop, changed, syncs = payload, parent, True, 0
+    if lanes is not None:
+        lane_open = torch.ones(lanes, dtype=torch.bool, device=parent.device)
+        lane_syncs = torch.zeros(lanes, dtype=torch.int32,
+                                 device=parent.device)
     while changed:
         for _ in range(n_jumps):
             red = combine(red, red[hop])
             hop = hop[hop]
-        changed = bool(torch.any(hop != hop[hop]))
+        if lanes is None:
+            changed = bool(torch.any(hop != hop[hop]))
+        else:
+            lane_syncs += lane_open
+            lane_open = _lane_any(hop != hop[hop], lanes)
+            changed = bool(lane_open.any())
         syncs += 1
+    if lanes is not None:
+        syncs = lane_syncs
     # The loop may stop with red[v] covering [v, root) only; one more fold
     # of red[hop] (= payload[root] at the fixed point) closes the interval.
     red = combine(red, red[hop])
@@ -124,24 +161,25 @@ def reduce_to_root(parent: torch.Tensor, payload: torch.Tensor,
 
 
 def rank_to_root(parent: torch.Tensor, *, n_jumps: int = DEFAULT_JUMPS,
-                 return_syncs: bool = False):
+                 return_syncs: bool = False, lanes: int | None = None):
     """``(depth, root)`` per vertex of a self-rooted acyclic parent table."""
     verts = torch.arange(parent.numel(), dtype=parent.dtype,
                          device=parent.device)
     depth0 = (parent != verts).to(torch.int32)
     return reduce_to_root(parent, depth0, "add", n_jumps=n_jumps,
-                          return_syncs=return_syncs)
+                          return_syncs=return_syncs, lanes=lanes)
 
 
 def wyllie_rank(succ: torch.Tensor, valid: torch.Tensor, *,
                 n_jumps: int = DEFAULT_JUMPS, use_kernel: bool | None = None,
-                return_syncs: bool = False):
+                return_syncs: bool = False, lanes: int | None = None):
     """Wyllie list ranking: d[e] = number of list elements after e.
 
     Args:
       succ: int32[n] successor table; −1 ends a list. Disjoint lists rank
         independently.
       valid: bool[n] slot validity (invalid slots rank 0).
+      lanes: see the module docstring (syncs int32[lanes]).
 
     The convergence flag is read before the first group, as in both paths
     of the reference, so ``syncs`` counts groups of ``n_jumps`` steps.
@@ -154,12 +192,23 @@ def wyllie_rank(succ: torch.Tensor, valid: torch.Tensor, *,
     # The first check reads the input; each later one the group's flag,
     # any(s != -1), which comes with the tables (fused into the kernel's
     # last step on the card).
-    still_open = bool(torch.any(s != NO_SUCC))
+    if lanes is None:
+        still_open = bool(torch.any(s != NO_SUCC))
+    else:
+        # A lane counts the groups that start with a list of it open.
+        lane_open = _lane_any(s != NO_SUCC, lanes)
+        lane_syncs = torch.zeros(lanes, dtype=torch.int32, device=s.device)
+        still_open = bool(lane_open.any())
     while still_open:
         s, d, flag = list_rank_double_k(s, d, n_steps=n_jumps,
                                         use_kernel=use_kernel,
                                         return_open=True)
+        if lanes is not None:
+            lane_syncs += lane_open
+            lane_open = _lane_any(s != NO_SUCC, lanes)
         still_open, syncs = bool(flag), syncs + 1
+    if lanes is not None:
+        syncs = lane_syncs
     return (d, syncs) if return_syncs else d
 
 
@@ -174,8 +223,8 @@ def _check_idempotent(op: str) -> None:
 
 
 def segment_reduce(values: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
-                   op: str = "min", *,
-                   use_kernel: bool | None = None) -> torch.Tensor:
+                   op: str = "min", *, use_kernel: bool | None = None,
+                   levels: int | None = None) -> torch.Tensor:
     """Idempotent range reduction: out[q] = op over values[lo[q] .. hi[q]].
 
     Level k of the doubling (sparse) table holds op over
@@ -190,12 +239,15 @@ def segment_reduce(values: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
       lo, hi: int32[q] inclusive bounds, ``0 <= lo <= hi < n``.
       op: "min" or "max"; any other op raises.
       use_kernel: see the module docstring.
+      levels: table levels, ⌈log2 n⌉ by default; a disjoint union of
+        lanes of L values passes ⌈log2 L⌉, since no query spans lanes.
 
     Returns:
       [q] reductions, of the dtype of ``values``.
     """
     _check_idempotent(op)
-    levels = _table_levels(values.numel())
+    if levels is None:
+        levels = _table_levels(values.numel())
     table = segment_table(values, levels=levels, op=op,
                           use_kernel=use_kernel)
     return _fold_queries(table, lo, hi, levels, _COMBINE[op])
@@ -228,7 +280,8 @@ def _fold_queries(table: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
 
 def segment_reduce_scoped(values: torch.Tensor, lo: torch.Tensor,
                           hi: torch.Tensor, active: torch.Tensor,
-                          op: str = "min", *, return_syncs: bool = False):
+                          op: str = "min", *, return_syncs: bool = False,
+                          lanes: int | None = None):
     """``segment_reduce`` for the ``active`` queries only.
 
     One host read of the longest active query, then only the levels that
@@ -242,16 +295,33 @@ def segment_reduce_scoped(values: torch.Tensor, lo: torch.Tensor,
       active: bool[q]; inactive queries return a defined but arbitrary
         value (a fold over the levels built).
       return_syncs: also return ``built`` (int).
+      lanes: T lanes of L values and L queries each (see the module
+        docstring): one host read of the T longest active queries, levels
+        capped at ⌈log2 L⌉, the table built to the largest lane's count,
+        and ``built`` int32[T], each lane's own. Only inactive queries,
+        which are arbitrary, see the other lanes' extra levels.
 
     Returns:
       [q] reductions (exact where ``active``), or ``(out, built)``.
     """
     _check_idempotent(op)
-    levels = _table_levels(values.numel())
-    max_len = 1
-    if lo.numel():
-        max_len = int(torch.max(torch.where(active, hi - lo + 1, 1)))
-    built = min((max_len - 1).bit_length(), levels) if max_len > 1 else 0
+
+    def levels_for(max_len: int) -> int:
+        return min((max_len - 1).bit_length(), levels) if max_len > 1 else 0
+
+    lens = torch.where(active, hi - lo + 1, 1)
+    if lanes is not None:
+        levels = _table_levels(values.numel() // lanes)
+        lane_built = [levels_for(m) for m in
+                      torch.amax(lens.view(lanes, -1), 1).tolist()]
+        built = max(lane_built)
+    else:
+        levels = _table_levels(values.numel())
+        max_len = int(torch.max(lens)) if lo.numel() else 1
+        built = levels_for(max_len)
     table = segment_table_ref(values, levels=built, op=op)
     out = _fold_queries(table, lo, hi, levels, _COMBINE[op])
+    if lanes is not None:
+        built = torch.tensor(lane_built, dtype=torch.int32,
+                             device=values.device)
     return (out, built) if return_syncs else out

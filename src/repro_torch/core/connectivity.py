@@ -38,12 +38,18 @@ def pointer_jump_full(p: torch.Tensor, *,
 def connected_components(graph: Graph, *, max_rounds: int | None = None,
                          use_kernel: bool | None = None,
                          alternate_hooking: bool = False,
-                         return_syncs: bool = False):
+                         return_syncs: bool = False,
+                         lanes: int | None = None):
     """Connectivity + spanning forest via alternating hook / compress rounds.
 
     Inputs may carry parallel edges and self-loops; at most one half-edge
     per undirected edge is marked and self-loops never are. A ``padded``
     graph's ids outside [0, n) are clamped into it first (``Graph.clamped``).
+
+    ``lanes=T`` runs a disjoint union of T equal lanes of vertices (see
+    ``core.compress``): a lane that hooks nothing is a fixed point, and
+    ``rounds`` comes back as int32[T], each lane's own count (the rounds
+    while the lane still hooked, minus one), from per-lane flags.
 
     Returns:
       rep:         int32[n] component representative per vertex (a root id).
@@ -78,6 +84,9 @@ def connected_components(graph: Graph, *, max_rounds: int | None = None,
     forest = torch.zeros(m2, dtype=torch.bool, device=dev)
     bound = n if max_rounds is None else max_rounds
     rnd, changed, syncs = 0, True, 0
+    if lanes is not None:
+        lane_open = torch.ones(lanes, dtype=torch.bool, device=dev)
+        lane_rounds = torch.full((lanes,), -1, dtype=torch.int32, device=dev)
     while changed and rnd < bound:
         use_min = (rnd % 2 == 0) if alternate_hooking else True
         tgt, val = hook_edges(src, dst, p, use_min, n_nodes=n,
@@ -103,11 +112,17 @@ def connected_components(graph: Graph, *, max_rounds: int | None = None,
 
         p, s = compress_full(p_next, use_kernel=use_kernel, return_syncs=True)
         syncs += s
-        changed = bool(torch.any(got_hook))
+        if lanes is None:
+            changed = bool(torch.any(got_hook))
+        else:
+            lane_rounds += lane_open
+            lane_open = lane_open & got_hook.view(lanes, -1).any(1)
+            changed = bool(lane_open.any())
         rnd += 1
+    rounds = rnd - 1 if lanes is None else lane_rounds
     if return_syncs:
-        return p, forest, rnd - 1, syncs
-    return p, forest, rnd - 1
+        return p, forest, rounds, syncs
+    return p, forest, rounds
 
 
 def count_components(rep: torch.Tensor) -> int:

@@ -176,7 +176,7 @@ def _int32(a, device: torch.device) -> torch.Tensor:
 
 
 def tour_numbering(parent: torch.Tensor, *, use_kernel: bool | None = None,
-                   return_syncs: bool = False):
+                   return_syncs: bool = False, lanes: int | None = None):
     """First/last-visit numbering of a rooted forest's Euler tour.
 
     Ranks the 2n directed tree-edge slots once (slot v is the closing edge
@@ -187,6 +187,9 @@ def tour_numbering(parent: torch.Tensor, *, use_kernel: bool | None = None,
       parent: int32[n]; roots self-point, negative entries are singletons.
       use_kernel: both the root compression and the list ranking.
       return_syncs: also return root-compression + list-ranking checks.
+      lanes: T equal lanes of a disjoint union (see ``core.compress``):
+        the numbering sorts by component first, so lane t's numbering is
+        its own plus t·L, and ``syncs`` is int32[T], each lane's own.
 
     Returns:
       TourNumbering, or ``(numbering, syncs)``.
@@ -196,13 +199,20 @@ def tour_numbering(parent: torch.Tensor, *, use_kernel: bool | None = None,
     verts = torch.arange(n, dtype=torch.int32, device=dev)
     par = torch.where(parent < 0, verts, parent.to(torch.int32))
     nonroot = par != verts
-    comp, root_syncs = roots_of(par, use_kernel=use_kernel, return_syncs=True)
+    comp, root_syncs = roots_of(par, use_kernel=use_kernel, return_syncs=True,
+                                lanes=lanes)
 
     fu = torch.where(nonroot, verts, n)
     fv = torch.where(nonroot, par, n)
     succ, dvalid = _tour_successors(n, fu, fv, nonroot, comp)
     d, rank_syncs = wyllie_rank(succ, dvalid, use_kernel=use_kernel,
-                                return_syncs=True)
+                                return_syncs=True,
+                                lanes=None if lanes is None else 2 * lanes)
+    if lanes is not None:
+        # The 2n slots are the n closing edges, then the n discovery ones:
+        # each lane's count is the larger of its two halves' counts, since
+        # a lane's open lists open both.
+        rank_syncs = torch.maximum(rank_syncs[:lanes], rank_syncs[lanes:])
     d_up, d_down = d[:n], d[n:]
 
     # Dense preorder: sort by (component, discovery position); earlier

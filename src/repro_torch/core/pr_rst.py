@@ -50,7 +50,8 @@ def _pr_rst_round(p, rt, rnd: int, src, dst, *, levels: int,
 
 def pr_rst(graph: Graph, root, *, max_rounds: int | None = None,
            alternate_hooking: bool = False, use_kernel: bool | None = None,
-           n_jumps: int = DEFAULT_JUMPS, return_syncs: bool = False):
+           n_jumps: int = DEFAULT_JUMPS, return_syncs: bool = False,
+           lanes: int | None = None):
     """PR-RST: a rooted spanning tree in O(log² n) parallel depth.
 
     Returns:
@@ -61,31 +62,49 @@ def pr_rst(graph: Graph, root, *, max_rounds: int | None = None,
       syncs:  with ``return_syncs``, the convergence checks of every
               round's overlay compression, summed (the pointer_jump kernel
               launches once per check).
+
+    With ``lanes`` the graph is a disjoint union of that many equal lanes
+    of vertices (``core.bcc.bcc_batch``), ``root`` an int32 tensor of one
+    root a lane, and ``rounds`` int32[lanes]: a lane's round hooked iff
+    its parents changed (a graft always changes the start's parent).
     """
     n = graph.n_nodes
     src, dst = graph.src, graph.dst
     dev = src.device
-    levels = max(1, (n - 1).bit_length())
-    root = int(root)
+    n_lane = n if lanes is None else n // lanes
+    levels = max(1, (n_lane - 1).bit_length())
 
     p = torch.arange(n, dtype=torch.int32, device=dev)
     rt = p
-    bound = n if max_rounds is None else max_rounds
+    bound = n_lane if max_rounds is None else max_rounds
     rnd, changed, syncs = 0, True, 0
+    if lanes is not None:
+        lane_open = torch.ones(lanes, dtype=torch.bool, device=dev)
+        lane_rounds = torch.full((lanes,), -1, dtype=torch.int32, device=dev)
     while changed and rnd < bound:
+        p_prev = p
         p, rt, hooked, s = _pr_rst_round(
             p, rt, rnd, src, dst, levels=levels,
             alternate_hooking=alternate_hooking, n_jumps=n_jumps,
             use_kernel=use_kernel)
         syncs += s
-        changed = bool(hooked)
+        if lanes is None:
+            changed = bool(hooked)
+        else:
+            lane_rounds += lane_open
+            lane_open = lane_open & (p != p_prev).view(lanes, -1).any(1)
+            changed = bool(lane_open.any())
         rnd += 1
 
     # Final re-root at the designated root: one more path reversal. The
     # reference passes n slots with only slot 0 active; one slot gives the
-    # same tree.
-    start = torch.full((1,), root, dtype=torch.int32, device=dev)
-    active = torch.ones((1,), dtype=torch.bool, device=dev)
+    # same tree. A union re-roots every lane's tree at once.
+    if lanes is None:
+        start = torch.full((1,), int(root), dtype=torch.int32, device=dev)
+    else:
+        start = root.to(dev, torch.int32)
+    active = torch.ones(start.shape, dtype=torch.bool, device=dev)
     mark, prednode = mark_paths(p, start, active, levels)
     p = reverse_and_graft(p, mark, prednode, start, start, active)
-    return (p, rnd - 1, syncs) if return_syncs else (p, rnd - 1)
+    rounds = rnd - 1 if lanes is None else lane_rounds
+    return (p, rounds, syncs) if return_syncs else (p, rounds)

@@ -77,6 +77,31 @@ class QueryTables:
         return self.up.shape[0] - 1
 
 
+def _build_tables(tn: TourNumbering, *, n_jumps: int = DEFAULT_JUMPS,
+                  levels: int | None = None,
+                  lanes: int | None = None) -> QueryTables:
+    """The table build, recording nothing (``build_tables`` records it).
+
+    ``levels`` defaults to ⌈log2 n⌉. A disjoint union of ``lanes`` equal
+    lanes (the fleet's, see ``core.compress``) passes its lanes' own
+    ⌈log2 L⌉, and ``build_syncs`` comes back as int32[lanes], each lane's
+    ``rank_to_root`` checks plus ``levels``.
+    """
+    par = tn.parent
+    n = par.numel()
+    depth, _root, syncs = rank_to_root(par, n_jumps=n_jumps,
+                                       return_syncs=True, lanes=lanes)
+    if levels is None:
+        levels = _table_levels(n)
+    up = par.new_empty((levels + 1, n))
+    up[0] = par
+    for k in range(levels):
+        up[k + 1] = up[k][up[k].long()]
+    return QueryTables(pre=tn.pre, last=tn.last, comp=tn.comp,
+                       parent=par, depth=depth, up=up,
+                       build_syncs=syncs + levels)
+
+
 def build_tables(tn: TourNumbering, *,
                  n_jumps: int = DEFAULT_JUMPS) -> QueryTables:
     """Build the query index from a tour numbering.
@@ -86,18 +111,7 @@ def build_tables(tn: TourNumbering, *,
     to the ambient ``obs`` ledger (phase ``build_tables``), lazily: with no
     ledger installed nothing is evaluated.
     """
-    par = tn.parent
-    n = par.numel()
-    depth, _root, syncs = rank_to_root(par, n_jumps=n_jumps,
-                                       return_syncs=True)
-    levels = _table_levels(n)
-    up = par.new_empty((levels + 1, n))
-    up[0] = par
-    for k in range(levels):
-        up[k + 1] = up[k][up[k].long()]
-    tables = QueryTables(pre=tn.pre, last=tn.last, comp=tn.comp,
-                         parent=par, depth=depth, up=up,
-                         build_syncs=syncs + levels)
+    tables = _build_tables(tn, n_jumps=n_jumps)
     obs.record("build_tables", lambda: tables.build_syncs)
     return tables
 

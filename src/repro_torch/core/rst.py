@@ -55,21 +55,31 @@ def forest_edges(graph: Graph, forest_mask: torch.Tensor):
     return fu, fv, slots < m2
 
 
-def gconn_euler_rst(graph: Graph, root, *,
-                    use_kernel: bool | None = None) -> RSTResult:
+def gconn_euler_rst(graph: Graph, root, *, use_kernel: bool | None = None,
+                    lanes: int | None = None) -> RSTResult:
     """The paper's winning pipeline: connectivity → forest → Euler rooting.
 
     ``use_kernel`` reaches all three kernels: hooking, GConn's shortcutting
-    (pointer_jump) and the Euler list ranking (list_rank).
+    (pointer_jump) and the Euler list ranking (list_rank). With ``lanes``
+    the graph is a disjoint union of that many equal lanes of vertices
+    (``core.bcc.bcc_batch``), ``root`` an int32 tensor of one root a lane,
+    and ``steps`` int32[lanes]; a tree and its root fix the rooted parents,
+    so each lane's parents are its own call's.
     """
     n = graph.n_nodes
     rep, forest_mask, rounds, compress_syncs = connected_components(
-        graph, use_kernel=use_kernel, return_syncs=True)
+        graph, use_kernel=use_kernel, return_syncs=True, lanes=lanes)
     fu, fv, valid = forest_edges(graph, forest_mask)
 
     # The component holding ``root`` is rooted at ``root``; others at
     # their representative.
-    comp_root = torch.where(rep == rep[root], int(root), rep)
+    if lanes is None:
+        comp_root = torch.where(rep == rep[root], int(root), rep)
+    else:
+        lane_rep = rep.view(lanes, -1)
+        root = root.to(rep.dtype)
+        comp_root = torch.where(lane_rep == rep[root.long()][:, None],
+                                root[:, None], lane_rep).view(-1)
 
     parent, rank_syncs = euler_tour_root(n, fu, fv, valid, comp_root,
                                          use_kernel=use_kernel,

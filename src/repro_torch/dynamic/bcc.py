@@ -64,6 +64,10 @@ class DynamicBCC:
       seg_syncs:    int, low/high doubling levels of the last refresh.
       dirty_count:  int, vertices recomputed by the last refresh (n for a
                     full recompute).
+
+    The fleet's stacked ``DynamicBCC`` (``dynamic.fleet.refresh_bccs``)
+    carries a leading tenant axis on every tensor and its four counts as
+    int32[T] tensors.
     """
 
     n_nodes: int
@@ -95,7 +99,18 @@ class DynamicBCC:
 
 
 def _snapshot(state: DynamicForest, tn: TourNumbering, out: dict,
-              dirty_count: int) -> DynamicBCC:
+              dirty_count, lanes: int | None = None) -> DynamicBCC:
+    if lanes is not None:
+        # A union's counts stay int32[T] tensors on the device.
+        return DynamicBCC(
+            n_nodes=state.n_nodes, parent=state.parent,
+            pool_src=state.pool_src, pool_dst=state.pool_dst,
+            pool_valid=state.pool_valid, tree_mask=state.tree_mask,
+            pre=tn.pre, rep=out["rep"], low=out["low"], high=out["high"],
+            articulation=out["articulation"], bridge=out["bridge"],
+            edge_bcc=out["edge_bcc"], n_bcc=out["n_bcc"],
+            aux_rounds=out["aux_rounds"], seg_syncs=out["seg_syncs"],
+            dirty_count=dirty_count)
     return DynamicBCC(
         n_nodes=state.n_nodes, parent=state.parent,
         pool_src=state.pool_src, pool_dst=state.pool_dst,
@@ -113,16 +128,26 @@ def _pool_tree_mask(state: DynamicForest) -> torch.Tensor:
 
 
 def _refresh_full(state: DynamicForest, tn: TourNumbering, *,
-                  use_kernel: bool | None = None) -> DynamicBCC:
+                  use_kernel: bool | None = None,
+                  lanes: int | None = None) -> DynamicBCC:
+    """The full recompute. ``lanes``: ``state`` and ``tn`` are a disjoint
+    union of that many tenants (``dynamic.fleet``); the counts come back
+    int32[lanes], each lane's own."""
     out = bcc_from_tour(live_graph(state), state.parent, tn,
                         tree_mask=_pool_tree_mask(state),
-                        use_kernel=use_kernel)
-    return _snapshot(state, tn, out, state.n_nodes)
+                        use_kernel=use_kernel, lanes=lanes)
+    dirty_count = state.n_nodes
+    if lanes is not None:
+        dirty_count = torch.full((lanes,), state.n_nodes // lanes,
+                                 dtype=torch.int32, device=state.device)
+    return _snapshot(state, tn, out, dirty_count, lanes)
 
 
 def _refresh_incremental(state: DynamicForest, tn: TourNumbering,
                          cached: DynamicBCC, *,
-                         use_kernel: bool | None = None) -> DynamicBCC:
+                         use_kernel: bool | None = None,
+                         lanes: int | None = None) -> DynamicBCC:
+    """The dirty-scoped refresh; ``lanes`` as in ``_refresh_full``."""
     n = state.n_nodes
     verts = torch.arange(n, dtype=torch.int32, device=state.device)
 
@@ -141,12 +166,13 @@ def _refresh_incremental(state: DynamicForest, tn: TourNumbering,
     # changed vertex in every affected new component.
     comp_changed = _mark(n, state.rep, changed)
     dirty = comp_changed[state.rep.long()]
-    dirty_count = torch.sum(dirty, dtype=torch.int32)
+    dirty_count = (torch.sum(dirty, dtype=torch.int32) if lanes is None
+                   else dirty.view(lanes, -1).sum(1, dtype=torch.int32))
 
     # ---- scoped recompute + merge with the cache --------------------------
     out = bcc_from_tour(live_graph(state), state.parent, tn,
                         tree_mask=_pool_tree_mask(state), scope=dirty,
-                        use_kernel=use_kernel)
+                        use_kernel=use_kernel, lanes=lanes)
 
     # Per-vertex merges; clean low/high re-base by δ = pre_new − pre_cached.
     delta = tn.pre - cached.pre
@@ -168,12 +194,14 @@ def _refresh_incremental(state: DynamicForest, tn: TourNumbering,
     # The global count from the merged labels (the scoped run's own count
     # treats every clean vertex as a singleton block).
     nonroot = tn.parent != verts
-    n_bcc = torch.sum(nonroot & (rep == verts), dtype=torch.int32)
+    block = nonroot & (rep == verts)
+    n_bcc = (torch.sum(block, dtype=torch.int32) if lanes is None
+             else block.view(lanes, -1).sum(1, dtype=torch.int32))
 
     out = dict(rep=rep, low=low, high=high, articulation=articulation,
                bridge=bridge, edge_bcc=edge_bcc, n_bcc=n_bcc,
                aux_rounds=out["aux_rounds"], seg_syncs=out["seg_syncs"])
-    return _snapshot(state, tn, out, dirty_count)
+    return _snapshot(state, tn, out, dirty_count, lanes)
 
 
 def refresh_bcc(state: DynamicForest, cached: DynamicBCC | None = None, *,

@@ -287,10 +287,45 @@ def edge_slots(state: DynamicForest, del_u: torch.Tensor,
     return _mark(cap, claim, matched), matched
 
 
+def _count(mask: torch.Tensor, lanes: int | None) -> torch.Tensor:
+    """0-d int32 count of ``mask``, or int32[lanes]: each lane's count."""
+    if lanes is None:
+        return torch.sum(mask, dtype=torch.int32)
+    return mask.view(lanes, -1).sum(1, dtype=torch.int32)
+
+
+def _insert_slots(pool_valid: torch.Tensor, ins_ok: torch.Tensor,
+                  lanes: int | None) -> torch.Tensor:
+    """int64[B]: the free pool slot each valid insertion takes, in order,
+    or ``capacity`` (pool full, or an inert insertion).
+
+    With ``lanes`` the pool and the insertions are T equal lanes
+    ([T, C] and [T, B] views), and each lane's insertions take the free
+    slots of their own lane: the free ranks and the insertions' ranks
+    are cumsums along each row.
+    """
+    b = ins_ok.numel()
+    cap = pool_valid.numel()
+    if lanes is None:
+        free = _first_true(~pool_valid, b)
+        rank = torch.cumsum(ins_ok, 0) - 1
+        return torch.where(ins_ok, free[torch.clamp(rank, 0, b - 1)], cap)
+    c, bl = cap // lanes, b // lanes
+    counts = torch.cumsum(~pool_valid.view(lanes, c), 1)
+    want = torch.arange(1, bl + 1, dtype=counts.dtype,
+                        device=counts.device).expand(lanes, bl).contiguous()
+    free = torch.searchsorted(counts, want)
+    ok = ins_ok.view(lanes, bl)
+    rank = torch.clamp(torch.cumsum(ok, 1) - 1, 0, bl - 1)
+    local = torch.where(ok, torch.gather(free, 1, rank), c)
+    lane_base = torch.arange(lanes, device=local.device)[:, None] * c
+    return torch.where(local < c, local + lane_base, cap).view(-1)
+
+
 def apply_batch(state: DynamicForest, insert_src: torch.Tensor,
                 insert_dst: torch.Tensor, delete_mask: torch.Tensor, *,
                 max_rounds: int | None = None, n_jumps: int = DEFAULT_JUMPS,
-                use_kernel: bool | None = None):
+                use_kernel: bool | None = None, lanes: int | None = None):
     """Apply one batch of edge deletions + insertions.
 
     Args:
@@ -308,17 +343,27 @@ def apply_batch(state: DynamicForest, insert_src: torch.Tensor,
       use_kernel: see ``repro_torch.kernels.kernel_wanted`` (the scoped
         compression and the link rounds' overlay compression run the
         pointer_jump kernel on the card).
+      lanes: ``state`` is a disjoint union of T equal lanes (the fleet's,
+        ``dynamic.fleet``): vertices, pool slots and insertions in T
+        contiguous blocks, no edge or event crossing lanes, the union
+        sentinel ``n_nodes`` on padding. Each lane comes out as a call of
+        its own would leave it (its own free slots, its own tenant-sized
+        tables and round bound), at one host read a link round for all.
 
     Returns:
       (state', stats): ``rounds`` (productive link rounds) is a host int;
       ``cuts`` (tree edges severed), ``links`` (components re-linked),
       ``overflow`` (insertions dropped, pool full) and ``pending`` (cross
       edges still unlinked) are 0-d int32 tensors, read by no one here.
+      With ``lanes`` every stat is int32[T], each lane's own (``rounds``
+      the rounds in which the lane had a crossing edge), and
+      ``link_rounds`` is the loop's host count of rounds (their maximum).
     """
     n = state.n_nodes
     cap = state.capacity
     dev = state.device
-    levels = max(1, (n - 1).bit_length())
+    n_lane = n if lanes is None else n // lanes
+    levels = max(1, (n_lane - 1).bit_length())
 
     p, rt = state.parent, state.rep
     pool_src, pool_dst = state.pool_src, state.pool_dst
@@ -341,7 +386,7 @@ def apply_batch(state: DynamicForest, insert_src: torch.Tensor,
     p = _put(p, torch.where(do_cut, child.long(), drop), child)
     touched = _mark(n, child, do_cut)
     touched = _mark(n, other, do_cut, touched)
-    n_cuts = torch.sum(do_cut, dtype=torch.int32)
+    n_cuts = _count(do_cut, lanes)
 
     pool_valid = pool_valid & ~del_mask
     tree_mask = tree_mask & ~del_mask
@@ -357,15 +402,14 @@ def apply_batch(state: DynamicForest, insert_src: torch.Tensor,
 
     # ---- insertions: append to free pool slots -----------------------------
     b = insert_src.numel()
-    overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    overflow = torch.zeros(() if lanes is None else (lanes,),
+                           dtype=torch.int32, device=dev)
     if b > 0:
         ins_ok = ((insert_src != insert_dst)
                   & (insert_src >= 0) & (insert_src < n)
                   & (insert_dst >= 0) & (insert_dst < n))
-        free = _first_true(~pool_valid, b)
-        rank = torch.cumsum(ins_ok, 0) - 1
-        slot = torch.where(ins_ok, free[torch.clamp(rank, 0, b - 1)], cap)
-        overflow = torch.sum(ins_ok & (slot >= cap), dtype=torch.int32)
+        slot = _insert_slots(pool_valid, ins_ok, lanes)
+        overflow = _count(ins_ok & (slot >= cap), lanes)
         sidx = torch.where(slot < cap, slot,
                            cap + torch.arange(b, device=dev))
         pool_src = _put(pool_src, sidx, insert_src)
@@ -380,14 +424,23 @@ def apply_batch(state: DynamicForest, insert_src: torch.Tensor,
     # so its one host read is of that.
     pu = torch.clamp(pool_src, 0, n - 1).long()
     pv = torch.clamp(pool_dst, 0, n - 1).long()
-    bound = n if max_rounds is None else max_rounds
+    bound = n_lane if max_rounds is None else max_rounds
     rounds = 0
-    links = torch.zeros((), dtype=torch.int32, device=dev)
+    links = torch.zeros(() if lanes is None else (lanes,),
+                        dtype=torch.int32, device=dev)
+    lane_rounds = links.clone() if lanes is not None else None
     while rounds < bound:
         ru, rv = rt[pu], rt[pv]
         cand = pool_valid & (ru != rv)
-        if not bool(torch.any(cand)):
-            break
+        if lanes is None:
+            if not bool(torch.any(cand)):
+                break
+        else:
+            # One read for the union; each lane counts its own rounds.
+            lane_open = cand.view(lanes, -1).any(1)
+            if not bool(lane_open.any()):
+                break
+            lane_rounds += lane_open
         # Union by size: the smaller component re-roots. (size, root id) is
         # a strict total order fixed for the round, so the graft overlay
         # inside link_components stays acyclic.
@@ -402,11 +455,11 @@ def apply_batch(state: DynamicForest, insert_src: torch.Tensor,
         tree_mask = tree_mask | is_winner
         touched = _mark(n, start, is_winner, touched)
         touched = _mark(n, target, is_winner, touched)
-        links = links + torch.sum(is_winner, dtype=torch.int32)
+        links = links + _count(is_winner, lanes)
         rounds += 1
 
     # Cross edges still pending: 0 unless ``max_rounds`` cut the loop.
-    pending = torch.sum(pool_valid & (rt[pu] != rt[pv]), dtype=torch.int32)
+    pending = _count(pool_valid & (rt[pu] != rt[pv]), lanes)
 
     # ---- dirty propagation: whole components holding a touched vertex ------
     comp_touched = _mark(n, rt, touched)
@@ -418,4 +471,7 @@ def apply_batch(state: DynamicForest, insert_src: torch.Tensor,
         version=state.version + 1)
     stats = {"cuts": n_cuts, "links": links, "rounds": rounds,
              "overflow": overflow, "pending": pending}
+    if lanes is not None:
+        stats["rounds"] = lane_rounds
+        stats["link_rounds"] = rounds
     return new_state, stats

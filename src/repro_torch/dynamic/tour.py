@@ -36,7 +36,11 @@ def _clear_dirty(state: DynamicForest) -> DynamicForest:
 def _merge_dirty(parent: torch.Tensor, rep: torch.Tensor,
                  dirty: torch.Tensor, cached: TourNumbering, *,
                  use_kernel: bool | None = None,
-                 return_syncs: bool = False):
+                 return_syncs: bool = False, lanes: int | None = None):
+    """The dirty-scoped numbering (steps 1–3 above). With ``lanes`` the
+    arrays are a disjoint union of that many tenants' (``dynamic.fleet``):
+    the sort is component-major, so each lane's preorder is its own plus
+    its offset, and ``syncs`` is int32[lanes]."""
     n = parent.numel()
     verts = torch.arange(n, dtype=torch.int32, device=parent.device)
 
@@ -44,7 +48,7 @@ def _merge_dirty(parent: torch.Tensor, rep: torch.Tensor,
     # whose Euler lists are empty.
     masked = torch.where(dirty, parent, verts)
     fresh, syncs = tour_numbering(masked, use_kernel=use_kernel,
-                                  return_syncs=True)
+                                  return_syncs=True, lanes=lanes)
 
     # Preorder keys, fresh where dirty and cached where clean; both are in
     # [0, n) and injective within a component, and only ever compared

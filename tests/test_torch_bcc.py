@@ -277,3 +277,37 @@ def test_unknown_flavor_raises():
                                     device="cpu")
     with pytest.raises(ValueError, match="rst_flavor"):
         biconnectivity(g, 0, rst_flavor="dfs", device="cpu")
+
+
+@pytest.mark.parametrize("flavor", METHODS)
+def test_bcc_batch_union_matches_jax_on_mixed_graphs(flavor):
+    """One union program over graphs whose counts differ lane by lane
+    (a path, a cycle with chords, a graph in three parts with a parallel
+    edge, a sparse random one): every field and per-graph count equal to
+    the reference's vmapped batch."""
+    n, m = 24, 30
+    rng = np.random.default_rng(5)
+    path = [(i, i + 1) for i in range(n - 1)]
+    cycle = [(i, (i + 1) % n) for i in range(n)] + [(0, 12), (5, 17)]
+    parts = ([(i, i + 1) for i in range(7)] + [(8, 9), (9, 10), (10, 8)]
+             + [(12, 13), (12, 13), (13, 14), (14, 20)])
+    rand = [tuple(rng.choice(n, 2, replace=False)) for _ in range(m)]
+    lists = []
+    for es in (path, cycle, parts, rand):
+        es = list(es)[:m]
+        es += [es[-1]] * (m - len(es))      # pad with parallel copies
+        lists.append(np.asarray(es, np.int32))
+    gs = [JaxGraph.from_undirected(n, jnp.asarray(e[:, 0]),
+                                   jnp.asarray(e[:, 1])) for e in lists]
+    src = np.stack([np.asarray(g.src) for g in gs])
+    dst = np.stack([np.asarray(g.dst) for g in gs])
+    roots = np.asarray([0, 7, 9, 3], np.int32)
+    want = jax_bcc.bcc_batch(jnp.asarray(src), jnp.asarray(dst),
+                             jnp.asarray(roots), n_nodes=n, rst_flavor=flavor)
+    got = bcc_batch(torch.from_numpy(src), torch.from_numpy(dst),
+                    torch.from_numpy(roots), n_nodes=n, rst_flavor=flavor,
+                    device="cpu")
+    for f in FIELDS + COUNTS:
+        np.testing.assert_array_equal(np.asarray(getattr(want, f)),
+                                      getattr(got, f).numpy(), err_msg=f)
+    assert len(set(got.rst_steps.tolist())) > 1 or flavor != "bfs"

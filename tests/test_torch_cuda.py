@@ -1272,3 +1272,139 @@ def test_resilient_loop_kill_resume_on_card(cuda, tmp_path):
     _same_heal((b2.state, b2.tn, b2.bcc), (a.state, a.tn, a.bcc))
     _same_heal((a.state, a.tn, a.bcc), (c.state, c.tn, c.bcc), on_cpu=True)
     assert a.state.parent.is_cuda and b2.state.parent.is_cuda
+
+
+def _fleet_run(g, kind, lanes, use_kernel, device, tmp=None):
+    """A ``lanes``-tenant fleet over 4 ticks with refreshes every 2 (tour
+    and BCC incremental, tables), lane by lane beside its sequential twin
+    (one ``replay_batch`` a tenant); returns both sides' per-tick records."""
+    from repro_torch import dynamic
+    from repro_torch.core.queries import build_tables as single_tables
+    from repro_torch.data import streams
+    from repro_torch.dynamic import fleet as tf
+    ss = [streams.churn(g.to("cpu"), batch=32, n_batches=4, seed=t)
+          for t in range(lanes)]
+    cap = max(dynamic.stream_capacity(s) for s in ss)
+    fleet = tf.fleet_empty(lanes, g.n_nodes, cap, device=device)
+    twins = [dynamic.init_state(s, cap, device=device,
+                                use_kernel=use_kernel) for s in ss]
+    for t, s in enumerate(twins):
+        fleet.set_tenant(t, s)
+    out = []
+    tn = bcc = None
+    tns = [None] * lanes
+    bccs = [None] * lanes
+    for i in range(4):
+        block = tuple(np.stack([getattr(s.batches[i], f) for s in ss])
+                      for f in ("ins_u", "ins_v", "del_u", "del_v"))
+        fleet, stats = tf.apply_batches(fleet, *block, use_kernel=use_kernel)
+        seq = []
+        for t, s in enumerate(ss):
+            twins[t], st = dynamic.replay_batch(twins[t], s.batches[i],
+                                                use_kernel=use_kernel)
+            seq.append(st)
+        rec = {"fleet": fleet, "stats": stats, "twins": list(twins),
+               "seq": seq}
+        if i % 2 == 1:
+            tn, fleet = tf.refresh_tours(fleet, tn, use_kernel=use_kernel)
+            bcc = tf.refresh_bccs(fleet, bcc, tour=tn, use_kernel=use_kernel)
+            tables = tf.build_fleet_tables(tn)
+            for t in range(lanes):
+                tns[t], twins[t] = dynamic.refresh_tour(
+                    twins[t], tns[t], use_kernel=use_kernel)
+                bccs[t] = dynamic.refresh_bcc(twins[t], bccs[t],
+                                              tour=tns[t],
+                                              use_kernel=use_kernel)
+            rec.update(tn=tn, bcc=bcc, tables=tables, tns=list(tns),
+                       bccs=list(bccs),
+                       twin_tables=[single_tables(x) for x in tns])
+        out.append(rec)
+    return out
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("grid2d", dict(side=24)), ("rmat", dict(scale=9, edge_factor=4))])
+def test_fleet_on_card_matches_sequential_twins_and_plain(cuda, name,
+                                                          kwargs):
+    """A 3-lane fleet on the kernel path: every lane bit-equal to its
+    sequential twin (state, version, stats; the stacked tour, BCC and
+    tables against the twins' refreshes), and the whole run to the fleet
+    with ``use_kernel=False``; the four kernels of the path launched."""
+    from repro_torch.dynamic.fleet import fleet_sync_cost, tenant_slice
+    g = getattr(graphs, name)(**kwargs, device=cuda)
+    kernels = (pointer_jump_double_k, list_rank_double_k, hook_edges,
+               segment_table)
+    before = [k.launches for k in kernels]
+    got = _fleet_run(g, "churn", 3, None, cuda)
+    torch.cuda.synchronize()
+    assert all(k.launches > b for k, b in zip(kernels, before))
+    plain = _fleet_run(g, "churn", 3, False, cuda)
+    for rec, prec in zip(got, plain):
+        fleet, pfleet = rec["fleet"], prec["fleet"]
+        assert fleet_sync_cost(rec["stats"]) == \
+            int(rec["stats"]["rounds"].max()) + 1
+        for f in DYN_STATE:
+            assert torch.equal(getattr(fleet, f), getattr(pfleet, f)), f
+        for k in DYN_STATS:
+            assert torch.equal(rec["stats"][k], prec["stats"][k]), k
+        for t, twin in enumerate(rec["twins"]):
+            lane = fleet.tenant(t)
+            for f in DYN_STATE:
+                assert torch.equal(getattr(lane, f), getattr(twin, f)), f
+            assert lane.version == twin.version
+            for k in DYN_STATS:
+                assert int(rec["stats"][k][t]) == int(rec["seq"][t][k]), k
+        if "tn" not in rec:
+            continue
+        for t in range(3):
+            for f in ("pre", "size", "last", "comp", "parent"):
+                assert torch.equal(getattr(rec["tn"], f)[t],
+                                   getattr(rec["tns"][t], f)), f
+            lane = tenant_slice(rec["bcc"], t)
+            for f in DYN_BCC:
+                assert torch.equal(getattr(lane, f),
+                                   getattr(rec["bccs"][t], f)), f
+            for k in DYN_BCC_COUNTS:
+                assert int(getattr(lane, k)) == \
+                    int(getattr(rec["bccs"][t], k)), k
+            tab = tenant_slice(rec["tables"], t)
+            for f in ("pre", "last", "comp", "parent", "depth", "up"):
+                assert torch.equal(getattr(tab, f),
+                                   getattr(rec["twin_tables"][t], f)), f
+            assert int(tab.build_syncs) == rec["twin_tables"][t].build_syncs
+        for f in DYN_BCC:
+            assert torch.equal(getattr(rec["bcc"], f),
+                               getattr(prec["bcc"], f)), f
+
+
+def test_bcc_batch_on_card_matches_separate_calls(cuda):
+    """The union ``bcc_batch`` on the kernel path against B separate
+    ``biconnectivity`` calls and against its plain path."""
+    from repro_torch.core import Graph, bcc_batch
+    b, side = 4, 16
+    g = graphs.grid2d(side, device="cpu")
+    rng = np.random.default_rng(0)
+    src, dst = [], []
+    for _ in range(b):
+        perm = torch.from_numpy(rng.permutation(side * side).astype(np.int32))
+        src.append(perm[g.src.long()])
+        dst.append(perm[g.dst.long()])
+    src, dst = torch.stack(src).to(cuda), torch.stack(dst).to(cuda)
+    roots = torch.tensor([0, 5, 17, 255], dtype=torch.int32)
+    fields = ("articulation", "bridge", "edge_bcc", "pre", "size", "low",
+              "high")
+    for flavor in ("gconn_euler", "bfs", "pr_rst"):
+        got = bcc_batch(src, dst, roots, n_nodes=side * side,
+                        rst_flavor=flavor, device=cuda)
+        plain = bcc_batch(src, dst, roots, n_nodes=side * side,
+                          rst_flavor=flavor, use_kernel=False, device=cuda)
+        for f in fields + ("n_bcc", "rst_steps", "aux_rounds", "seg_syncs"):
+            assert torch.equal(getattr(got, f), getattr(plain, f)), f
+        for i in range(b):
+            one = biconnectivity(Graph(side * side, src[i], dst[i]),
+                                 int(roots[i]), rst_flavor=flavor,
+                                 device=cuda)
+            for f in fields:
+                assert torch.equal(getattr(got, f)[i], getattr(one, f)), f
+            for f in ("n_bcc", "rst_steps", "aux_rounds", "seg_syncs"):
+                assert int(getattr(got, f)[i]) == int(getattr(one, f)), f
