@@ -169,6 +169,33 @@ Phases, in order; any failure raises and the script exits non-zero:
         table8_fleet and 2 table9_buckets smoke rows' counts; ``bcc_batch``
         over 16 relabelled grid2d(256) graphs against 16 separate
         ``biconnectivity`` calls and its plain path;
+     l. GNN training and the training CLI (``models.gnn``,
+        ``data.gnn_batch``, ``train.fault.FaultTolerantLoop``,
+        ``launch.train``): GAT, SchNet, DimeNet and MeshGraphNet at their
+        full configs through ``build_cell`` at full_graph_sm, minibatch_lg
+        and molecule: step 1's loss and every gradient (within 1e-4 of
+        its own largest value, MeshGraphNet 5e-3; each side's distance to
+        float64 printed) against the same cell on the CPU, 6 steps under ``FaultTolerantLoop`` with a checkpoint
+        every 3 (step ms, nodes/s, edges/s, first and last loss, peak GB,
+        checkpoint MB and save ms), a run killed after 4 steps and resumed
+        from 3 within 1e-5 of an uninterrupted one (the three runs in
+        torch's deterministic mode), no kernel launched;
+        one ``{"gnn": ...}`` line each, and one ``{"gnn_meta": ...}`` line
+        per architecture with the bytes of its ogb_products cell, built on
+        ``meta`` (it does not fit one card); then ``reorder_by_rst`` on
+        ``rmat(19, edge_factor=16)`` (hook_edges, pointer_jump_double and
+        list_rank_double launched; the permutation bit-equal to the plain
+        path) and the full GAT (d_in 100) on that graph in its original
+        and its RST order: the same loss within 1e-5, 5 timed steps a side
+        in turns (one ``{"gnn_reorder": ...}`` line); then
+        ``launch.train.main`` for gat-cora (6 steps, then resumed to 9)
+        and for DIEN at train_batch (3 steps, embed_bag launched, its
+        checkpoint's MB and save ms), one ``{"train_cli": ...}`` line
+        each; then the loop's own checks on the forest stream of
+        grid2d(256) (three injected timeouts retried, a kill after 6
+        resumed from 4, both bit-equal to a clean run) and a StepTimeout
+        from a sleep on the card that outlasts the watchdog (one
+        ``{"train_loop": ...}`` line);
   6. one JSON line listing the kernels, then the result line
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -177,17 +204,21 @@ gconn_euler and one pr_rst run per graph, one bfs run on
 ``rmat(20, edge_factor=16)`` and its first 64 levels on ``grid2d(4096)``,
 one gconn_euler ``biconnectivity`` per
 graph, one DIEN forward at ``serve_p99`` and at ``serve_bulk``, one DIEN
-training step at ``train_batch``, and the measured batch of grid2d(4096)
-churn B = 65,536 (apply, incremental tour and BCC).
+training step at ``train_batch``, the measured batch of grid2d(4096)
+churn B = 65,536 (apply, incremental tour and BCC), one train step of
+each GNN at minibatch_lg and one GAT step on rmat(19, edge_factor=16) in
+RST order.
 Without a CUDA card, or outside the repository, the script exits non-zero
 and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -344,6 +375,45 @@ FLEET_CLI = (("--graph grid_64 --stream churn --batch 32 --steps 10 "
              ("--buckets chain_64:12:4,rmat_9:2:2:32 --stream churn "
               "--batch 8 --steps 8 --validate", 14))
 BCC_BATCH = (16, 256)
+# Phase 5l: GNN training and the training CLI. The four GNNs at the three
+# GNN_SHAPES that fit one card (ogb_products: its cells built on meta),
+# 6 steps a cell under FaultTolerantLoop with a checkpoint every 3, a run
+# killed after 4 steps and resumed from 3; step 1's loss and gradients
+# against the CPU. Float32 sums run in another order on the card (cuBLAS,
+# the scatter-adds' atomics, which also make two card runs differ): the
+# loss and each gradient within 1e-4 of its own largest value (a graph's
+# energy sums up to 172,032 nodes);
+# gradients that are 0 in exact arithmetic (below 1e-8 on the CPU: GAT's
+# attention vectors, gnn_grads_close) are held below 1e-8. The
+# RST-reordered pipeline: reorder_by_rst on rmat(19, edge_factor=16),
+# then the full GAT at ogb_products' feature width on it in both orders,
+# 5 timed steps a side in turns. The loop's own
+# checks: the forest stream of grid2d(256), churn B = 1,024, 12 batches
+# (retries at steps 3 and 7, a kill after 6 resumed from 4), and a sleep on
+# the card of ≈ 0.5 s against a 0.2 s watchdog.
+GNN_ARCHS = ("gat-cora", "schnet", "dimenet", "meshgraphnet")
+GNN_CARD_SHAPES = ("full_graph_sm", "minibatch_lg", "molecule")
+GNN_META_SHAPE = "ogb_products"
+GNN_STEPS = 6
+GNN_CKPT_EVERY = 3
+GNN_KILL = 4
+GNN_TOL = 1e-5
+GNN_SCALED_TOL = 1e-4
+# MeshGraphNet's 15 layer norms amplify float32 rounding: on either device
+# its gradients lie up to ≈ 2e-4 of their scale from float64 (each line's
+# grad_vs_float64_scaled), and the scatter-adds' atomics make the card's
+# share of that differ from run to run; a wrong formula is off by O(1).
+GNN_SCALED_TOL_BY_ARCH = {"meshgraphnet": 5e-3}
+GNN_ZERO_GRAD = 1e-8
+REORDER_SCALE = 19
+REORDER_RUNS = 5
+LOOP_GRID_SIDE = 256
+LOOP_STREAM_BATCH = 1024
+LOOP_STREAM_BATCHES = 12
+WATCHDOG_CYCLES = 1_000_000_000
+WATCHDOG_S = 0.2
+TRAIN_LOOP_KERNELS = ("hook_edges", "pointer_jump_double", "list_rank_double",
+                      "embed_bag")
 
 
 def fail(msg: str):
@@ -2132,6 +2202,533 @@ def fleet_bcc_batch(torch, card, counted) -> tuple:
             c_union, c_single)
 
 
+def tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """torch's deterministic algorithms (warnings only) inside the block;
+    yields the list of distinct warnings it raised."""
+    import warnings
+    seen = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield seen
+        finally:
+            torch.use_deterministic_algorithms(False)
+            seen += sorted({str(w.message)[:120] for w in caught})
+
+
+def gnn_loss_and_grads(torch, arch, cfg, params, batch, shape):
+    """One step's loss (``gnn_loss``) and every gradient, by name."""
+    from repro_torch.models.gnn import GraphBatch
+    from repro_torch.train.step import gnn_loss
+    g = GraphBatch(n_nodes=shape["n_nodes"], n_graphs=shape["n_graphs"],
+                   **batch["graph"])
+    names, leaves = zip(*params.named_parameters())
+    loss = gnn_loss(arch, cfg, params, g, batch["labels"])
+    return loss.detach(), dict(zip(names, torch.autograd.grad(loss, leaves)))
+
+
+def gnn_float64(torch, arch, cfg, params, batch, shape):
+    """``gnn_loss_and_grads`` in float64 (parameters and float inputs
+    cast): the exact answer's stand-in, against which each float32
+    result's rounding is read."""
+    from repro_torch.models.gnn import GNNParams
+
+    def f64(t):
+        return t.double() if t.is_floating_point() else t
+    p = GNNParams.from_named({k: t.detach().double()
+                              for k, t in params.named_parameters()})
+    p.requires_grad_()
+    batch = {"graph": {k: f64(v) for k, v in batch["graph"].items()},
+             "labels": f64(batch["labels"])}
+    return gnn_loss_and_grads(torch, arch,
+                              dataclasses.replace(cfg, dtype=torch.float64),
+                              p, batch, shape)
+
+
+def worst_scaled(got: dict, want: dict) -> float:
+    """max over the leaves of max |got - want| / max |want| (leaves below
+    GNN_ZERO_GRAD skipped)."""
+    return max((float((got[k].detach().cpu().double() - w.cpu()).abs().max())
+                / float(w.abs().max()) for k, w in want.items()
+                if float(w.abs().max()) >= GNN_ZERO_GRAD), default=0.0)
+
+
+def gnn_state_on(torch, params, dev) -> dict:
+    """A fresh train state on ``dev`` holding ``params``' values."""
+    from repro_torch.models.gnn import GNNParams
+    from repro_torch.optim import adamw_init
+    p = GNNParams.from_named({k: t.detach().to(dev)
+                              for k, t in params.named_parameters()})
+    p.requires_grad_()
+    return {"params": p, "opt": adamw_init(dict(p.named_parameters()))}
+
+
+def gnn_grads_close(torch, got: dict, want: dict, what, tol) -> tuple:
+    """Every gradient within ``tol`` of its own largest value (the
+    full configs' gradients reach 1e3 where a graph's energy sums
+    thousands of nodes, so an entry near 0 carries its leaf's rounding). A
+    gradient that is 0 in exact arithmetic, below GNN_ZERO_GRAD everywhere
+    on the CPU, is held below it on the card too: GAT's a_dst (a constant
+    per softmax group), and GAT's a_src and a_dst where every node has at
+    most one incoming edge (minibatch_lg's graph: one direction of its
+    tree, so every softmax is over one score). Returns (max abs
+    difference, max scaled difference, the zero leaves)."""
+    check(set(got) == set(want), f"{what}: gradient names differ")
+    worst_abs = worst_scaled = 0.0
+    zero = []
+    for k, w in want.items():
+        g = got[k].detach().cpu()
+        if float(w.abs().max()) < GNN_ZERO_GRAD:
+            check(float(g.abs().max()) < GNN_ZERO_GRAD,
+                  f"{what} {k}: 0 on the CPU, {float(g.abs().max())} here")
+            zero.append(k)
+            continue
+        worst_abs = max(worst_abs, float((g - w).abs().max()))
+        worst_scaled = max(worst_scaled, scaled_err(
+            torch, g, w.detach(), tol, f"{what} {k} (scaled)"))
+    return worst_abs, worst_scaled, zero
+
+
+def gnn_cell(torch, arch, shape_name, card, counted, profile=None) -> tuple:
+    """Phase 5l a: one GNN cell at the full config on the card through
+    ``build_cell`` and ``FaultTolerantLoop``; returns its line and the
+    kernel launches of its measured run (none: the GNNs' message passing is
+    torch ops). ``profile(what, fn)``, where given, profiles one step at
+    minibatch_lg."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import synthetic_batches
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.fault import FaultTolerantLoop
+    from repro_torch.train.step import build_cell, gnn_cell_config
+    dev = torch.device("cuda")
+    label = f"{arch}/{shape_name}"
+    spec = get_arch(arch)
+    shape = spec.shapes[shape_name]
+    cfg = gnn_cell_config(arch, spec.make_config(), shape)
+    t0 = time.perf_counter()
+    batches = [b for _, b in itertools.islice(
+        synthetic_batches(spec, shape, cfg, device=dev), GNN_STEPS)]
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    step_fn, _, _ = build_cell(spec, shape_name)
+    _, state_cpu, _ = build_cell(spec, shape_name, device="cpu")
+    state0 = gnn_state_on(torch, state_cpu["params"], dev)
+
+    # Step 1's loss and gradients: the card against the CPU, the same
+    # parameters and batch.
+    batch_cpu = {"graph": {k: v.cpu() for k, v in batches[0]["graph"].items()},
+                 "labels": batches[0]["labels"].cpu()}
+    t0 = time.perf_counter()
+    loss_cpu, grads_cpu = gnn_loss_and_grads(
+        torch, arch, cfg, state_cpu["params"], batch_cpu, shape)
+    cpu_s = time.perf_counter() - t0
+    loss_gpu, grads_gpu = gnn_loss_and_grads(
+        torch, arch, cfg, state0["params"], batches[0], shape)
+    check(bool(torch.isfinite(loss_gpu)), f"{label}: loss not finite")
+    # The loss sums the whole batch (SchNet's and DimeNet's energies sum
+    # every node into its graph's, 2,720 or 172,032 nodes into one), so
+    # it is held, as the gradients are, to its own scale.
+    tol = GNN_SCALED_TOL_BY_ARCH.get(arch, GNN_SCALED_TOL)
+    loss_err = scaled_err(torch, loss_gpu.cpu(), loss_cpu, tol,
+                          f"{label}: loss against the CPU")
+    grad_abs, grad_scaled, zero_grads = gnn_grads_close(
+        torch, grads_gpu, grads_cpu, f"{label}: gradient", tol)
+    # Each float32 result's own rounding, read against float64 on the card.
+    _, grads_64 = gnn_float64(torch, arch, cfg, state0["params"], batches[0],
+                              shape)
+    rounding = {"card_float32": worst_scaled(grads_gpu, grads_64),
+                "cpu_float32": worst_scaled(grads_cpu, grads_64)}
+    n_params = sum(t.numel() for t in grads_cpu.values())
+    del grads_cpu, grads_gpu, grads_64, state_cpu, batch_cpu
+
+    root = ROOT / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="gnn-", dir=root))
+    try:
+        # The measured run: GNN_STEPS steps, a checkpoint every
+        # GNN_CKPT_EVERY (written in the background).
+        times, losses = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loop = FaultTolerantLoop(step_fn=step_fn, state=state0,
+                                 data_iter=iter(list(enumerate(batches))),
+                                 ckpt_dir=tmp / "run",
+                                 ckpt_every=GNN_CKPT_EVERY)
+        _, counts = counted(lambda: loop.run(
+            GNN_STEPS, on_metrics=lambda s, m, dt: (times.append(dt),
+                                                    losses.append(m["loss"]))))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(loop.step == GNN_STEPS and loop.retries == 0,
+              f"{label}: {loop.step} steps, {loop.retries} retries")
+        losses = [float(x) for x in losses]
+        check(all(map(math.isfinite, losses)), f"{label}: losses {losses}")
+        if profile is not None and shape_name == "minibatch_lg":
+            profile(f"{label} train step",
+                    lambda: step_fn(loop.state, batches[-1]))
+        ckpt_mb = dir_mb(tmp / "run" / f"step_{GNN_CKPT_EVERY:010d}")
+        t0 = time.perf_counter()
+        ckpt.save(tmp / "save", loop.state, GNN_STEPS)
+        save_ms = (time.perf_counter() - t0) * 1e3
+
+        # Killed after GNN_KILL steps, resumed from the checkpoint at
+        # GNN_CKPT_EVERY, replaying the cursor, against an uninterrupted
+        # run: all three in torch's deterministic mode, since the
+        # scatter-adds' atomics otherwise order their sums anew each run
+        # and Adam turns the rounding of a gradient that is 0 in exact
+        # arithmetic (GAT's a_dst at init) into a step of up to lr.
+        def run(name, n, start=0):
+            loop = FaultTolerantLoop(
+                step_fn=step_fn, state=state0,
+                data_iter=iter(list(enumerate(batches))[start:]),
+                ckpt_dir=tmp / name, ckpt_every=GNN_CKPT_EVERY)
+            if start:
+                check(loop.resume() == start, f"{label}: resume step")
+            loop.run(n)
+            return loop
+
+        with deterministic(torch) as det_warnings:
+            base = run("base", GNN_STEPS)
+            run("kill", GNN_KILL)
+            heir = run("kill", GNN_STEPS, start=GNN_CKPT_EVERY)
+        check(heir.step == GNN_STEPS
+              and int(heir.state["opt"]["step"]) == GNN_STEPS,
+              f"{label}: resumed run ended at {heir.step}")
+        want = dict(base.state["params"].named_parameters())
+        pairs = [(p.detach(), want[k].detach(), f"parameter {k}")
+                 for k, p in heir.state["params"].named_parameters()]
+        pairs += [(t, base.state["opt"][part][k], f"{part} {k}")
+                  for part in ("m", "v")
+                  for k, t in heir.state["opt"][part].items()]
+        resume_err = max(allclose_err(torch, a, b, GNN_TOL,
+                                      f"{label}: resumed {what}")
+                         for a, b, what in pairs)
+        resume_bit_equal = all(torch.equal(a, b) for a, b, _ in pairs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    step_s = statistics.median(times[1:])
+    n_trip = (int(batches[0]["graph"]["trip_in"].numel())
+              if "trip_in" in batches[0]["graph"] else 0)
+    return ({"gnn": label, "card": card, "n_nodes": shape["n_nodes"],
+             "n_edges": shape["n_edges"], "n_triplets": n_trip,
+             "params": n_params, "steps": GNN_STEPS,
+             "step_ms": step_s * 1e3,
+             "step_ms_all": [t * 1e3 for t in times],
+             "nodes_per_s": shape["n_nodes"] / step_s,
+             "edges_per_s": shape["n_edges"] / step_s,
+             "loss_first": losses[0], "loss_last": losses[-1],
+             "peak_gb": peak_gb, "ckpt_mb": ckpt_mb, "save_ms": save_ms,
+             "data_s": data_s, "cpu_grad_s": cpu_s,
+             "loss_cpu": float(loss_cpu), "loss_vs_cpu_scaled": loss_err,
+             "scaled_tol": tol,
+             "grad_vs_cpu_max_abs": grad_abs,
+             "grad_vs_cpu_max_scaled": grad_scaled,
+             "zero_grad_leaves": zero_grads,
+             "grad_vs_float64_scaled": rounding,
+             "resume_vs_uninterrupted_max_abs": resume_err,
+             "resume_bit_equal": resume_bit_equal,
+             "deterministic_warnings": det_warnings,
+             "launches": {k: v for k, v in counts.items() if v},
+             "checks": {"step1_vs_cpu": True, "kill_resume": True}},
+            counts)
+
+
+def gnn_meta(torch, arch) -> dict:
+    """Phase 5l a: the ogb_products cell, built on meta: its state's and
+    inputs' bytes."""
+    from repro_torch.configs import get_arch
+    from repro_torch.train.step import build_cell
+    _, state, inputs = build_cell(get_arch(arch), GNN_META_SHAPE)
+    params = list(state["params"].parameters())
+    opt = [t for part in ("m", "v", "master")
+           for t in state["opt"][part].values()] + [state["opt"]["step"]]
+    check(all(t.device.type == "meta" for t in
+              (*params, *opt, *inputs["graph"].values(), inputs["labels"])),
+          f"{arch}/{GNN_META_SHAPE}: a tensor off the meta device")
+    return {"gnn_meta": f"{arch}/{GNN_META_SHAPE}", "device": "meta",
+            "params": sum(p.numel() for p in params),
+            "params_gb": tensor_bytes(params) / 1e9,
+            "state_gb": tensor_bytes([*params, *opt]) / 1e9,
+            "inputs_gb": tensor_bytes([*inputs["graph"].values(),
+                                       inputs["labels"]]) / 1e9,
+            "inputs": {k: list(v.shape) for k, v in inputs["graph"].items()}}
+
+
+def gnn_reorder(torch, card, counted, profile=None) -> tuple:
+    """Phase 5l b: ``reorder_by_rst`` on rmat(19, edge_factor=16) (the
+    paper's pipeline in the GNN data path: hook_edges, pointer_jump_double
+    and list_rank_double), the permutation against the plain path; then
+    the full GAT (d_in 100, ogb_products' feature width) on the graph in
+    its original order and in RST order: the same loss, step times in
+    turns."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.data import graphs
+    from repro_torch.data.gnn_batch import reorder_by_rst
+    from repro_torch.train.step import gnn_cell_config, gnn_train_cell
+    dev = torch.device("cuda")
+    g = graphs.rmat(REORDER_SCALE, edge_factor=16, device="cpu")
+    n, m2 = g.n_nodes, g.n_half_edges
+    src, dst = g.src.numpy(), g.dst.numpy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    perm, counts = counted(lambda: reorder_by_rst(src, dst, n))
+    reorder_ms = (time.perf_counter() - t0) * 1e3
+    check(all(counts[k] > 0 for k in ("hook_edges", "pointer_jump_double",
+                                      "list_rank_double")),
+          f"reorder_by_rst launched {counts}")
+    plain = reorder_by_rst(src, dst, n, use_kernel=False)
+    check(torch.equal(perm, plain), "reorder_by_rst: kernel != plain path")
+    ids = torch.arange(n, device=dev)
+    check(torch.equal(torch.sort(perm).values, ids),
+          "reorder_by_rst: not a permutation")
+    inv = torch.empty_like(perm)
+    inv[perm] = ids
+
+    spec = get_arch("gat-cora")
+    d_feat = spec.shapes[GNN_META_SHAPE]["d_feat"]
+    shape = dict(kind="train", n_nodes=n, n_edges=m2, d_feat=d_feat,
+                 n_graphs=1)
+    cfg = gnn_cell_config("gat-cora", spec.make_config(), shape)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((n, d_feat)).astype(
+        np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.n_classes, n).astype(
+        np.int32)).to(dev)
+    s_t, d_t = g.src.to(dev), g.dst.to(dev)
+    gid = torch.zeros(n, dtype=torch.int32, device=dev)
+    batches = {
+        "original": {"graph": {"node_feat": x, "src": s_t, "dst": d_t,
+                               "graph_id": gid}, "labels": labels},
+        "rst": {"graph": {"node_feat": x[inv],
+                          "src": perm[s_t.long()].to(torch.int32),
+                          "dst": perm[d_t.long()].to(torch.int32),
+                          "graph_id": gid}, "labels": labels[inv]}}
+    span = {k: float((b["graph"]["src"] - b["graph"]["dst"]).abs().double()
+                     .mean()) for k, b in batches.items()}
+    del x, labels, s_t, d_t
+    step_fn, state, _ = gnn_train_cell("gat-cora", cfg, shape, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss = {k: float(step_fn(state, b)[1]["loss"]) for k, b in batches.items()}
+    check(all(map(math.isfinite, loss.values())), f"reorder losses {loss}")
+    check(abs(loss["original"] - loss["rst"])
+          <= GNN_TOL + GNN_TOL * abs(loss["original"]),
+          f"GAT loss in RST order {loss['rst']} against {loss['original']}")
+    times = {k: [] for k in batches}
+    order = list(batches)
+    for r in range(REORDER_RUNS):
+        for k in (order if r % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, _ = step_fn(state, batches[k])
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+            del new
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = {k: statistics.median(t) for k, t in times.items()}
+    if profile is not None:
+        profile(f"GAT train step, rmat({REORDER_SCALE}, 16), RST order",
+                lambda: step_fn(state, batches["rst"]))
+    return ({"gnn_reorder": f"rmat({REORDER_SCALE}, 16)", "card": card,
+             "n_nodes": n, "half_edges": m2, "d_in": cfg.d_in,
+             "reorder_ms": reorder_ms, "plain_bit_equal": True,
+             "launches": {k: v for k, v in counts.items() if v},
+             "mean_edge_span": span, "loss": loss,
+             "loss_diff": abs(loss["original"] - loss["rst"]),
+             "step_ms": med, "step_ms_all": times,
+             "rst_speedup": med["original"] / med["rst"],
+             "peak_gb": peak_gb}, counts)
+
+
+def gnn_train_cli(torch, card, counted) -> tuple:
+    """Phase 5l c: ``launch.train.main`` on the card: gat-cora (its first
+    shape, full_graph_sm) for 6 steps with a checkpoint every 3, then again
+    to 9, resuming at 6; DIEN at train_batch for 3 steps (embed_bag)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import checkpoint as ckpt
+    root = ROOT / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="train-cli-", dir=root))
+    total = {}
+
+    def drive(argv):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            loop, counts = counted(lambda: train_cli.main(
+                argv + ["--ckpt-dir", str(tmp)]))
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return (loop, counts, out.getvalue().splitlines(),
+                time.perf_counter() - t0)
+
+    lines = []
+    try:
+        argv = ["--arch", "gat-cora", "--ckpt-every", "3"]
+        first, _, report1, s1 = drive(argv + ["--steps", "6"])
+        check(first.step == 6 and report1[-1].startswith("done: 6 steps")
+              and report1[0].startswith("step     1  loss"),
+              f"train cli gat-cora: {report1}")
+        check(ckpt.latest_step(tmp / "gat-cora") == 6, "gat-cora checkpoint")
+        ckpt_mb = dir_mb(tmp / "gat-cora" / "step_0000000006")
+        second, _, report2, s2 = drive(argv + ["--steps", "9"])
+        check(second.step == 9 and report2 == [report2[-1]]
+              and report2[-1].startswith("done: 9 steps")
+              and int(second.state["opt"]["step"]) == 9,
+              f"train cli gat-cora resumed: {report2}")
+        lines.append({"train_cli": "gat-cora", "card": card,
+                      "shape": "full_graph_sm", "argv": argv,
+                      "steps": [6, 9], "resumed_at": 6,
+                      "seconds": [s1, s2], "ckpt_mb": ckpt_mb,
+                      "report": report1 + report2,
+                      "retries": second.retries,
+                      "stragglers": len(second.stragglers)})
+        argv = ["--arch", "dien", "--steps", "3", "--ckpt-every", "3"]
+        loop, counts, report, s = drive(argv)
+        check(loop.step == 3 and counts["embed_bag"] > 0
+              and report[-1].startswith("done: 3 steps"),
+              f"train cli dien: {report}, {counts}")
+        ckpt_mb = dir_mb(tmp / "dien" / "step_0000000003")
+        t0 = time.perf_counter()
+        ckpt.save(tmp / "dien-save", loop.state, 3)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        like, _ = ckpt.restore(tmp / "dien-save", loop.state)
+        check(all(torch.equal(a.detach(), b.detach()) for a, b in zip(
+            like["params"].parameters(), loop.state["params"].parameters())),
+            "dien checkpoint round trip")
+        lines.append({"train_cli": "dien", "card": card,
+                      "shape": "train_batch", "argv": argv, "seconds": s,
+                      "ckpt_mb": ckpt_mb, "save_ms": save_ms,
+                      "params": sum(p.numel() for p in
+                                    loop.state["params"].parameters()),
+                      "report": report,
+                      "launches": {k: v for k, v in counts.items() if v}})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lines, total
+
+
+def train_loop_checks(torch, card, counted) -> tuple:
+    """Phase 5l d: ``FaultTolerantLoop``'s own checks on the card, on the
+    forest stream step (integer work, so bit-identity holds): three
+    injected StepTimeouts retried to the forest of a clean run, a kill after
+    6 steps resumed from 4 bit-identical to an uninterrupted run; and a
+    StepTimeout raised when a step's work on the card (a sleep) outlasts
+    the watchdog."""
+    import shutil
+    import tempfile
+    from repro_torch.data import graphs, streams
+    from repro_torch.dynamic import init_state, replay_batch
+    from repro_torch.train.fault import FaultTolerantLoop, StepTimeout
+    dev = torch.device("cuda")
+    g = graphs.grid2d(LOOP_GRID_SIDE, device="cpu")
+    s = streams.STREAMS["churn"](g, batch=LOOP_STREAM_BATCH,
+                                 n_batches=LOOP_STREAM_BATCHES, seed=5)
+    fields = ("parent", "rep", "pool_src", "pool_dst", "pool_valid",
+              "tree_mask", "dirty")
+    cursor = {}
+
+    def step(state, batch):
+        state, stats = replay_batch(state, batch)
+        return state, {"deletes_found": stats["deletes_found"]}
+
+    def flaky(state, batch):
+        i = cursor["at"]
+        cursor[i] = cursor.get(i, 0) + 1
+        if {3: 1, 7: 2}.get(i, 0) >= cursor[i]:
+            raise StepTimeout(f"injected at step {i}")
+        return step(state, batch)
+
+    def data(start=0):
+        for c, b in enumerate(s.batches):
+            if c >= start:
+                cursor["at"] = c
+                yield c, b
+
+    def same(a, b, what):
+        check(all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
+              and a.version == b.version, what)
+
+    state0 = init_state(s, device=dev)
+    ref = state0
+    for b in s.batches:
+        ref, _ = step(ref, b)
+    root = ROOT / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="train-loop-", dir=root))
+    total = {}
+
+    def run(loop, n):
+        _, counts = counted(lambda: loop.run(n))
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    try:
+        loop = FaultTolerantLoop(step_fn=flaky, state=state0, data_iter=data(),
+                                 ckpt_dir=tmp / "retry", ckpt_every=4,
+                                 max_retries=2, async_ckpt=False)
+        run(loop, LOOP_STREAM_BATCHES)
+        check(loop.retries == 3, f"retries {loop.retries}")
+        same(loop.state, ref, "retried forest != clean forest")
+        dead = FaultTolerantLoop(step_fn=step, state=state0, data_iter=data(),
+                                 ckpt_dir=tmp / "kill", ckpt_every=4,
+                                 async_ckpt=False)
+        run(dead, 6)
+        heir = FaultTolerantLoop(step_fn=step, state=state0, data_iter=None,
+                                 ckpt_dir=tmp / "kill", ckpt_every=4,
+                                 async_ckpt=False)
+        check(heir.resume() == 4, "forest resume step")
+        heir.data_iter = data(4)
+        run(heir, LOOP_STREAM_BATCHES)
+        same(heir.state, ref, "resumed forest != uninterrupted forest")
+
+        def sleepy(state, batch):
+            torch.cuda._sleep(WATCHDOG_CYCLES)
+            return state, {}
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sleepy(None, None)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        device_ms = (time.perf_counter() - t0) * 1e3
+        wd = FaultTolerantLoop(step_fn=sleepy,
+                               state={"x": torch.zeros((), device=dev)},
+                               data_iter=iter([(0, {})]),
+                               ckpt_dir=tmp / "sleep",
+                               step_timeout_s=WATCHDOG_S, max_retries=0)
+        try:
+            wd.run(1)
+            fired = False
+        except StepTimeout:
+            fired = True
+        check(fired and enqueue_ms < WATCHDOG_S * 1e3 < device_ms,
+              f"watchdog: fired {fired}, enqueue {enqueue_ms} ms, "
+              f"device {device_ms} ms")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ({"train_loop": f"grid2d({LOOP_GRID_SIDE})/churn/"
+                           f"b{LOOP_STREAM_BATCH}", "card": card,
+             "batches": LOOP_STREAM_BATCHES, "retries": loop.retries,
+             "retried_bit_equal": True, "killed_at": 6, "resumed_at": 4,
+             "resume_bit_equal": True,
+             "watchdog": {"timeout_s": WATCHDOG_S, "enqueue_ms": enqueue_ms,
+                          "device_ms": device_ms, "fired": fired},
+             "launches": {k: v for k, v in total.items() if v}}, total)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-out", type=pathlib.Path, default=None)
@@ -3194,11 +3791,14 @@ def main() -> int:
     del tables, tn, u, v, pay_f, pay_i, answers, w
 
     if args.profile_out is not None:
-        from torch.profiler import ProfilerActivity, profile
+        # Imported under its own name: main's ``profile(what, fn)`` below
+        # takes the name ``profile`` in this scope.
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
 
         def profiled(what, fn):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with torch_profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
                 _, wall_ms = timed_call(fn)
             return (f"{what}, profiled run: {wall_ms:.3f} ms wall\n"
                     + prof.key_averages().table(sort_by="cuda_time_total",
@@ -3611,6 +4211,47 @@ def main() -> int:
     emit({"phase": "fleet", "launches": {k: v for k, v in
                                          fleet_launches.items() if v},
           "seconds": time.perf_counter() - t_fleet})
+
+    # 5l. GNN training and the training CLI: the four GNNs' cells at full
+    # width (ogb_products on meta), the RST-reordered pipeline, the CLI
+    # (gat-cora with a resume, DIEN) and the loop's own checks.
+    t_train = time.perf_counter()
+    torch.cuda.empty_cache()
+    train_launches = dict.fromkeys(launches, 0)
+
+    def add_train(counts):
+        for name in launches:
+            launches[name] += counts.get(name, 0)
+            train_launches[name] += counts.get(name, 0)
+
+    for arch in GNN_ARCHS:
+        for shape_name in GNN_CARD_SHAPES:
+            line, counts = gnn_cell(
+                torch, arch, shape_name, card, counted,
+                profile if args.profile_out is not None else None)
+            check(not any(counts.values()),
+                  f"{arch}/{shape_name} launched a kernel: {counts}")
+            emit(line)
+            torch.cuda.empty_cache()
+        emit(gnn_meta(torch, arch))
+    line, counts = gnn_reorder(torch, card, counted,
+                               profile if args.profile_out is not None
+                               else None)
+    add_train(counts)
+    emit(line)
+    torch.cuda.empty_cache()
+    lines, counts = gnn_train_cli(torch, card, counted)
+    add_train(counts)
+    for line in lines:
+        emit(line)
+    line, counts = train_loop_checks(torch, card, counted)
+    add_train(counts)
+    emit(line)
+    check(all(train_launches[k] > 0 for k in TRAIN_LOOP_KERNELS),
+          f"a kernel of the training path never launched: {train_launches}")
+    emit({"phase": "train", "launches": {k: v for k, v in
+                                         train_launches.items() if v},
+          "seconds": time.perf_counter() - t_train})
 
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the paths never launched: {launches}")

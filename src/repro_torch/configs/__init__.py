@@ -1,8 +1,8 @@
 """Architecture registry: ``get_arch(arch_id)`` → ArchSpec.
 
-The port's own copy of ``repro.configs``: the same ids and the recsys
-shape table. Only ``dien`` is ported; ``get_arch`` raises
-``NotImplementedError`` for the other ids (ROADMAP §1 item 15).
+The port's own copy of ``repro.configs``: the same ids and the GNN and
+recsys shape tables. ``dien`` and the four GNNs are ported; ``get_arch``
+raises ``NotImplementedError`` for the LM ids (ROADMAP §1 item 15).
 """
 from __future__ import annotations
 
@@ -17,7 +17,13 @@ ARCH_IDS = (
     "dien",
 )
 
-_MODULES = {"dien": "dien"}
+_MODULES = {
+    "dimenet": "dimenet",
+    "schnet": "schnet",
+    "meshgraphnet": "meshgraphnet",
+    "gat-cora": "gat_cora",
+    "dien": "dien",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +45,23 @@ def get_arch(arch_id: str) -> ArchSpec:
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.get()
 
+
+# GNN cells (padded to multiples of 512 so every mesh divides evenly).
+GNN_SHAPES = {
+    "full_graph_sm": dict(kind="train", n_nodes=2720, n_edges=10560,
+                          d_feat=1433, n_graphs=1,
+                          raw=dict(n_nodes=2708, n_edges=10556)),
+    "minibatch_lg": dict(kind="train", n_nodes=172032, n_edges=169984,
+                         d_feat=602, n_graphs=1, sampled=True,
+                         raw=dict(n_nodes=232965, n_edges=114615892,
+                                  batch_nodes=1024, fanout=(15, 10))),
+    "ogb_products": dict(kind="train", n_nodes=2449408, n_edges=61859840,
+                         d_feat=100, n_graphs=1,
+                         raw=dict(n_nodes=2449029, n_edges=61859140)),
+    "molecule": dict(kind="train", n_nodes=3840, n_edges=8192, d_feat=8,
+                     n_graphs=128, raw=dict(n_nodes=30, n_edges=64,
+                                            batch=128)),
+}
 
 RECSYS_SHAPES = {
     "train_batch": dict(kind="train", batch=65536),

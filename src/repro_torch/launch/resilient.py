@@ -54,12 +54,9 @@ from repro_torch.dynamic.recovery import recover
 from repro_torch.dynamic.replay import init_state, replay_batch
 from repro_torch.dynamic.view import CadencePolicy, ForestView
 from repro_torch.train import checkpoint as ckpt
-from repro_torch.train.fault import StepTimeout
+from repro_torch.train.fault import RETRIED, StepTimeout
 
 log = logging.getLogger("repro_torch.resilient")
-
-#: The errors a batch is retried on: both leave the CUDA context usable.
-RETRIED = (StepTimeout, torch.cuda.OutOfMemoryError)
 
 
 @dataclasses.dataclass

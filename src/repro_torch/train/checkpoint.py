@@ -2,14 +2,17 @@
 
 The port of ``repro.train.checkpoint`` (DESIGN.md §8):
 
-  * a state tree (dicts of tensors and of the port's dataclasses:
-    ``DynamicForest``, ``TourNumbering``, ``DynamicBCC``, ...) is flattened
+  * a state tree (dicts, lists and tuples of tensors, of the port's
+    dataclasses: ``DynamicForest``, ``TourNumbering``, ``DynamicBCC``, ...,
+    and of parameter modules: ``DIENParams``, ``GNNParams``) is flattened
     to named leaves: one ``.npz`` payload and a JSON manifest (names,
     shapes, dtypes, step, data cursor). Leaves are tensors and host ints:
     the fields the port keeps as Python ints
     (``DynamicForest.version``, ``DynamicBCC``'s counts, ``n_nodes``)
     round-trip as ints, so a resumed run's counts equal an uninterrupted
-    run's;
+    run's. A module's leaves are its ``named_parameters()``; it is rebuilt
+    by its class's ``from_named``, each parameter keeping the
+    ``requires_grad`` of the matching one in ``state_like``;
   * writes go to a temporary directory, then ``os.replace``: a writer that
     crashes never corrupts the newest checkpoint;
   * ``save(..., blocking=False)`` copies the tensors to the host on the
@@ -45,13 +48,21 @@ _NATIVE = {torch.bool, torch.uint8, torch.int8, torch.int16, torch.int32,
 
 def _flatten(tree, prefix: str = "") -> list[tuple[str, object]]:
     """``(name, leaf)`` pairs in a fixed order: dict keys sorted (as
-    ``jax.tree_util`` orders them), dataclass fields in declaration order.
-    Leaves are tensors and host ints."""
+    ``jax.tree_util`` orders them), list and tuple items by index,
+    dataclass fields in declaration order, a module's parameters in
+    ``named_parameters()`` order. Leaves are tensors and host ints."""
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
             out += _flatten(tree[k], f"{prefix}[{k!r}]")
         return out
+    if isinstance(tree, (list, tuple)):
+        out = []
+        for i, x in enumerate(tree):
+            out += _flatten(x, f"{prefix}[{i}]")
+        return out
+    if isinstance(tree, torch.nn.Module):
+        return [(f"{prefix}.{name}", p) for name, p in tree.named_parameters()]
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         out = []
         for f in dataclasses.fields(tree):
@@ -69,6 +80,14 @@ def _unflatten(like, leaves):
     if isinstance(like, dict):
         vals = {k: _unflatten(like[k], leaves) for k in sorted(like)}
         return {k: vals[k] for k in like}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_unflatten(x, leaves) for x in like)
+    if isinstance(like, torch.nn.Module):
+        named = dict(like.named_parameters())
+        module = type(like).from_named({name: next(leaves) for name in named})
+        for name, p in module.named_parameters():
+            p.requires_grad_(named[name].requires_grad)
+        return module
     if dataclasses.is_dataclass(like) and not isinstance(like, type):
         return dataclasses.replace(like, **{
             f.name: _unflatten(getattr(like, f.name), leaves)

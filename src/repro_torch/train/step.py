@@ -1,23 +1,38 @@
 """Cell factory: ``build_cell(spec, shape_name)`` → (step_fn, state, inputs).
 
-The port of ``repro.train.step``'s DIEN cells. A cell runs on one card (no
-mesh). ``state`` is real: for a serving cell the parameters drawn from seed
-0, for the training cell ``{"params", "opt"}`` (the same parameters,
-trainable, and their AdamW state). ``inputs`` gives each input's shape and
-dtype as a tensor on the ``meta`` device (the reference's abstract inputs).
-Feed ``step_fn(state, batch)`` from
+The port of ``repro.train.step``'s DIEN and GNN cells. A cell runs on one
+card (no mesh). ``state`` is real: for a serving cell the parameters drawn
+from seed 0, for a training cell ``{"params", "opt"}`` (the same
+parameters, trainable, and their AdamW state). ``inputs`` gives each
+input's shape and dtype as a tensor on the ``meta`` device (the
+reference's abstract inputs). Feed ``step_fn(state, batch)`` from
 ``repro_torch.launch.train.synthetic_batches``.
+
+A GNN cell at a shape of ``SHARDED_SHAPES`` is built with its state on
+``meta`` too: it does not fit one card (ogb_products: MeshGraphNet's edge
+input [E, 384] float32 alone is 95 GB, SchNet's RBF [E, 300] 74 GB), and
+the reference runs it sharded over a pod, which waits for the mesh code
+(ROADMAP §1 item 15). Its bytes can be read; its step is not run.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.core.graph import resolve_device
+from repro_torch.models import gnn
 from repro_torch.models.dien import (DIENParams, dien_forward, dien_init,
                                      dien_loss, dien_retrieval_score)
 from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
 
 CAND_BLOCK = 8192
+#: GNN shapes whose cells are built on ``meta``: sharded over a pod in the
+#: reference.
+SHARDED_SHAPES = frozenset({"ogb_products"})
+#: The GNN architectures whose nodes carry 3D positions, and atom types.
+POSITIONS = ("schnet", "dimenet", "meshgraphnet")
+ATOM_TYPES = ("schnet", "dimenet")
 
 
 def _meta(shape, dtype):
@@ -70,6 +85,102 @@ def dien_train_cell(cfg, *, batch: int, device, use_kernel=None):
     return step_fn, {"params": params, "opt": opt}, inputs
 
 
+def gnn_loss(arch_id: str, cfg, params, g: gnn.GraphBatch,
+             labels: torch.Tensor) -> torch.Tensor:
+    """The reference's ``_gnn_forward_and_loss``: GAT's mean cross-entropy
+    over nodes, the others' mean squared error (per-graph energies,
+    MeshGraphNet's per-node outputs)."""
+    if arch_id == "gat-cora":
+        logits = gnn.gat_forward(cfg, params, g).float()
+        logz = torch.logsumexp(logits, -1)
+        gold = torch.gather(logits, 1, labels.long()[:, None])[:, 0]
+        return torch.mean(logz - gold)
+    if arch_id not in gnn.FORWARD:
+        raise KeyError(arch_id)
+    out = gnn.FORWARD[arch_id](cfg, params, g)
+    return torch.mean((out - labels) ** 2)
+
+
+def gnn_label_spec(arch_id: str, shape: dict) -> torch.Tensor:
+    """The labels' shape and dtype, as a ``meta`` tensor."""
+    if arch_id == "gat-cora":
+        return _meta((shape["n_nodes"],), torch.int32)
+    if arch_id in ("schnet", "dimenet"):                # per-graph energies
+        return _meta((shape["n_graphs"],), torch.float32)
+    if arch_id == "meshgraphnet":
+        return _meta((shape["n_nodes"], 3), torch.float32)
+    raise KeyError(arch_id)
+
+
+def gnn_input_spec(arch_id: str, shape: dict) -> dict:
+    """The graph's tensors as ``meta`` tensors: what
+    ``synthetic_batches`` gives a step (``n_triplets = 4 E`` for
+    DimeNet)."""
+    n, e = shape["n_nodes"], shape["n_edges"]
+    g = {"node_feat": (_meta((n,), torch.int32) if arch_id in ATOM_TYPES
+                       else _meta((n, shape["d_feat"]), torch.float32)),
+         "src": _meta((e,), torch.int32), "dst": _meta((e,), torch.int32),
+         "graph_id": _meta((n,), torch.int32)}
+    if arch_id in POSITIONS:
+        g["positions"] = _meta((n, 3), torch.float32)
+    if arch_id == "dimenet":
+        g["trip_in"] = _meta((4 * e,), torch.int32)
+        g["trip_out"] = _meta((4 * e,), torch.int32)
+    return g
+
+
+def gnn_cell_config(arch_id: str, cfg, shape: dict):
+    """``cfg`` with the input width the shape gives: GAT's ``d_in`` and
+    MeshGraphNet's ``d_in_node`` are its ``d_feat``."""
+    if arch_id == "gat-cora":
+        return dataclasses.replace(cfg, d_in=shape["d_feat"])
+    if arch_id == "meshgraphnet":
+        return dataclasses.replace(cfg, d_in_node=shape["d_feat"])
+    return cfg
+
+
+def gnn_make_init(arch_id: str):
+    """The architecture's init: ``init(cfg, generator=..., device=...)``."""
+    return gnn.INIT[arch_id]
+
+
+def gnn_train_cell(arch_id: str, cfg, shape: dict, *, device,
+                   peak_lr: float = 1e-3):
+    """One AdamW step on ``gnn_loss``:
+    ``step_fn(state, batch) = (new_state, {"loss", "grad_norm"})``, state
+    ``{"params": GNNParams, "opt": adamw state}``, batch ``{"graph": dict
+    of the ``GraphBatch`` tensors, "labels"}``. The learning rate is
+    ``cosine_schedule`` at the state's step before the update (peak 1e-3,
+    warmup 100, total 10,000), so step 0 has lr 0. The parameters are drawn
+    from seed 0 on ``device`` (on ``meta`` without a generator)."""
+    inputs = {"graph": gnn_input_spec(arch_id, shape),
+              "labels": gnn_label_spec(arch_id, shape)}
+    n_nodes, n_graphs = shape["n_nodes"], shape["n_graphs"]
+
+    def step_fn(state, batch_in):
+        g = gnn.GraphBatch(n_nodes=n_nodes, n_graphs=n_graphs,
+                           **batch_in["graph"])
+        params = state["params"]
+        names, leaves = zip(*params.named_parameters())
+        loss = gnn_loss(arch_id, cfg, params, g, batch_in["labels"])
+        grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+        lr = cosine_schedule(state["opt"]["step"], peak_lr=peak_lr,
+                             warmup=100, total=10_000)
+        new_params, new_opt, gn = adamw_update(grads, state["opt"], lr,
+                                               compute_dtype=cfg.dtype)
+        return ({"params": gnn.GNNParams.from_named(new_params
+                                                    ).requires_grad_(),
+                 "opt": new_opt},
+                {"loss": loss.detach(), "grad_norm": gn})
+
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(0))
+    params = gnn_make_init(arch_id)(cfg, generator=gen,
+                                    device=device).requires_grad_()
+    opt = adamw_init(dict(params.named_parameters()))
+    return step_fn, {"params": params, "opt": opt}, inputs
+
+
 def dien_serve_cell(cfg, *, batch: int, device, use_kernel=None):
     """Batched CTR scoring: ``step_fn(params, batch) = sigmoid(logits)``."""
     inputs = _batch_inputs(cfg, batch)
@@ -108,18 +219,27 @@ def build_cell(spec, shape_name: str, *, smoke: bool = False,
     """(step_fn, state, inputs) for one cell of ``spec``: a serving cell's
     state is its parameters, the training cell's ``{"params", "opt"}``.
 
-    Runs on ``device``: the card unless the caller passes another.
-    ``use_kernel`` goes to ``embed_bag`` (the full config runs the kernel
-    on the card, as the smoke config does, in training as in serving).
+    Runs on ``device``: the card unless the caller passes another (a GNN
+    cell at a shape of ``SHARDED_SHAPES``: on ``meta``). ``use_kernel``
+    goes to ``embed_bag`` (the full config runs the kernel on the card, as
+    the smoke config does, in training as in serving). A GNN's input width
+    (GAT's ``d_in``, MeshGraphNet's ``d_in_node``) is the shape's
+    ``d_feat``.
     """
-    dev = resolve_device(device)
     cfg = spec.make_smoke_config() if smoke else spec.make_config()
     shape = spec.shapes[shape_name]
     kind = shape["kind"]
+    if spec.family == "gnn":
+        dev = (torch.device("meta") if shape_name in SHARDED_SHAPES
+               else resolve_device(device))
+        return gnn_train_cell(spec.arch_id, gnn_cell_config(spec.arch_id, cfg,
+                                                            shape),
+                              shape, device=dev)
     if spec.family != "recsys":
         raise NotImplementedError(
             f"{spec.arch_id}: the {spec.family!r} cells are not ported yet "
             "(ROADMAP §1 item 15)")
+    dev = resolve_device(device)
     if kind == "train":
         return dien_train_cell(cfg, batch=shape["batch"], device=dev,
                                use_kernel=use_kernel)

@@ -6,9 +6,9 @@ previous designs; the doubling
 kernels with their fused convergence flags; the BFS level kernel with its
 flag; embed_bag's backward behind the kernel against autograd through its
 plain version), and the three RST flavors, biconnectivity, the tree
-queries, DIEN serving, DIEN training and the streaming layer (a stream of
-each kind, the padded live graph, ``apply_batch``'s input left unchanged)
-on the card against the same call on the CPU and with
+queries, DIEN serving, DIEN training, the streaming layer (a stream of
+each kind, the padded live graph, ``apply_batch``'s input left unchanged),
+one GNN train step per architecture and ``reorder_by_rst`` on the card against the same call on the CPU and with
 ``use_kernel=False``.
 
 Every test here needs a CUDA card (the kernels have no CPU mode) and skips
@@ -22,7 +22,9 @@ embed_bag and DIEN, whose float sums run in another order in the kernel:
 embed_bag's gradients are sums over bags or features taken in other orders
 on each side: the same tolerances, relative to the sum of each gradient's
 terms' magnitudes. DIEN training's gradients, moments and changes are
-also held to each leaf's own scale (``TRAIN_SCALED_TOL``).
+also held to each leaf's own scale (``TRAIN_SCALED_TOL``); the GNNs to
+1e-5 and 1e-4 of each gradient's scale (``GNN_TOL``). The training loop's
+watchdog must time a step's work on the card, not its launches.
 """
 import ctypes
 import dataclasses
@@ -67,7 +69,12 @@ from repro_torch.kernels.segment_table.ops import (launches_per_call,
                                                    segment_table,
                                                    segment_table_stepwise)
 from repro_torch.kernels.segment_table.ref import segment_table_ref
+from repro_torch.data import gnn_batch
+from repro_torch.launch import train as train_launch
 from repro_torch.launch.train import SMOKE_SHAPES, synthetic_batches
+from repro_torch.models import gnn as gnn_models
+from repro_torch.optim import adamw_init
+from repro_torch.train.fault import FaultTolerantLoop, StepTimeout
 from repro_torch.train.step import build_cell
 
 pytestmark = pytest.mark.cuda
@@ -1408,3 +1415,85 @@ def test_bcc_batch_on_card_matches_separate_calls(cuda):
                 assert torch.equal(getattr(got, f)[i], getattr(one, f)), f
             for f in ("n_bcc", "rst_steps", "aux_rounds", "seg_syncs"):
                 assert int(getattr(got, f)[i]) == int(getattr(one, f)), f
+
+
+# ---------------------------------------------------------------------------
+# The GNNs, the RST reorder and the training loop's watchdog (the port's
+# GNN slice): float sums in another order on the card (the scatter-adds'
+# atomics, cuBLAS), so 1e-5 abs and rel and each gradient within 1e-4 of
+# its own largest value; GAT's a_dst gradients are 0 in exact arithmetic
+# and rounding on both devices, held below 1e-8.
+
+GNN_TOL = 1e-5
+GNN_SCALED_TOL = 1e-4
+
+
+def _gnn_step_on(arch, device):
+    spec = get_arch(arch)
+    cfg = spec.make_smoke_config()
+    spec = train_launch.smoke_spec(spec, cfg)
+    step_fn, state, _ = build_cell(spec, "smoke", smoke=True, device=device)
+    _, batch = next(synthetic_batches(spec, spec.shapes["smoke"], cfg,
+                                      device=device))
+    return step_fn, state, batch
+
+
+@pytest.mark.parametrize("arch", ["gat-cora", "schnet", "dimenet",
+                                  "meshgraphnet"])
+def test_gnn_train_step_on_card_matches_cpu(cuda, arch):
+    """One smoke train step from the same parameters: loss, every
+    gradient (through the step's AdamW moments: m = 0.1 g at step 1) and
+    the new state."""
+    step_cpu, state_cpu, batch_cpu = _gnn_step_on(arch, "cpu")
+    step_gpu, state_gpu, batch_gpu = _gnn_step_on(arch, cuda)
+    params = {k: p.detach() for k, p in state_cpu["params"].named_parameters()}
+    state_gpu = {"params": gnn_models.GNNParams.from_named(
+        {k: p.to(cuda) for k, p in params.items()}).requires_grad_(),
+        "opt": adamw_init({k: p.to(cuda) for k, p in params.items()})}
+    for k, t in batch_cpu["graph"].items():
+        assert torch.equal(batch_gpu["graph"][k].cpu(), t), k
+    new_cpu, m_cpu = step_cpu(state_cpu, batch_cpu)
+    new_gpu, m_gpu = step_gpu(state_gpu, batch_gpu)
+    torch.testing.assert_close(m_gpu["loss"].cpu(), m_cpu["loss"],
+                               rtol=GNN_TOL, atol=GNN_TOL)
+    for k, want in new_cpu["opt"]["m"].items():
+        got = new_gpu["opt"]["m"][k].cpu()
+        if k.endswith("a_dst"):
+            assert want.abs().max() < 1e-8 and got.abs().max() < 1e-8
+            continue
+        torch.testing.assert_close(got, want, rtol=GNN_TOL, atol=GNN_TOL)
+        assert (got - want).abs().max() <= GNN_SCALED_TOL * want.abs().max()
+    for k, p in new_gpu["params"].named_parameters():
+        assert p.is_cuda and p.requires_grad
+        torch.testing.assert_close(p.detach().cpu(), dict(
+            new_cpu["params"].named_parameters())[k].detach(),
+            rtol=GNN_TOL, atol=GNN_TOL)
+
+
+@pytest.mark.parametrize("name,make", [
+    ("rmat(12, 8)", lambda: graphs.rmat(12, edge_factor=8, device="cpu")),
+    ("grid2d(64)", lambda: graphs.grid2d(64, device="cpu"))])
+def test_reorder_by_rst_on_card_matches_cpu(cuda, name, make):
+    g = make()
+    src, dst = g.src.numpy(), g.dst.numpy()
+    want = gnn_batch.reorder_by_rst(src, dst, g.n_nodes, device="cpu")
+    got = gnn_batch.reorder_by_rst(src, dst, g.n_nodes)
+    plain = gnn_batch.reorder_by_rst(src, dst, g.n_nodes, use_kernel=False)
+    assert got.is_cuda
+    assert torch.equal(got.cpu(), want) and torch.equal(plain.cpu(), want)
+
+
+def test_watchdog_times_out_on_device_work(cuda, tmp_path):
+    """The step's work is a sleep on the card, queued and returned at once:
+    the watchdog waits for it, times it and raises StepTimeout."""
+    def sleepy(state, batch):
+        torch.cuda._sleep(2_000_000_000)            # about a second
+        return state, {"x": state["x"] + 1}
+
+    loop = FaultTolerantLoop(step_fn=sleepy,
+                             state={"x": torch.zeros((), device=cuda)},
+                             data_iter=iter([(0, {}), (1, {})]),
+                             ckpt_dir=tmp_path, step_timeout_s=0.2,
+                             max_retries=0)
+    with pytest.raises(StepTimeout):
+        loop.run(1)

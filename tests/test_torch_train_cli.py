@@ -1,0 +1,65 @@
+"""The port's training CLI, ``launch.train.main(argv, device="cpu")``, on the
+CPU at the smoke configs: for each GNN id and DIEN, 4 steps with a
+checkpoint every 2, then a second call with ``--steps 6`` that resumes at
+4 (and a third with ``--steps 4`` that resumes at 4, runs nothing and
+holds the first call's state bit-equal), the reference's report lines;
+an LM id and ``ogb_products`` raise."""
+import re
+
+import pytest
+import torch
+
+from repro_torch.launch import train
+from repro_torch.train import checkpoint as ckpt
+
+STEP_LINE = re.compile(r"^step +(\d+)  loss (-?\d+\.\d{4})  \d+ ms$")
+DONE_LINE = re.compile(r"^done: (\d+) steps in \d+\.\d+s; retries=0 "
+                       r"stragglers=\d+$")
+
+
+def _main(capsys, tmp_path, arch, steps):
+    loop = train.main(["--arch", arch, "--smoke", "--steps", str(steps),
+                       "--ckpt-every", "2", "--ckpt-dir", str(tmp_path)],
+                      device="cpu")
+    lines = capsys.readouterr().out.splitlines()
+    return loop, lines
+
+
+@pytest.mark.parametrize("arch", ["gat-cora", "schnet", "dimenet",
+                                  "meshgraphnet", "dien"])
+def test_main_smoke_runs_and_resumes(capsys, tmp_path, arch):
+    loop, lines = _main(capsys, tmp_path, arch, 4)
+    assert loop.step == 4 and loop.retries == 0
+    steps = [int(STEP_LINE.match(ln).group(1)) for ln in lines[:-1]]
+    assert steps == [1] and DONE_LINE.match(lines[-1])
+    assert int(DONE_LINE.match(lines[-1]).group(1)) == 4
+    assert ckpt.latest_step(tmp_path / arch) == 4
+    first = {k: p.detach().clone()
+             for k, p in loop.state["params"].named_parameters()}
+
+    loop, lines = _main(capsys, tmp_path, arch, 6)
+    assert loop.step == 6
+    assert [int(STEP_LINE.match(ln).group(1)) for ln in lines[:-1]] == [5]
+    assert ckpt.latest_step(tmp_path / arch) == 6
+    assert int(loop.state["opt"]["step"]) == 6
+    assert all(torch.isfinite(p).all()
+               for p in loop.state["params"].parameters())
+
+    # Resuming at 4 with --steps 4 runs nothing: the checkpoint of step 4
+    # is the first call's state, bit for bit.
+    (tmp_path / arch / "step_0000000006").rename(tmp_path / "kept")
+    loop, lines = _main(capsys, tmp_path, arch, 4)
+    assert loop.step == 4 and len(lines) == 1
+    got = dict(loop.state["params"].named_parameters())
+    assert list(got) == list(first)
+    for k, t in first.items():
+        assert got[k].requires_grad and torch.equal(got[k].detach(), t), k
+
+
+def test_main_refuses_what_is_not_ported(tmp_path):
+    for arch in ("llama3.2-1b", "dbrx-132b"):
+        with pytest.raises(NotImplementedError, match="item 15"):
+            train.main(["--arch", arch, "--smoke"], device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh code"):
+        train.main(["--arch", "gat-cora", "--shape", "ogb_products",
+                    "--ckpt-dir", str(tmp_path)], device="cpu")
