@@ -196,6 +196,35 @@ Phases, in order; any failure raises and the script exits non-zero:
         resumed from 4, both bit-equal to a clean run) and a StepTimeout
         from a sleep on the card that outlasts the watchdog (one
         ``{"train_loop": ...}`` line);
+     m. the five LMs (``models.transformer``, ``launch.serve``, the LM
+        cells of ``train.step``, ``launch.train``), TF32 off (printed):
+        ``serve_requests`` at the full config of llama3.2-1b, qwen3-1.7b,
+        minicpm-2b and moonshot-v1-16b-a3b (56 GB of bf16 weights) with
+        the serve CLI's defaults (batch 8, prompt 32, 32 new tokens, 2
+        requests): prefill ms, decode ms a token beside its bound, tokens/s,
+        peak GB and the host syncs of 4 decode steps (torch's sync debug
+        mode: 0), each model freed before the next (one ``{"lm_serve":
+        ...}`` line each); ``serve.main`` for dbrx-132b (its smoke config:
+        263 GB of weights do not fit); ``long_500k`` unreduced for
+        llama3.2-1b and qwen3-1.7b (524,288 cached positions of seeded
+        normals, 5 decode steps attending to all of them: ms a token beside
+        the bound of one pass over weights and cache, host syncs 0), then
+        at full width with the batch cut (printed as ``reduced``):
+        llama3.2-1b's decode_32k at batch 16, prefill_32k at batch 1 and
+        train_4k at batch 4 (3 steps under ``FaultTolerantLoop``, the
+        full config's two-level remat, cosine lr); ``launch.train.main
+        --smoke`` for minicpm-2b (WSD), moonshot and dbrx; every other
+        full-shape cell built on ``meta`` with its state's and inputs'
+        bytes (one ``{"lm_meta": ...}`` line an arch); then the gates, the
+        card against the port on the CPU in float32 on the same weights
+        and tokens, within 1e-4 of each output's scale: llama3.2-1b at full
+        width (4 teacher-forced decode steps' logits at batch 2, a prefill
+        at sequence 256, one train step's loss and every gradient at 1 ×
+        128) and moonshot at its full widths with 2 layers (the same
+        decode and prefill, and layer 0's MoE routing of 256 tokens: top
+        experts, positions, keep masks and capacity bit-equal), and
+        llama's bf16 run on the card within 5e-2 of its float32 one; no
+        kernel launched (the nine counts printed);
   6. one JSON line listing the kernels, then the result line
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -206,8 +235,9 @@ one gconn_euler ``biconnectivity`` per
 graph, one DIEN forward at ``serve_p99`` and at ``serve_bulk``, one DIEN
 training step at ``train_batch``, the measured batch of grid2d(4096)
 churn B = 65,536 (apply, incremental tour and BCC), one train step of
-each GNN at minibatch_lg and one GAT step on rmat(19, edge_factor=16) in
-RST order.
+each GNN at minibatch_lg, one GAT step on rmat(19, edge_factor=16) in
+RST order, one llama3.2-1b decode step at batch 8, its prefill_32k at
+batch 1 and one train_4k step at batch 4.
 Without a CUDA card, or outside the repository, the script exits non-zero
 and prints no result.
 """
@@ -414,6 +444,32 @@ WATCHDOG_CYCLES = 1_000_000_000
 WATCHDOG_S = 0.2
 TRAIN_LOOP_KERNELS = ("hook_edges", "pointer_jump_double", "list_rank_double",
                       "embed_bag")
+# Phase 5m, the LMs. The bf16 dense tensor-core rate of the H100 SXM at
+# 700 W (NVIDIA data sheet), against which the LM cells' products count.
+BF16_FLOP_PER_S = 989e12
+LM_IDS = ("llama3.2-1b", "qwen3-1.7b", "minicpm-2b", "moonshot-v1-16b-a3b",
+          "dbrx-132b")
+# Served at full width with the serve CLI's defaults (dbrx-132b's 263 GB of
+# weights do not fit: its smoke config through the CLI).
+LM_SERVE_ARCHS = ("llama3.2-1b", "qwen3-1.7b", "minicpm-2b",
+                  "moonshot-v1-16b-a3b")
+LM_SERVE = dict(batch=8, prompt_len=32, max_new=32, requests=2)
+LM_SYNC_STEPS = 4
+# long_500k unreduced (batch 1, 524,288 cached positions).
+LM_LONG = ("llama3.2-1b", "qwen3-1.7b")
+LM_DECODE_STEPS = 4
+# The cells' batches cut to fit one card: decode_32k 128 -> 16, prefill_32k
+# 32 -> 1, train_4k 256 -> 4.
+LM_DECODE_BATCH = 16
+LM_PREFILL_BATCH = 1
+LM_TRAIN_BATCH = 4
+LM_TRAIN_STEPS = 3
+LM_SMOKE_TRAIN = ("minicpm-2b", "moonshot-v1-16b-a3b", "dbrx-132b")
+LM_GATE_SEED = 24
+# The float32 gates (card against CPU), of each output's or leaf's scale;
+# bf16 on the card against its own float32 run.
+LM_GATE_TOL = 1e-4
+LM_BF16_TOL = 5e-2
 
 
 def fail(msg: str):
@@ -2729,6 +2785,513 @@ def train_loop_checks(torch, card, counted) -> tuple:
              "launches": {k: v for k, v in total.items() if v}}, total)
 
 
+# ---------------------------------------------------------------------------
+# 5m. The LMs
+# ---------------------------------------------------------------------------
+
+def lm_param_bytes(params) -> int:
+    return tensor_bytes(list(params.parameters()))
+
+
+def lm_decode_bound_ms(cfg, params, batch: int, cache_len: int) -> tuple:
+    """The least time of one decode step: every weight read once (the
+    embedding table only for its ``batch`` rows unless tied, where the
+    unembed reads it whole) and the whole static cache's K and V, over the
+    HBM rate; against the step's operations (2 a weight a token, 4 a cached
+    position a query head a lane of Dh) over the bf16 tensor rate. Returns
+    (ms, "bytes" or "operations")."""
+    weights = lm_param_bytes(params)
+    embed = params["embed"]
+    if params.get("unembed") is not None:
+        weights -= tensor_bytes([embed]) - batch * embed.shape[1] * 2
+    kv = 2 * cfg.n_layers * batch * cache_len * cfg.n_kv_heads * cfg.d_head * 2
+    flops = (2 * batch * cfg.active_param_count()
+             + 4 * batch * cfg.n_layers * cfg.n_heads * cache_len * cfg.d_head)
+    t_bytes = (weights + kv) / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+
+
+def lm_attention_flops(cfg, batch: int, seq: int) -> int:
+    """The causal chunked attention's products over the blocks the port
+    computes (a key block wholly after its query block is skipped): 4 a
+    query head, query, key and lane of Dh, every layer."""
+    n_q = max(seq // cfg.q_chunk, 1)
+    qc = seq // n_q
+    n_kv = max(seq // cfg.kv_chunk, 1)
+    kvc = seq // n_kv
+    blocks = sum(1 for i in range(n_q) for j in range(n_kv)
+                 if j * kvc <= i * qc + qc - 1)
+    return 4 * batch * cfg.n_heads * qc * kvc * cfg.d_head * blocks \
+        * cfg.n_layers
+
+
+def lm_serve_line(torch, dev, arch, card, counted, profile=None) -> dict:
+    """Phase 5m a: ``serve_requests`` at the full config with the CLI's
+    defaults; then the host syncs of LM_SYNC_STEPS decode steps (torch's
+    sync debug mode). ``profile``, where given, profiles one decode step of
+    llama3.2-1b at batch 8."""
+    import contextlib
+    import io
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    cfg = get_arch(arch).make_config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tfm.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res, counts = counted(lambda: serve.serve_requests(
+            cfg, params, device=dev, **LM_SERVE))
+    report = out.getvalue().splitlines()
+    check(len(report) == LM_SERVE["requests"]
+          and all(ln.startswith(f"request batch {i}: prefill")
+                  for i, ln in enumerate(report)), f"{arch} serve: {report}")
+    toks = torch.cat(res["tokens"])
+    check(toks.shape == (LM_SERVE["requests"] * LM_SERVE["batch"],
+                         LM_SERVE["max_new"])
+          and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          f"{arch} serve: tokens {toks.shape}")
+    new = LM_SERVE["max_new"] - 1
+    cache = tfm.init_kv_cache(cfg, LM_SERVE["batch"], LM_SYNC_STEPS + 1,
+                              device=dev)
+    tok = toks[:LM_SERVE["batch"], 0].contiguous()
+
+    def steps():
+        with torch.inference_mode():
+            for _ in range(LM_SYNC_STEPS):
+                logits, _ = tfm.decode_step(cfg, params, tok, cache)
+        return logits
+
+    torch.cuda.synchronize()
+    logits, syncs = host_syncs(torch, steps)
+    check(bool(torch.isfinite(logits).all()), f"{arch}: logits not finite")
+    if profile is not None:
+        cache["len"] = 0
+        profile(f"{arch} decode step, batch {LM_SERVE['batch']}",
+                lambda: torch.inference_mode()(
+                    lambda: tfm.decode_step(cfg, params, tok, cache))())
+    bound, bound_by = lm_decode_bound_ms(
+        cfg, params, LM_SERVE["batch"],
+        LM_SERVE["prompt_len"] + LM_SERVE["max_new"])
+    line = {"lm_serve": arch, "card": card, "config": "full",
+            **LM_SERVE, "params": sum(p.numel() for p in params.parameters()),
+            "weights_gb": lm_param_bytes(params) / 1e9,
+            "init_s": init_s,
+            "prefill_ms": [s * 1e3 for s in res["prefill_s"]],
+            "prefill_tokens_per_s": [LM_SERVE["batch"] * LM_SERVE["prompt_len"]
+                                     / s for s in res["prefill_s"]],
+            "decode_ms_per_token": [s * 1e3 / new for s in res["decode_s"]],
+            "decode_tokens_per_s": [LM_SERVE["batch"] * new / s
+                                    for s in res["decode_s"]],
+            "decode_bound_ms": bound, "bound_by": bound_by,
+            "host_syncs_per_decode_step": syncs / LM_SYNC_STEPS,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": {k: v for k, v in counts.items() if v},
+            "report": report}
+    check(syncs == 0, f"{arch}: {syncs} host syncs in {LM_SYNC_STEPS} "
+          "decode steps")
+    del params, cache, res, toks, logits
+    torch.cuda.empty_cache()
+    return line
+
+
+def lm_serve_cli(torch, dev, card, counted) -> dict:
+    """Phase 5m a: ``serve.main`` for dbrx-132b (the CLI serves the smoke
+    config: its ``--smoke`` flag is on by default)."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    out = io.StringIO()
+    argv = ["--arch", "dbrx-132b"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res, counts = counted(lambda: serve.main(argv, device=dev))
+    report = out.getvalue().splitlines()
+    check(report[-1].startswith("median decode throughput:")
+          and report[-1].endswith("dbrx-132b smoke)"), f"serve cli: {report}")
+    return {"lm_serve_cli": "dbrx-132b", "card": card, "argv": argv,
+            "seconds": time.perf_counter() - t0, "report": report,
+            "launches": {k: v for k, v in counts.items() if v}}
+
+
+def lm_reduced_spec(arch, shape_name, **changes):
+    """``(spec, name)``: the arch with one cell, ``shape_name``'s shape with
+    ``changes`` (a reduced batch), under a name of its own (so
+    ``build_cell`` builds it on the card)."""
+    from repro_torch.configs import LM_SHAPES, get_arch
+    shape = dict(LM_SHAPES[shape_name], **changes)
+    name = shape_name + "".join(f"/{k}{v}" for k, v in changes.items())
+    return dataclasses.replace(get_arch(arch), shapes={name: shape}), name
+
+
+def lm_decode_line(torch, dev, arch, shape_name, card, counted,
+                   **changes) -> dict:
+    """Phase 5m b: a decode cell through ``build_cell``: its cache filled
+    with seeded normals and ``len`` set so the LM_DECODE_STEPS timed steps
+    attend to the whole cache; ms a token (a synchronize after each step)
+    beside the step's bound, host syncs a step, peak GB."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.step import build_cell
+    spec, name = lm_reduced_spec(arch, shape_name, **changes)
+    shape = spec.shapes[name]
+    b, s = shape["batch"], shape["seq"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_fn, params, inputs = build_cell(spec, name, device=dev)
+    cfg = spec.make_config()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cache = tfm.init_kv_cache(cfg, b, s, device=dev)
+    check(cache["k"].shape == inputs["cache"]["k"].shape,
+          f"{arch}/{name}: cache shape")
+    for t in (cache["k"], cache["v"]):
+        for layer in t:
+            layer.normal_(generator=gen)
+    cache["len"] = s - LM_DECODE_STEPS - 1
+    tok = torch.randint(0, cfg.vocab, (b,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    batch = {"token": tok, "cache": cache}
+    ms = []
+    total = {}
+    for i in range(LM_DECODE_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (logits, _), counts = counted(lambda: step_fn(params, batch))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    check(bool(torch.isfinite(logits).all()) and logits.shape == (b,
+                                                                  cfg.vocab),
+          f"{arch}/{name}: logits")
+    cache["len"] -= 1
+    _, syncs = host_syncs(torch, lambda: step_fn(params, batch))
+    check(syncs == 0, f"{arch}/{name}: {syncs} host syncs a decode step")
+    bound, bound_by = lm_decode_bound_ms(cfg, params, b, s)
+    line = {"lm_cell": f"{arch}/{shape_name}", "card": card,
+            "reduced": changes or None, "batch": b, "cache_len": s,
+            "kv_gb": tensor_bytes([cache["k"], cache["v"]]) / 1e9,
+            "weights_gb": lm_param_bytes(params) / 1e9,
+            "ms_per_token": ms[1:], "first_ms": ms[0],
+            "ms_per_token_median": statistics.median(ms[1:]),
+            "tokens_per_s": b * 1e3 / statistics.median(ms[1:]),
+            "bound_ms": bound, "bound_by": bound_by,
+            "host_syncs_per_step": syncs,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": {k: v for k, v in total.items() if v}}
+    del params, cache, batch, logits, inputs, step_fn
+    torch.cuda.empty_cache()
+    return line
+
+
+def lm_prefill_line(torch, dev, arch, card, counted, profile=None,
+                    **changes) -> dict:
+    """Phase 5m b: prefill_32k through ``build_cell`` at a reduced batch:
+    one call (and one more under ``profile``), ms and tokens/s beside its
+    operations bound."""
+    from repro_torch.train.step import build_cell
+    spec, name = lm_reduced_spec(arch, "prefill_32k", **changes)
+    shape = spec.shapes[name]
+    b, s = shape["batch"], shape["seq"]
+    cfg = spec.make_config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_fn, params, _ = build_cell(spec, name, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev,
+                           dtype=torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, counts = counted(lambda: step_fn(params, {"tokens": tokens}))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    check(bool(torch.isfinite(logits).all()) and logits.shape == (b,
+                                                                  cfg.vocab),
+          f"{arch}/{name}: logits")
+    if profile is not None:
+        profile(f"{arch} prefill_32k, batch {b}",
+                lambda: step_fn(params, {"tokens": tokens}))
+    embed_rows = b * s * cfg.d_model * 2
+    tables = 1 if cfg.tie_embeddings else 2
+    matmul = 2 * b * s * (cfg.active_param_count()
+                          - tables * cfg.vocab * cfg.d_model) \
+        + 2 * b * cfg.d_model * cfg.vocab_padded
+    attn = lm_attention_flops(cfg, b, s)
+    t_ops = (matmul + attn) / BF16_FLOP_PER_S * 1e3
+    t_bytes = (lm_param_bytes(params) + embed_rows) / HBM_BYTES_PER_S * 1e3
+    line = {"lm_cell": f"{arch}/prefill_32k", "card": card,
+            "reduced": changes, "batch": b, "seq": s, "ms": ms,
+            "tokens_per_s": b * s * 1e3 / ms,
+            "matmul_tflop": matmul / 1e12, "attention_tflop": attn / 1e12,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": {k: v for k, v in counts.items() if v}}
+    del params, tokens, logits
+    torch.cuda.empty_cache()
+    return line
+
+
+def lm_train_line(torch, dev, arch, card, counted, profile=None,
+                  **changes) -> dict:
+    """Phase 5m b: train_4k through ``build_cell`` (the full config's
+    two-level remat) at a reduced batch, LM_TRAIN_STEPS steps under
+    ``FaultTolerantLoop`` (no checkpoint): step ms (the watchdog's clock),
+    tokens/s beside 6 N T over the bf16 rate, peak GB, the losses."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.train import synthetic_batches
+    from repro_torch.train.fault import FaultTolerantLoop
+    from repro_torch.train.step import REMAT_GROUPS, build_cell
+    spec, name = lm_reduced_spec(arch, "train_4k", **changes)
+    shape = spec.shapes[name]
+    b, s = shape["batch"], shape["seq"]
+    cfg = spec.make_config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_fn, state, _ = build_cell(spec, name, device=dev)
+    metrics = []
+    root = ROOT / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="lm-train-", dir=root))
+    try:
+        loop = FaultTolerantLoop(
+            step_fn=step_fn, state=state,
+            data_iter=synthetic_batches(spec, shape, cfg, device=dev),
+            ckpt_dir=tmp, ckpt_every=LM_TRAIN_STEPS + 1)
+        _, counts = counted(lambda: loop.run(LM_TRAIN_STEPS, on_metrics=(
+            lambda step, m, dt: metrics.append(
+                (dt * 1e3, float(m["loss"]), float(m["grad_norm"]),
+                 float(m["lr"]))))))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(len(metrics) == LM_TRAIN_STEPS and all(
+        math.isfinite(x) for m in metrics for x in m),
+        f"{arch}/{name}: metrics {metrics}")
+    if profile is not None:
+        _, batch = next(synthetic_batches(spec, shape, cfg, device=dev))
+        profile(f"{arch} train_4k step, batch {b}",
+                lambda: step_fn(loop.state, batch))
+    step_ms = [m[0] for m in metrics]
+    flops = 6 * b * s * cfg.active_param_count() \
+        + 3 * lm_attention_flops(cfg, b, s)
+    line = {"lm_cell": f"{arch}/train_4k", "card": card, "reduced": changes,
+            "batch": b, "seq": s,
+            "remat_groups": REMAT_GROUPS.get(cfg.n_layers, 0),
+            "step_ms": step_ms,
+            "step_ms_median": statistics.median(step_ms[1:]),
+            "tokens_per_s": b * s * 1e3 / statistics.median(step_ms[1:]),
+            "losses": [m[1] for m in metrics],
+            "grad_norms": [m[2] for m in metrics],
+            "lrs": [m[3] for m in metrics],
+            "bound_ms": flops / BF16_FLOP_PER_S * 1e3,
+            "bound_by": "operations (6 N T + 3 x attention; no recompute)",
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": {k: v for k, v in counts.items() if v}}
+    del state, loop, step_fn
+    torch.cuda.empty_cache()
+    return line
+
+
+def lm_smoke_trains(torch, dev, card, counted) -> list:
+    """Phase 5m b: ``launch.train.main --smoke`` for minicpm-2b (WSD),
+    moonshot and dbrx, LM_TRAIN_STEPS steps each with a checkpoint."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from repro_torch.launch import train as train_cli
+    root = ROOT / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="lm-cli-", dir=root))
+    lines = []
+    try:
+        for arch in LM_SMOKE_TRAIN:
+            argv = ["--arch", arch, "--smoke", "--steps", str(LM_TRAIN_STEPS),
+                    "--ckpt-every", str(LM_TRAIN_STEPS), "--ckpt-dir",
+                    str(tmp)]
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                loop, counts = counted(lambda: train_cli.main(argv, device=dev))
+            report = out.getvalue().splitlines()
+            check(loop.step == LM_TRAIN_STEPS and report[-1].startswith(
+                f"done: {LM_TRAIN_STEPS} steps"), f"{arch}: {report}")
+            lines.append({"lm_train_cli": arch, "card": card,
+                          "argv": argv[:-2], "seconds":
+                          time.perf_counter() - t0, "report": report,
+                          "launches": {k: v for k, v in counts.items()
+                                       if v}})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lines
+
+
+def lm_meta(torch, arch) -> dict:
+    """Phase 5m b: every full-shape cell of ``arch`` that does not fit one
+    card, built on ``meta``: its state's and inputs' bytes."""
+    from repro_torch.configs import LM_SHAPES, get_arch
+    from repro_torch.train.step import build_cell, sharded_cell
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        if isinstance(tree, torch.nn.Module):
+            return list(tree.parameters())
+        return [tree] if isinstance(tree, torch.Tensor) else []
+
+    cells = {}
+    for shape_name in LM_SHAPES:
+        if not sharded_cell(arch, shape_name):
+            continue
+        _, state, inputs = build_cell(get_arch(arch), shape_name)
+        ts = leaves(state) + leaves(inputs)
+        check(all(t.device.type == "meta" for t in ts),
+              f"{arch}/{shape_name}: a tensor off the meta device")
+        cells[shape_name] = {"state_gb": tensor_bytes(leaves(state)) / 1e9,
+                             "inputs_gb": tensor_bytes(leaves(inputs)) / 1e9}
+    return {"lm_meta": arch, "device": "meta", "cells": cells}
+
+
+def lm_gate_lines(torch, dev, card, counted) -> tuple:
+    """Phase 5m c: the card against the port on the CPU, the same weights
+    and tokens, in float32 (TF32 off): llama3.2-1b at full width (4
+    teacher-forced decode steps at batch 2, a prefill at sequence 256, and
+    one train step's loss and every gradient at 1 × 128), and moonshot at
+    its full widths with 2 layers (the same decode and prefill, and the MoE
+    routing of layer 0 on the same 256 tokens: keep masks, positions, top
+    experts and capacity bit-equal); then llama in bf16 on the card against
+    its float32 run. Returns (lines, launches)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+    import numpy as np
+    from repro_torch.train.step import lm_prefill_cell as prefill_cell
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(LM_GATE_SEED)
+    total = {}
+    lines = []
+
+    def run(fn):
+        out, counts = counted(fn)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return out
+
+    def scaled(got, want) -> float:
+        got, want = got.detach().cpu().double(), want.detach().cpu().double()
+        return float((got - want).abs().max() / want.abs().max())
+
+    def decode_logits(cfg, params, toks):
+        cache = tfm.init_kv_cache(cfg, toks.shape[0], 8,
+                                  device=params["embed"].device)
+        out = []
+        with torch.inference_mode():
+            for i in range(toks.shape[1]):
+                logits, cache = tfm.decode_step(cfg, params, toks[:, i],
+                                                cache)
+                out.append(logits)
+        return out
+
+    for arch, changes in (("llama3.2-1b", {}),
+                          ("moonshot-v1-16b-a3b", {"n_layers": 2})):
+        cfg = dataclasses.replace(get_arch(arch).make_config(),
+                                  dtype=torch.float32, **changes)
+        gpu = tfm.init_params(cfg, generator=torch.Generator(
+            device=dev).manual_seed(3), device=dev)
+        host = tfm.LMParams.from_named({k: p.cpu() for k, p in
+                                        gpu.named_parameters()})
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 4)
+                                             ).astype(np.int32))
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 256)
+                                               ).astype(np.int32))
+        t0 = time.perf_counter()
+        want_dec = decode_logits(cfg, host, toks)
+        cell, _, _ = prefill_cell(cfg, batch=1, seq=256,
+                                  device=torch.device("meta"))
+        want_pre = cell(host, {"tokens": prompt})
+        cpu_s = time.perf_counter() - t0
+        got_dec = run(lambda: decode_logits(cfg, gpu, toks.to(dev)))
+        got_pre = run(lambda: cell(gpu, {"tokens": prompt.to(dev)}))
+        dec_err = max(scaled(g, w) for g, w in zip(got_dec, want_dec))
+        pre_err = scaled(got_pre, want_pre)
+        check(dec_err <= LM_GATE_TOL and pre_err <= LM_GATE_TOL,
+              f"{arch} gate: decode {dec_err}, prefill {pre_err}")
+        line = {"lm_gate": arch, "card": card, "dtype": "float32",
+                "changes": changes or None, "tol": LM_GATE_TOL,
+                "decode_steps": toks.shape[1], "decode_batch": 2,
+                "decode_scaled_err": dec_err, "prefill_seq": 256,
+                "prefill_scaled_err": pre_err, "cpu_s": cpu_s}
+        if cfg.is_moe:
+            with torch.inference_mode():
+                x = tfm.rms_norm(tfm._embed(cfg, host, prompt[0]),
+                                 host.layers.ln_mlp[0])
+                w = host.layers.router[0]
+                want_r = tfm.moe_route(x, w, cfg)
+                got_r = run(lambda: tfm.moe_route(x.to(dev), w.to(dev), cfg))
+            same = (got_r[4] == want_r[4] and all(
+                torch.equal(g.cpu(), w_) for g, w_ in
+                zip(got_r[1:4], want_r[1:4])))
+            check(same, f"{arch} gate: routing differs")
+            line.update(routing_tokens=x.shape[0], capacity=want_r[4],
+                        routing_bit_equal=same,
+                        kept=int(want_r[3].sum()),
+                        top_gates_scaled_err=scaled(got_r[0], want_r[0]))
+        else:
+            # One train step's loss and every gradient (1 x 128).
+            tgt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 128)
+                                                ).astype(np.int32))
+            src = prompt[:, :128]
+
+            def loss_grads(params, t, y):
+                params = tfm.LMParams.from_named(
+                    {k: p.detach() for k, p in params.named_parameters()}
+                ).requires_grad_()
+                names, leaves_ = zip(*params.named_parameters())
+                loss = tfm.lm_loss(cfg, params, t, y)
+                return loss.detach(), dict(zip(
+                    names, torch.autograd.grad(loss, leaves_)))
+
+            t0 = time.perf_counter()
+            want_l, want_g = loss_grads(host, src, tgt)
+            line["cpu_s"] += time.perf_counter() - t0
+            got_l, got_g = run(lambda: loss_grads(gpu, src.to(dev),
+                                                  tgt.to(dev)))
+            grad_err = {k: scaled(got_g[k], w) for k, w in want_g.items()}
+            loss_err = scaled(got_l, want_l)
+            check(loss_err <= LM_GATE_TOL and max(grad_err.values())
+                  <= LM_GATE_TOL, f"{arch} train gate: loss {loss_err}, "
+                  f"gradients {grad_err}")
+            line.update(train_loss=float(want_l), train_loss_err=loss_err,
+                        train_grad_scaled_err_max=max(grad_err.values()),
+                        train_grad_scaled_err=grad_err)
+            # bf16 on the card against its float32 run.
+            cfg16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+            p16 = tfm.LMParams.from_named(
+                {k: p.to(torch.bfloat16) if p.dtype == torch.float32
+                 and not k.split(".")[-1].startswith(("ln_", "q_norm",
+                                                      "k_norm"))
+                 else p for k, p in gpu.named_parameters()})
+            cell16, _, _ = prefill_cell(cfg16, batch=1, seq=256,
+                                        device=torch.device("meta"))
+            got16 = run(lambda: cell16(p16, {"tokens": prompt.to(dev)}))
+            dec16 = run(lambda: decode_logits(cfg16, p16, toks.to(dev)))
+            err16 = max([scaled(got16, got_pre)]
+                        + [scaled(g, w) for g, w in zip(dec16, got_dec)])
+            check(err16 <= LM_BF16_TOL, f"{arch} bf16 gate: {err16}")
+            line.update(bf16_vs_float32_scaled_err=err16,
+                        bf16_tol=LM_BF16_TOL)
+            del p16
+        lines.append(line)
+        del gpu, host
+        torch.cuda.empty_cache()
+    return lines, total
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-out", type=pathlib.Path, default=None)
@@ -4252,6 +4815,57 @@ def main() -> int:
     emit({"phase": "train", "launches": {k: v for k, v in
                                          train_launches.items() if v},
           "seconds": time.perf_counter() - t_train})
+
+    # 5m. The LMs: serving at full width, the LM cells (cut to fit where
+    # they do not), the float32 gates against the CPU; no kernel launched.
+    t_lm = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    emit({"phase": "lm start", "matmul_allow_tf32":
+          torch.backends.cuda.matmul.allow_tf32,
+          "allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    lm_launches = dict.fromkeys(launches, 0)
+    lm_profile = profile if args.profile_out is not None else None
+
+    def add_lm(line, counts=None):
+        for name in launches:
+            n = (line["launches"] if counts is None else counts).get(name, 0)
+            launches[name] += n
+            lm_launches[name] += n
+
+    for arch in LM_SERVE_ARCHS:
+        line = lm_serve_line(torch, dev, arch, card, counted,
+                             lm_profile if arch == LM_LONG[0] else None)
+        add_lm(line)
+        emit(line)
+    line = lm_serve_cli(torch, dev, card, counted)
+    add_lm(line)
+    emit(line)
+    for arch in LM_LONG:
+        line = lm_decode_line(torch, dev, arch, "long_500k", card, counted)
+        add_lm(line)
+        emit(line)
+    for line in (
+            lm_decode_line(torch, dev, LM_LONG[0], "decode_32k", card, counted,
+                           batch=LM_DECODE_BATCH),
+            lm_prefill_line(torch, dev, LM_LONG[0], card, counted, lm_profile,
+                            batch=LM_PREFILL_BATCH),
+            lm_train_line(torch, dev, LM_LONG[0], card, counted, lm_profile,
+                          batch=LM_TRAIN_BATCH),
+            *lm_smoke_trains(torch, dev, card, counted)):
+        add_lm(line)
+        emit(line)
+    for arch in LM_IDS:
+        emit(lm_meta(torch, arch))
+    lines, counts = lm_gate_lines(torch, dev, card, counted)
+    add_lm(None, counts)
+    for line in lines:
+        emit(line)
+    check(not any(lm_launches.values()),
+          f"the LM path launched a kernel: {lm_launches}")
+    emit({"phase": "lm", "matmul_allow_tf32":
+          torch.backends.cuda.matmul.allow_tf32, "launches": lm_launches,
+          "seconds": time.perf_counter() - t_lm})
 
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the paths never launched: {launches}")

@@ -1,8 +1,9 @@
 """Architecture registry: ``get_arch(arch_id)`` → ArchSpec.
 
-The port's own copy of ``repro.configs``: the same ids and the GNN and
-recsys shape tables. ``dien`` and the four GNNs are ported; ``get_arch``
-raises ``NotImplementedError`` for the LM ids (ROADMAP §1 item 15).
+The port's own copy of ``repro.configs``: the same ids, the same configs
+(an LM's ``dtype`` a torch dtype) and the LM, GNN and recsys shape tables.
+``fsdp`` (FSDP parameter sharding of an LM) is data only: it waits for the
+mesh code (ROADMAP §1 item 15).
 """
 from __future__ import annotations
 
@@ -18,6 +19,11 @@ ARCH_IDS = (
 )
 
 _MODULES = {
+    "minicpm-2b": "minicpm_2b",
+    "llama3.2-1b": "llama3_2_1b",
+    "qwen3-1.7b": "qwen3_1_7b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "dbrx-132b": "dbrx_132b",
     "dimenet": "dimenet",
     "schnet": "schnet",
     "meshgraphnet": "meshgraphnet",
@@ -33,18 +39,25 @@ class ArchSpec:
     make_config: Callable[[], Any]    # full (assigned) config
     make_smoke_config: Callable[[], Any]
     shapes: dict                      # shape_name → cell descriptor
+    fsdp: bool = False                # LM only: FSDP param sharding
+    notes: str = ""
 
 
 def get_arch(arch_id: str) -> ArchSpec:
-    if arch_id not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     if arch_id not in _MODULES:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet (ROADMAP §1 item 15); "
-            f"ported: {tuple(_MODULES)}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.get()
 
+
+LM_SHAPES = {
+    "train_4k": dict(kind="train", batch=256, seq=4096),
+    "prefill_32k": dict(kind="prefill", batch=32, seq=32768),
+    "decode_32k": dict(kind="decode", batch=128, seq=32768),
+    # Decode cost is linear in KV length (one query token); the reference
+    # runs this cell with a sequence-sharded KV cache.
+    "long_500k": dict(kind="decode", batch=1, seq=524288),
+}
 
 # GNN cells (padded to multiples of 512 so every mesh divides evenly).
 GNN_SHAPES = {

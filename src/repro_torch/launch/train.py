@@ -3,8 +3,9 @@
 The port of ``repro.launch.train``. Runs real steps on the card (or on
 the device the caller of ``main`` names). Wires together: config registry
 → cell factory → fault-tolerant loop (checkpoint/restart, watchdog,
-straggler log) → synthetic data per family. The ``gnn`` and ``recsys``
-families are ported; the LMs wait (ROADMAP §1 item 15).
+straggler log) → synthetic data per family (``lm``, ``gnn``,
+``recsys``). A cell that does not fit one card (``sharded_cell``) is
+refused: it waits for the mesh code.
 """
 from __future__ import annotations
 
@@ -19,13 +20,14 @@ from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.core.graph import resolve_device
 from repro_torch.data.gnn_batch import random_graph_batch
 from repro_torch.train.fault import FaultTolerantLoop
-from repro_torch.train.step import (ATOM_TYPES, POSITIONS, SHARDED_SHAPES,
-                                    build_cell)
+from repro_torch.train.step import (ATOM_TYPES, POSITIONS, build_cell,
+                                    sharded_cell)
 
 
 # The reference's shape of a ``--smoke`` run, by family: the cell named
-# "smoke" (the LM family is not ported, ROADMAP §1 item 15).
+# "smoke".
 SMOKE_SHAPES = {
+    "lm": dict(kind="train", batch=4, seq=64),
     "gnn": dict(kind="train", n_nodes=64, n_edges=256, d_feat=16, n_graphs=4),
     "recsys": dict(kind="train", batch=16),
 }
@@ -52,13 +54,25 @@ def synthetic_batches(spec, shape, cfg, seed=0, *,
     (the reference has no retrieval data).
     """
     dev = resolve_device(device)
+    if spec.family == "lm":
+        return _lm_batches(shape, cfg, seed, dev)
     if spec.family == "gnn":
         return _gnn_batches(spec.arch_id, shape, cfg, seed, dev)
     if spec.family == "recsys":
         return _recsys_batches(shape, cfg, seed, dev)
-    raise NotImplementedError(
-        f"synthetic data for the {spec.family!r} family is not ported "
-        "yet (ROADMAP §1 item 15)")
+    raise KeyError(f"{spec.arch_id}: unknown family {spec.family!r}")
+
+
+def _lm_batches(shape, cfg, seed, dev):
+    rng = np.random.default_rng(seed)
+    cursor = 0
+    while True:
+        b, s = shape["batch"], shape["seq"]
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s + 1)
+                                             ).astype(np.int32)).to(dev)
+        yield cursor, {"tokens": toks[:, :-1].contiguous(),
+                       "targets": toks[:, 1:].contiguous()}
+        cursor += 1
 
 
 def _gnn_batches(arch_id, shape, cfg, seed, dev):
@@ -154,7 +168,7 @@ def main(argv: list[str] | None = None, *,
         shape_name = "smoke"
     else:
         shape_name = args.shape or list(spec.shapes)[0]
-    if spec.family == "gnn" and shape_name in SHARDED_SHAPES:
+    if not args.smoke and sharded_cell(spec.arch_id, shape_name):
         raise NotImplementedError(
             f"{args.arch}/{shape_name} does not fit one card; it waits for "
             "the mesh code (ROADMAP §1 item 15)")

@@ -1,1 +1,2 @@
-"""Models of the port: DIEN's serving path (``dien``)."""
+"""Models of the port: DIEN (``dien``), the four GNNs (``gnn``) and the
+five LMs (``transformer``)."""

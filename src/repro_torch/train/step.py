@@ -1,6 +1,6 @@
 """Cell factory: ``build_cell(spec, shape_name)`` → (step_fn, state, inputs).
 
-The port of ``repro.train.step``'s DIEN and GNN cells. A cell runs on one
+The port of ``repro.train.step``'s LM, DIEN and GNN cells. A cell runs on one
 card (no mesh). ``state`` is real: for a serving cell the parameters drawn
 from seed 0, for a training cell ``{"params", "opt"}`` (the same
 parameters, trainable, and their AdamW state). ``inputs`` gives each
@@ -12,7 +12,8 @@ A GNN cell at a shape of ``SHARDED_SHAPES`` is built with its state on
 ``meta`` too: it does not fit one card (ogb_products: MeshGraphNet's edge
 input [E, 384] float32 alone is 95 GB, SchNet's RBF [E, 300] 74 GB), and
 the reference runs it sharded over a pod, which waits for the mesh code
-(ROADMAP §1 item 15). Its bytes can be read; its step is not run.
+(ROADMAP §1 item 15). Its bytes can be read; its step is not run. So is
+an LM cell of ``LM_SHARDED_CELLS`` at its full shape.
 """
 from __future__ import annotations
 
@@ -22,14 +23,40 @@ import torch
 
 from repro_torch.core.graph import resolve_device
 from repro_torch.models import gnn
+from repro_torch.models import transformer as tfm
 from repro_torch.models.dien import (DIENParams, dien_forward, dien_init,
                                      dien_loss, dien_retrieval_score)
-from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
+from repro_torch.optim import (adamw_init, adamw_update, cosine_schedule,
+                               wsd_schedule)
 
 CAND_BLOCK = 8192
 #: GNN shapes whose cells are built on ``meta``: sharded over a pod in the
 #: reference.
 SHARDED_SHAPES = frozenset({"ogb_products"})
+#: LM cells whose full shape does not fit one 80 GB card, built on ``meta``
+#: (bf16 weights; a KV cache of 2·L·B·S·Hkv·Dh bf16 values; the reference
+#: runs them sharded over a pod):
+#:   * train_4k (256 × 4096 tokens a step): one 512-position loss chunk's
+#:     float32 logits alone are 256·512·V·4 bytes, 67 GB for llama3.2-1b,
+#:     beside AdamW's float32 master and moments (12 B a parameter);
+#:   * prefill_32k (32 × 32768 tokens): llama3.2-1b's MLP activations
+#:     [1,048,576, 8192] are 17.2 GB each in bf16 and 34 GB as the float32
+#:     gate, several live at once;
+#:   * decode_32k (batch 128): KV 137 GB (llama3.2-1b) to 1,649 GB
+#:     (moonshot);
+#:   * long_500k (batch 1, 524,288 positions): KV 193 GB (minicpm-2b),
+#:     206 GB (moonshot), 86 GB (dbrx);
+#:   * every dbrx-132b cell: 263 GB of bf16 weights.
+#: long_500k runs on one card for llama3.2-1b (17.2 GB of KV, 2.5 GB of
+#: weights) and qwen3-1.7b (60.1 GB of KV, 3.4 GB of weights).
+LM_SHARDED_CELLS = frozenset(
+    (arch, shape)
+    for arch in ("minicpm-2b", "llama3.2-1b", "qwen3-1.7b",
+                 "moonshot-v1-16b-a3b", "dbrx-132b")
+    for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+) - {("llama3.2-1b", "long_500k"), ("qwen3-1.7b", "long_500k")}
+#: The reference's two-level remat groups of a full train cell, by depth.
+REMAT_GROUPS = {16: 4, 28: 7, 40: 8, 48: 8}
 #: The GNN architectures whose nodes carry 3D positions, and atom types.
 POSITIONS = ("schnet", "dimenet", "meshgraphnet")
 ATOM_TYPES = ("schnet", "dimenet")
@@ -39,9 +66,122 @@ def _meta(shape, dtype):
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
+def sharded_cell(arch_id: str, shape_name: str) -> bool:
+    """Whether the cell at this full shape is built on ``meta``: it does
+    not fit one card and waits for the mesh code."""
+    return (shape_name in SHARDED_SHAPES
+            or (arch_id, shape_name) in LM_SHARDED_CELLS)
+
+
+def _seeded(device) -> torch.Generator | None:
+    """Seed 0 on ``device`` (None on ``meta``, where nothing is drawn)."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(0)
+
+
+# ---------------------------------------------------------------------------
+# LM
+# ---------------------------------------------------------------------------
+
+def lm_train_cell(cfg, *, batch: int, seq: int, device,
+                  use_wsd: bool = False, peak_lr: float = 3e-4):
+    """One AdamW step on ``lm_loss``:
+    ``step_fn(state, batch) = (new_state, {"loss", "grad_norm", "lr"})``,
+    state ``{"params": LMParams, "opt": adamw state}``, batch ``{"tokens",
+    "targets"}`` [B, S] int32. The learning rate is taken at the state's
+    step before the update: ``wsd_schedule`` (warmup 2000, stable 100,000,
+    decay 20,000) with ``use_wsd`` (minicpm-2b), else ``cosine_schedule``
+    (warmup 2000, total 120,000), peak ``peak_lr``. Parameters are drawn
+    from seed 0 on ``device`` (nothing on ``meta``)."""
+    inputs = {"tokens": _meta((batch, seq), torch.int32),
+              "targets": _meta((batch, seq), torch.int32)}
+
+    def step_fn(state, batch_in):
+        params = state["params"]
+        names, leaves = zip(*params.named_parameters())
+        loss = tfm.lm_loss(cfg, params, batch_in["tokens"],
+                           batch_in["targets"])
+        grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+        if use_wsd:
+            lr = wsd_schedule(state["opt"]["step"], peak_lr=peak_lr,
+                              warmup=2000, stable=100_000, decay=20_000)
+        else:
+            lr = cosine_schedule(state["opt"]["step"], peak_lr=peak_lr,
+                                 warmup=2000, total=120_000)
+        new_params, new_opt, gn = adamw_update(grads, state["opt"], lr,
+                                               compute_dtype=cfg.dtype)
+        return ({"params": tfm.LMParams.from_named(new_params
+                                                   ).requires_grad_(),
+                 "opt": new_opt},
+                {"loss": loss.detach(), "grad_norm": gn, "lr": lr})
+
+    params = tfm.init_params(cfg, generator=_seeded(device),
+                             device=device).requires_grad_()
+    opt = adamw_init(dict(params.named_parameters()))
+    return step_fn, {"params": params, "opt": opt}, inputs
+
+
+def lm_prefill_cell(cfg, *, batch: int, seq: int, device):
+    """Serving prefill: ``step_fn(params, {"tokens"})`` = the last
+    position's next-token logits [B, vocab] in float32 (the unembed on that
+    position only), under ``inference_mode``."""
+    inputs = {"tokens": _meta((batch, seq), torch.int32)}
+
+    @torch.inference_mode()
+    def step_fn(params, batch_in):
+        h = tfm.forward_hidden(cfg, params, batch_in["tokens"])
+        logits = h[:, -1, :] @ tfm._unembed(cfg, params)
+        return logits[:, :cfg.vocab].float()
+
+    return step_fn, tfm.init_params(cfg, generator=_seeded(device),
+                                    device=device), inputs
+
+
+def lm_decode_cell(cfg, *, batch: int, seq: int, device):
+    """One decode step against a ``seq``-long cache:
+    ``step_fn(params, {"token", "cache"}) = decode_step(...)`` (the cache
+    updated in place), under ``inference_mode``. The inputs give the
+    token [B] and the cache's ``k``/``v`` ([L, B, Hkv, S, Dh]) on
+    ``meta``; ``tfm.init_kv_cache`` makes a real one."""
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, seq, cfg.d_head)
+    inputs = {"token": _meta((batch,), torch.int32),
+              "cache": {"k": _meta(shape, cfg.dtype),
+                        "v": _meta(shape, cfg.dtype), "len": 0}}
+
+    @torch.inference_mode()
+    def step_fn(params, batch_in):
+        return tfm.decode_step(cfg, params, batch_in["token"],
+                               batch_in["cache"])
+
+    return step_fn, tfm.init_params(cfg, generator=_seeded(device),
+                                    device=device), inputs
+
+
+def lm_cell(spec, cfg, shape_name: str, shape: dict, *, smoke: bool,
+            device):
+    """The LM branch of ``build_cell``: a full train cell's remat groups
+    from ``REMAT_GROUPS`` (no activation or expert sharding: no mesh)."""
+    kind = shape["kind"]
+    if not smoke and kind == "train":
+        cfg = dataclasses.replace(
+            cfg, remat_groups=REMAT_GROUPS.get(cfg.n_layers, 0))
+    dev = (torch.device("meta") if not smoke
+           and sharded_cell(spec.arch_id, shape_name)
+           else resolve_device(device))
+    b, s = shape["batch"], shape["seq"]
+    if kind == "train":
+        return lm_train_cell(cfg, batch=b, seq=s, device=dev,
+                             use_wsd=spec.arch_id == "minicpm-2b")
+    if kind == "prefill":
+        return lm_prefill_cell(cfg, batch=b, seq=s, device=dev)
+    if kind == "decode":
+        return lm_decode_cell(cfg, batch=b, seq=s, device=dev)
+    raise KeyError(f"{spec.arch_id}/{shape_name}")
+
+
 def _init(cfg, device):
-    gen = torch.Generator(device=device).manual_seed(0)
-    return dien_init(cfg, generator=gen, device=device)
+    return dien_init(cfg, generator=_seeded(device), device=device)
 
 
 def _batch_inputs(cfg, batch: int) -> dict:
@@ -173,9 +313,7 @@ def gnn_train_cell(arch_id: str, cfg, shape: dict, *, device,
                  "opt": new_opt},
                 {"loss": loss.detach(), "grad_norm": gn})
 
-    gen = (None if device.type == "meta"
-           else torch.Generator(device=device).manual_seed(0))
-    params = gnn_make_init(arch_id)(cfg, generator=gen,
+    params = gnn_make_init(arch_id)(cfg, generator=_seeded(device),
                                     device=device).requires_grad_()
     opt = adamw_init(dict(params.named_parameters()))
     return step_fn, {"params": params, "opt": opt}, inputs
@@ -219,12 +357,13 @@ def build_cell(spec, shape_name: str, *, smoke: bool = False,
     """(step_fn, state, inputs) for one cell of ``spec``: a serving cell's
     state is its parameters, the training cell's ``{"params", "opt"}``.
 
-    Runs on ``device``: the card unless the caller passes another (a GNN
-    cell at a shape of ``SHARDED_SHAPES``: on ``meta``). ``use_kernel``
-    goes to ``embed_bag`` (the full config runs the kernel on the card, as
-    the smoke config does, in training as in serving). A GNN's input width
-    (GAT's ``d_in``, MeshGraphNet's ``d_in_node``) is the shape's
-    ``d_feat``.
+    Runs on ``device``: the card unless the caller passes another (a cell
+    for which ``sharded_cell`` holds, at its full shape: on ``meta``).
+    ``use_kernel`` goes to ``embed_bag`` (the full config runs the kernel
+    on the card, as the smoke config does, in training as in serving). A
+    GNN's input width (GAT's ``d_in``, MeshGraphNet's ``d_in_node``) is
+    the shape's ``d_feat``. A full LM train cell takes the reference's
+    two-level remat groups (``REMAT_GROUPS``).
     """
     cfg = spec.make_smoke_config() if smoke else spec.make_config()
     shape = spec.shapes[shape_name]
@@ -235,10 +374,11 @@ def build_cell(spec, shape_name: str, *, smoke: bool = False,
         return gnn_train_cell(spec.arch_id, gnn_cell_config(spec.arch_id, cfg,
                                                             shape),
                               shape, device=dev)
+    if spec.family == "lm":
+        return lm_cell(spec, cfg, shape_name, shape, smoke=smoke,
+                       device=device)
     if spec.family != "recsys":
-        raise NotImplementedError(
-            f"{spec.arch_id}: the {spec.family!r} cells are not ported yet "
-            "(ROADMAP §1 item 15)")
+        raise KeyError(f"{spec.arch_id}: unknown family {spec.family!r}")
     dev = resolve_device(device)
     if kind == "train":
         return dien_train_cell(cfg, batch=shape["batch"], device=dev,

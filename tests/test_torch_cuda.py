@@ -9,7 +9,9 @@ plain version), and the three RST flavors, biconnectivity, the tree
 queries, DIEN serving, DIEN training, the streaming layer (a stream of
 each kind, the padded live graph, ``apply_batch``'s input left unchanged),
 one GNN train step per architecture and ``reorder_by_rst`` on the card against the same call on the CPU and with
-``use_kernel=False``.
+``use_kernel=False``; and each LM's smoke config in float32 (forward,
+three decode steps with no host sync, one train step) on the card against
+the CPU.
 
 Every test here needs a CUDA card (the kernels have no CPU mode) and skips
 without one. The file imports no JAX, so it also runs on a machine that has
@@ -73,9 +75,10 @@ from repro_torch.data import gnn_batch
 from repro_torch.launch import train as train_launch
 from repro_torch.launch.train import SMOKE_SHAPES, synthetic_batches
 from repro_torch.models import gnn as gnn_models
+from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw_init
 from repro_torch.train.fault import FaultTolerantLoop, StepTimeout
-from repro_torch.train.step import build_cell
+from repro_torch.train.step import build_cell, lm_train_cell
 
 pytestmark = pytest.mark.cuda
 
@@ -1497,3 +1500,65 @@ def test_watchdog_times_out_on_device_work(cuda, tmp_path):
                              max_retries=0)
     with pytest.raises(StepTimeout):
         loop.run(1)
+
+
+LM_IDS = ("llama3.2-1b", "qwen3-1.7b", "minicpm-2b", "moonshot-v1-16b-a3b",
+          "dbrx-132b")
+LM_TOL = 1e-5
+
+
+def _scaled(got, want) -> float:
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("arch", LM_IDS)
+def test_lm_on_card_matches_cpu(cuda, arch):
+    """The smoke config in float32 (TF32 off) from the same weights: the
+    forward's logits, three decode steps (the cache written in place on the
+    card, no host sync a step: sync debug mode "error"), and one train
+    step's loss, grad_norm and m (0.1 g), each within 1e-5 of its scale."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    spec = get_arch(arch)
+    cfg = dataclasses.replace(spec.make_smoke_config(), dtype=torch.float32)
+    cpu = tfm.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+    gpu = tfm.LMParams.from_named({k: p.to(cuda) for k, p in
+                                   cpu.named_parameters()})
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 24)).astype(np.int32))
+    with torch.inference_mode():
+        want = tfm.forward(cfg, cpu, toks)
+        got = tfm.forward(cfg, gpu, toks.to(cuda))
+        assert _scaled(got, want) <= LM_TOL
+        c_cpu = tfm.init_kv_cache(cfg, 2, 8, device="cpu")
+        c_gpu = tfm.init_kv_cache(cfg, 2, 8, device=cuda)
+        k_buf = c_gpu["k"]
+        t_gpu = toks.to(cuda)
+        for i in range(3):
+            want, c_cpu = tfm.decode_step(cfg, cpu, toks[:, i], c_cpu)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got, c_gpu = tfm.decode_step(cfg, gpu, t_gpu[:, i], c_gpu)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert _scaled(got, want) <= LM_TOL, i
+        assert c_gpu["k"] is k_buf and c_gpu["len"] == 3
+        assert _scaled(c_gpu["v"], c_cpu["v"]) <= LM_TOL
+
+    cells = {}
+    for dev in ("cpu", cuda):
+        step_fn, _, _ = lm_train_cell(cfg, batch=2, seq=24,
+                                      device=torch.device(dev))
+        params = tfm.LMParams.from_named(
+            {k: p.to(dev) for k, p in cpu.named_parameters()}).requires_grad_()
+        state = {"params": params,
+                 "opt": adamw_init(dict(params.named_parameters()))}
+        batch = {"tokens": toks.to(dev), "targets": toks.roll(1, 1).to(dev)}
+        cells[str(dev)] = step_fn(state, batch)
+    (new_c, m_c), (new_g, m_g) = cells["cpu"], cells[str(cuda)]
+    for k in ("loss", "grad_norm"):
+        assert _scaled(m_g[k], m_c[k]) <= LM_TOL, k
+    for k, want in new_c["opt"]["m"].items():
+        assert _scaled(new_g["opt"]["m"][k], want) <= LM_TOL, k

@@ -28,6 +28,7 @@ from repro_torch.configs import ARCH_IDS, RECSYS_SHAPES, get_arch
 from repro_torch.launch.train import synthetic_batches
 from repro_torch.models import dien as td
 from repro_torch.train.step import build_cell
+from test_torch_transformer import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 # The assigned widths (embed 18, T 100, GRU 108, MLP 200-80) with small
@@ -239,20 +240,23 @@ def test_registry_and_unported_kinds():
         assert shape == {k: ref_shapes[name][k] for k in shape}, name
     spec = get_arch("dien")
     assert spec.make_config() == td.DIENConfig()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_arch("llama3.2-1b")
+    # Every id is ported (the LMs: tests/test_torch_transformer.py).
+    assert get_arch("llama3.2-1b").family == "lm"
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
-    # The train kind is ported (tests/test_torch_train.py); the other
-    # families' cells are not.
+    # The train kind is ported (tests/test_torch_train.py); a full-shape LM
+    # cell that does not fit one card is built on meta and an unknown
+    # family is refused.
     _, state, _ = build_cell(spec, "train_batch", smoke=True, device="cpu")
     assert set(state) == {"params", "opt"}
-    with pytest.raises(NotImplementedError, match="item 15"):
-        build_cell(dataclasses.replace(spec, family="lm"), "train_batch",
+    _, state, _ = build_cell(get_arch("llama3.2-1b"), "train_4k")
+    assert state["params"].embed.device.type == "meta"
+    with pytest.raises(KeyError, match="unknown family"):
+        build_cell(dataclasses.replace(spec, family="vision"), "train_batch",
                    smoke=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        synthetic_batches(dataclasses.replace(spec, family="lm"), {}, None,
-                          device="cpu")
+    with pytest.raises(KeyError, match="unknown family"):
+        synthetic_batches(dataclasses.replace(spec, family="vision"), {},
+                          None, device="cpu")
 
 
 def test_params_on_another_device_raise():

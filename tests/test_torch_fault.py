@@ -70,10 +70,14 @@ def test_loop_resumes_at_the_last_checkpoint(tmp_path):
 
 
 def test_straggler_at_index_4(tmp_path):
+    """Every step takes 10 ms and the fifth 260 ms: only the fifth is more
+    than 3x the EWMA (steps of a few microseconds, as the reference's
+    test has them, are 3x apart whenever the host is busy)."""
     calls = {"n": 0}
 
     def step_fn(state, batch):
         calls["n"] += 1
+        time.sleep(0.01)
         if calls["n"] == 5:
             time.sleep(0.25)               # synthetic straggler
         return state, {"loss": torch.zeros(())}

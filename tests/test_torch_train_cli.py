@@ -1,9 +1,10 @@
 """The port's training CLI, ``launch.train.main(argv, device="cpu")``, on the
-CPU at the smoke configs: for each GNN id and DIEN, 4 steps with a
-checkpoint every 2, then a second call with ``--steps 6`` that resumes at
-4 (and a third with ``--steps 4`` that resumes at 4, runs nothing and
-holds the first call's state bit-equal), the reference's report lines;
-an LM id and ``ogb_products`` raise."""
+CPU at the smoke configs: for each LM id, each GNN id and DIEN, 4 steps
+with a checkpoint every 2, then a second call with ``--steps 6`` that
+resumes at 4 (and a third with ``--steps 4`` that resumes at 4, runs
+nothing and holds the first call's state bit-equal), the reference's
+report lines; the full-shape cells that do not fit one card (every LM's
+default ``train_4k``, ``ogb_products``) raise, naming the mesh code."""
 import re
 
 import pytest
@@ -11,6 +12,7 @@ import torch
 
 from repro_torch.launch import train
 from repro_torch.train import checkpoint as ckpt
+from test_torch_transformer import one_torch_thread  # noqa: F401 (autouse)
 
 STEP_LINE = re.compile(r"^step +(\d+)  loss (-?\d+\.\d{4})  \d+ ms$")
 DONE_LINE = re.compile(r"^done: (\d+) steps in \d+\.\d+s; retries=0 "
@@ -26,7 +28,9 @@ def _main(capsys, tmp_path, arch, steps):
 
 
 @pytest.mark.parametrize("arch", ["gat-cora", "schnet", "dimenet",
-                                  "meshgraphnet", "dien"])
+                                  "meshgraphnet", "dien", "minicpm-2b",
+                                  "llama3.2-1b", "qwen3-1.7b",
+                                  "moonshot-v1-16b-a3b", "dbrx-132b"])
 def test_main_smoke_runs_and_resumes(capsys, tmp_path, arch):
     loop, lines = _main(capsys, tmp_path, arch, 4)
     assert loop.step == 4 and loop.retries == 0
@@ -57,9 +61,13 @@ def test_main_smoke_runs_and_resumes(capsys, tmp_path, arch):
 
 
 def test_main_refuses_what_is_not_ported(tmp_path):
-    for arch in ("llama3.2-1b", "dbrx-132b"):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            train.main(["--arch", arch, "--smoke"], device="cpu")
+    for arch, shape in (("llama3.2-1b", None), ("dbrx-132b", "long_500k"),
+                        ("qwen3-1.7b", "decode_32k"),
+                        ("moonshot-v1-16b-a3b", "prefill_32k")):
+        argv = ["--arch", arch, "--ckpt-dir", str(tmp_path)]
+        with pytest.raises(NotImplementedError, match="mesh code"):
+            train.main(argv + (["--shape", shape] if shape else []),
+                       device="cpu")
     with pytest.raises(NotImplementedError, match="mesh code"):
         train.main(["--arch", "gat-cora", "--shape", "ogb_products",
                     "--ckpt-dir", str(tmp_path)], device="cpu")
