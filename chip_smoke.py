@@ -225,6 +225,31 @@ Phases, in order; any failure raises and the script exits non-zero:
         experts, positions, keep masks and capacity bit-equal), and
         llama's bf16 run on the card within 5e-2 of its float32 one; no
         kernel launched (the nine counts printed);
+     n. the mesh code (``core.distributed``, ``launch.mesh``,
+        ``models.transformer.moe_block_shard_map``,
+        ``optim.compression``, ``launch.dryrun``): a. on a world-1 NCCL
+        ``("data",)`` mesh, ``distributed_cc_spanning_forest`` on
+        ``grid2d(4096)`` and ``rmat(20, edge_factor=16)``: rep, forest and
+        rounds bit-equal to ``use_kernel=False``, pointer_jump_double
+        launches equal to the compress syncs, host syncs (torch's sync
+        debug mode) equal to rounds + 1 + the compress syncs, the partition
+        equal to ``connected_components``' and scipy's, n − #components
+        forest edges rooted by Euler tour into a valid spanning forest, ms a
+        call and a round beside ``connected_components`` (5 runs in turns);
+        b. four processes of this script (``--mesh-rank``), gloo on the
+        card's tensors, on ``grid2d(1024)`` and ``rmat(20, 16)`` padded to
+        a multiple of 4: every rank bit-equal to the world-1 run, each
+        rank's pointer_jump_double launches equal to its compress syncs;
+        c. ``moe_block_shard_map`` on a world-1 ``("data", "model")`` mesh
+        at moonshot-v1-16b-a3b's widths: float32 on 256 tokens through two
+        layers' expert weights, card against CPU within 1e-4 of scale,
+        routing bit-equal; one bf16 timing at 65,536 tokens beside
+        ``moe_block``; d. ``compress_with_error_feedback`` at llama3.2-1b's
+        gradient size (1.24e9 float32 values), its first 2^26 values
+        bit-equal to the CPU's, GB/s against the bytes it reads and
+        writes; e. ``python -m repro_torch.launch.dryrun --all`` in a
+        subprocess without the card, every one of the 80 cells ok, one
+        ``{"dryrun": ...}`` line each with its per-card GB;
   6. one JSON line listing the kernels, then the result line
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -249,6 +274,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -606,7 +632,8 @@ def scaled_err(torch, got, want, tol: float, what: str,
 def host_syncs(torch, fn):
     """``(fn(), n)``: n is the synchronizing CUDA calls ``fn`` made (host
     reads of the card and blocking copies), as torch's sync debug mode
-    reports them."""
+    reports them (not its one-time notice that the mode is a prototype,
+    which the first call in a process also records)."""
     import warnings
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -615,7 +642,8 @@ def host_syncs(torch, fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    return out, sum("called a synchronizing" in str(w.message)
+                    for w in caught)
 
 
 def stream_smoke_counts(g, kind, batch) -> dict:
@@ -3292,10 +3320,468 @@ def lm_gate_lines(torch, dev, card, counted) -> tuple:
     return lines, total
 
 
+# ---------------------------------------------------------------------------
+# 5n. The mesh code
+# ---------------------------------------------------------------------------
+
+# Phase 5n: the graphs of the world-1 run (full width) and of the four-rank
+# run, the ranks and their time limit, the MoE gate's tokens and layers and
+# the bf16 timing's tokens (moe_chunk's 65,536), the compression's checked
+# slice, and the dry run's output directory.
+MESH_RANKS = 4
+MESH_RANK_TIMEOUT_S = 600
+MESH_RANK_GRID_SIDE = 1024
+MOE_GATE_SHAPE = (2, 128)
+MOE_GATE_LAYERS = 2
+MOE_TIME_SHAPE = (16, 4096)
+MOE_GATE_TOL = 1e-4
+COMPRESS_SLICE = 1 << 26
+DRYRUN_TIMEOUT_S = 300
+
+
+def wall_ms(torch, fn) -> tuple:
+    """``(fn(), ms)`` on the host's clock, the card idle at both ends."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def padded_edges(torch, g, world: int) -> tuple:
+    """The graph's half-edges padded with (0, 0) self-loops to a multiple
+    of ``world`` (the shard count ``distributed_cc_spanning_forest``
+    asks for)."""
+    pad = -g.src.numel() % world
+    z = torch.zeros(pad, dtype=torch.int32, device=g.src.device)
+    return torch.cat([g.src, z]), torch.cat([g.dst, z])
+
+
+def mesh_graphs(rank_run: bool) -> tuple:
+    """(label, maker) of phase 5n's graphs: (a)'s full-width pair, or the
+    pair the four ranks run."""
+    from repro_torch.data import graphs
+    side = MESH_RANK_GRID_SIDE if rank_run else GRID_SIDE
+    return ((f"grid2d({side})", lambda dev: graphs.grid2d(side, device=dev)),
+            (f"rmat({RMAT_SCALE}, 16)",
+             lambda dev: graphs.rmat(RMAT_SCALE, edge_factor=16, device=dev)))
+
+
+def mesh_rank_main(args) -> int:
+    """One of phase 5n b's ranks (a process of its own): the gloo backend
+    on the card's tensors, rendezvous through a FileStore. Runs
+    ``distributed_cc_spanning_forest`` over a (world,) ``("data",)`` mesh on
+    both graphs of ``mesh_graphs(True)`` and writes each one's rep,
+    forest, rounds, compress syncs, pointer_jump_double launches and ms."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.distributed import distributed_cc_spanning_forest
+    from repro_torch.kernels.pointer_jump.ops import pointer_jump_double_k
+    dev = torch.device("cuda")
+    dist.init_process_group("gloo", store=dist.FileStore(args.mesh_store,
+                                                         args.mesh_world),
+                            rank=args.mesh_rank, world_size=args.mesh_world)
+    try:
+        mesh = init_device_mesh("cuda", (args.mesh_world,),
+                                mesh_dim_names=("data",))
+        run = distributed_cc_spanning_forest(mesh, "data")
+        out = {}
+        for i, (label, make) in enumerate(mesh_graphs(True)):
+            g = make(dev)
+            src, dst = padded_edges(torch, g, args.mesh_world)
+            run(src, dst, n_nodes=g.n_nodes)             # warm-up
+            dist.barrier()
+            torch.cuda.synchronize()
+            pointer_jump_double_k.launches = 0
+            (rep, forest, rounds, syncs), ms = wall_ms(
+                torch, lambda: run(src, dst, n_nodes=g.n_nodes,
+                                   return_syncs=True))
+            torch.cuda.synchronize()
+            out[f"{i}/rep"] = rep.cpu().numpy()
+            out[f"{i}/forest"] = forest.cpu().numpy()
+            out[f"{i}/rounds"] = np.array(rounds)
+            out[f"{i}/syncs"] = np.array(syncs)
+            out[f"{i}/launches"] = np.array(pointer_jump_double_k.launches)
+            out[f"{i}/ms"] = np.array(ms)
+            del g, src, dst, rep, forest
+            torch.cuda.empty_cache()
+        np.savez(pathlib.Path(args.mesh_out) / f"rank{args.mesh_rank}.npz",
+                 **out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_cc_world1(torch, dev, card, counted, g, label, src, dst,
+                   full: bool) -> tuple:
+    """Phase 5n a for one graph on the world-1 NCCL mesh: ``(line, result,
+    counts)``. The kernel run against ``use_kernel=False`` (bit-equal),
+    the launches against the compress syncs, the host syncs against rounds
+    + 1 + the compress syncs; with ``full`` also the partition against
+    ``connected_components`` and scipy's, the forest rooted by Euler tour
+    and validated (so acyclic, with n − #components edges), and the times
+    beside ``connected_components``'."""
+    import numpy as np
+    import scipy.sparse
+    import scipy.sparse.csgraph
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import (connected_components, count_components,
+                                  euler_tour_root, validate_rst)
+    from repro_torch.core.distributed import distributed_cc_spanning_forest
+    from repro_torch.core.rst import forest_edges
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+    run = distributed_cc_spanning_forest(mesh, "data")
+    plain = distributed_cc_spanning_forest(mesh, "data", use_kernel=False)
+    n = g.n_nodes
+
+    def call():
+        return run(src, dst, n_nodes=n, return_syncs=True)
+
+    call()                                               # warm-up
+    (rep, forest, rounds, syncs), counts = counted(call)
+    check(counts["pointer_jump_double"] == syncs,
+          f"{label}: {counts['pointer_jump_double']} pointer_jump_double "
+          f"launches for {syncs} compress syncs")
+    check(all(v == 0 for k, v in counts.items()
+              if k != "pointer_jump_double"),
+          f"{label}: distributed CC launched another kernel: {counts}")
+    prep, pforest, prounds, psyncs = plain(src, dst, n_nodes=n,
+                                           return_syncs=True)
+    check(torch.equal(rep, prep) and torch.equal(forest, pforest)
+          and rounds == prounds and syncs == psyncs,
+          f"{label}: the kernel path differs from use_kernel=False")
+    _, n_host = host_syncs(torch, call)
+    check(n_host == rounds + 1 + syncs,
+          f"{label}: {n_host} host syncs, want rounds + 1 + compress syncs "
+          f"= {rounds + 1 + syncs}")
+    n_comp = count_components(rep)
+    m2 = g.src.numel()
+    check(int(forest.sum()) == n - n_comp and not bool(forest[m2:].any()),
+          f"{label}: {int(forest.sum())} forest edges, want {n - n_comp}")
+    line = {"mesh_cc": label, "world": 1, "backend": "nccl", "n": n,
+            "half_edges": m2, "padded": src.numel() - m2, "rounds": rounds,
+            "compress_syncs": syncs, "host_syncs": n_host,
+            "components": n_comp, "forest_edges": n - n_comp,
+            "launches": {k: v for k, v in counts.items() if v},
+            "card": card}
+    if full:
+        cc_rep, _f, cc_rounds = connected_components(g)
+        check(same_partition(torch, rep, cc_rep),
+              f"{label}: partition differs from connected_components'")
+        line["rep_equal_connected_components"] = bool(torch.equal(rep,
+                                                                   cc_rep))
+        line["connected_components_rounds"] = cc_rounds
+        u = g.src.cpu().numpy()
+        v = g.dst.cpu().numpy()
+        adj = scipy.sparse.coo_matrix((np.ones(u.size, np.int8), (u, v)),
+                                      shape=(n, n))
+        n_scipy, labels = scipy.sparse.csgraph.connected_components(
+            adj, directed=False)
+        check(n_scipy == n_comp and same_partition(
+            torch, torch.from_numpy(labels).to(dev), rep),
+              f"{label}: partition differs from scipy's")
+        # Root the forest at each component's representative: a valid
+        # rooted spanning forest, so the marked edges hold no cycle.
+        fu, fv, valid = forest_edges(g, forest[:m2])
+        parent = euler_tour_root(n, fu, fv, valid, rep)
+        check(validate_rst(g, parent, 0, connected=False)["all_ok"],
+              f"{label}: the distributed forest does not root to a valid "
+              "spanning forest")
+        times = {"distributed": [], "connected_components": []}
+        for r in range(E2E_RUNS):
+            order = list(times) if r % 2 == 0 else list(times)[::-1]
+            for name in order:
+                fn = call if name == "distributed" else \
+                    (lambda: connected_components(g))
+                times[name].append(wall_ms(torch, fn)[1])
+        ms = statistics.median(times["distributed"])
+        line.update({
+            "ms": ms, "ms_per_round": ms / (rounds + 1),
+            "connected_components_ms": statistics.median(
+                times["connected_components"]),
+            "runs": E2E_RUNS, "scipy_components": n_scipy})
+    return line, (rep, forest, rounds), counts
+
+
+def mesh_cc_ranks(torch, world1: dict, card) -> dict:
+    """Phase 5n b: MESH_RANKS processes, gloo on the card's tensors, each
+    rank's result bit-equal to the world-1 run on the same padded graph."""
+    import numpy as np
+    out_dir = ROOT / "build" / "mesh_ranks"
+    if out_dir.exists():
+        for f in out_dir.iterdir():
+            f.unlink()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    store = out_dir / "store"
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-world",
+           str(MESH_RANKS), "--mesh-store", str(store), "--mesh-out",
+           str(out_dir)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd + ["--mesh-rank", str(r)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(MESH_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=MESH_RANK_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"mesh rank {r} exited {p.returncode}:\n"
+              f"{log[-3000:]}")
+    ranks = [dict(np.load(out_dir / f"rank{r}.npz"))
+             for r in range(MESH_RANKS)]
+    lines = []
+    for i, (label, _make) in enumerate(mesh_graphs(True)):
+        rep, forest, rounds = world1[label]
+        for r, res in enumerate(ranks):
+            check(np.array_equal(res[f"{i}/rep"], rep.cpu().numpy())
+                  and np.array_equal(res[f"{i}/forest"],
+                                     forest.cpu().numpy())
+                  and int(res[f"{i}/rounds"]) == rounds,
+                  f"{label}: rank {r} of {MESH_RANKS} differs from the "
+                  "world-1 run")
+            check(int(res[f"{i}/launches"]) == int(res[f"{i}/syncs"]),
+                  f"{label}: rank {r} launched pointer_jump_double "
+                  f"{int(res[f'{i}/launches'])} times for "
+                  f"{int(res[f'{i}/syncs'])} compress syncs")
+        lines.append({
+            "mesh_cc": label, "world": MESH_RANKS,
+            "backend": "gloo (CUDA tensors)", "rounds": rounds,
+            "bit_equal_world1": True,
+            "pointer_jump_double_launches": [int(res[f"{i}/launches"])
+                                             for res in ranks],
+            "ms": [float(res[f"{i}/ms"]) for res in ranks],
+            "card": card})
+    lines[-1]["seconds"] = wall
+    return lines
+
+
+def mesh_moe(torch, dev, card, counted) -> tuple:
+    """Phase 5n c: ``moe_block_shard_map`` on a world-1 ("data", "model")
+    mesh at moonshot-v1-16b-a3b's widths: float32, MOE_GATE_LAYERS layers'
+    weights on MOE_GATE_SHAPE tokens, card against CPU (output within
+    MOE_GATE_TOL of scale, routing bit-equal); one bf16 timing at
+    MOE_TIME_SHAPE beside ``moe_block``'s."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tt
+    mesh = make_host_mesh(device_type="cuda")
+    base = get_arch("moonshot-v1-16b-a3b").make_config()
+    mesh_fields = dict(act_batch_axes=("data",), act_seq_axis="model",
+                       moe_expert_axis="model")
+    d, e, f = base.d_model, base.n_experts, base.d_ff
+    gen = torch.Generator().manual_seed(LM_GATE_SEED)
+
+    def weights(device, dtype, generator):
+        def normal(shape, fan_in):
+            return (torch.randn(shape, generator=generator, device=device)
+                    * fan_in ** -0.5).to(dtype)
+        return (normal((d, e), d), normal((e, d, f), d), normal((e, d, f), d),
+                normal((e, f, d), f))
+
+    cfg32 = dataclasses.replace(base, dtype=torch.float32, **mesh_fields)
+    x = torch.randn(MOE_GATE_SHAPE + (d,), generator=gen)
+    errs, kept = [], []
+    for _layer in range(MOE_GATE_LAYERS):
+        w = weights("cpu", torch.float32, gen)
+        want = tt.moe_block_shard_map(x, *w, cfg32, mesh)
+        wd = [t.to(dev) for t in w]
+        (got, counts) = counted(lambda: tt.moe_block_shard_map(
+            x.to(dev), *wd, cfg32, mesh))
+        check(not any(counts.values()), f"the MoE launched a kernel: "
+              f"{counts}")
+        errs.append(scaled_err(torch, got.cpu(), want, MOE_GATE_TOL,
+                               "moe_block_shard_map card vs CPU"))
+        flat = x.reshape(-1, d)
+        r_cpu = tt.moe_route_local(flat, w[0], cfg32, 0, e)
+        r_dev = tt.moe_route_local(flat.to(dev), wd[0], cfg32, 0, e)
+        check(r_cpu[4] == r_dev[4] and all(
+            torch.equal(a, b.cpu()) for a, b in zip(r_cpu[1:4], r_dev[1:4])),
+              "MoE routing (expert, slot, keep) differs, card against CPU")
+        kept.append(int(r_cpu[3].sum()))
+        del wd, got
+    cap = r_cpu[4]
+
+    # One bf16 timing at full width: the shard_map function at world 1
+    # against moe_block (the config without mesh fields).
+    gdev = torch.Generator(device=dev).manual_seed(LM_GATE_SEED)
+    cfg16 = dataclasses.replace(base, **mesh_fields)
+    xt = torch.randn(MOE_TIME_SHAPE + (d,), generator=gdev, device=dev,
+                     dtype=torch.bfloat16)
+    w16 = weights(dev, torch.bfloat16, gdev)
+    t = MOE_TIME_SHAPE[0] * MOE_TIME_SHAPE[1]
+    cap16 = tt.moe_route(xt.reshape(-1, d), w16[0], base)[4]
+    flop = 2 * 3 * e * cap16 * d * f
+    times = cuda_ms_turns(torch, {
+        "shard_map": lambda: tt.moe_block_shard_map(xt, *w16, cfg16, mesh),
+        "moe_block": lambda: tt.moe_block(xt, *w16, base)})
+    line = {"mesh_moe": "moonshot-v1-16b-a3b", "mesh": "1x1",
+            "gate": {"tokens": MOE_GATE_SHAPE[0] * MOE_GATE_SHAPE[1],
+                     "layers": MOE_GATE_LAYERS, "capacity": cap,
+                     "kept_slots": kept, "scaled_err": errs,
+                     "tol": MOE_GATE_TOL, "routing_bit_equal": True},
+            "bf16": {"tokens": t, "capacity": cap16,
+                     "shard_map_ms": times["shard_map"],
+                     "moe_block_ms": times["moe_block"],
+                     "expert_flop": flop,
+                     "bound_ms": flop / BF16_FLOP_PER_S * 1e3},
+            "card": card}
+    del xt, w16
+    torch.cuda.empty_cache()
+    return line
+
+
+def mesh_compression(torch, dev, card) -> dict:
+    """Phase 5n d: ``compress_with_error_feedback`` at llama3.2-1b's
+    gradient size (float32 gradient and residual), timed; its first
+    COMPRESS_SLICE values bit-equal to the CPU's run and to the card's run
+    of that slice alone."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tt
+    from repro_torch.optim.compression import compress_with_error_feedback
+    meta = tt.init_params(get_arch("llama3.2-1b").make_config(),
+                          generator=None, device="meta")
+    n = sum(p.numel() for p in meta.parameters())
+    moved = 16 * n          # grad and residual read, both outputs written
+    emit({"phase": "compress start", "values": n,
+          "predicted_gb": {"inputs": 8 * n / 1e9, "outputs": 8 * n / 1e9,
+                           "peak_temporaries": 20 * n / 1e9},
+          "allocated_gb": torch.cuda.memory_allocated() / 1e9})
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    grad = torch.randn(n, generator=gen, device=dev)
+    residual = torch.randn(n, generator=gen, device=dev) * 1e-3
+    deq, new_res = compress_with_error_feedback(grad, residual)
+    check(bool(torch.isfinite(deq).all()) and bool(
+        torch.isfinite(new_res).all()), "compression: a non-finite value")
+    k = COMPRESS_SLICE
+    s_deq, s_res = compress_with_error_feedback(grad[:k], residual[:k])
+    c_deq, c_res = compress_with_error_feedback(grad[:k].cpu(),
+                                                residual[:k].cpu())
+    check(torch.equal(s_deq.cpu(), c_deq) and torch.equal(s_res.cpu(), c_res),
+          "compression: the card's slice differs from the CPU's")
+    check(torch.equal(deq[:k], s_deq) and torch.equal(new_res[:k], s_res),
+          "compression: the full run's first blocks differ from the slice")
+    del deq, new_res, s_deq, s_res
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = cuda_ms(torch, lambda: compress_with_error_feedback(grad, residual),
+                 reps=5)
+    line = {"mesh_compress": "llama3.2-1b gradient", "values": n,
+            "slice_bit_equal_cpu": k, "ms": ms,
+            "gb_per_s": moved / ms / 1e6,
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+            "bytes_moved": moved, "peak_gb": peak / 1e9, "card": card}
+    del grad, residual
+    torch.cuda.empty_cache()
+    return line
+
+
+def mesh_dryrun(card) -> list:
+    """Phase 5n e: ``launch/dryrun.py --all`` in a subprocess (no card:
+    the fake process group of 256 or 512 ranks), every cell ok, one line
+    per cell with its per-card GB."""
+    out_dir = ROOT / "build" / "dryrun"
+    if out_dir.exists():
+        for f in out_dir.glob("*.json"):
+            f.unlink()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--out", str(out_dir)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=DRYRUN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0 and "all 80 cells OK" in proc.stdout,
+          f"the dry run failed ({proc.returncode}):\n"
+          f"{(proc.stdout + proc.stderr)[-3000:]}")
+    lines = []
+    for path in sorted(out_dir.glob("*.json")):
+        res = json.loads(path.read_text())
+        check(res["ok"], f"dry run cell {path.stem} not ok")
+        b = res["bytes_per_device"]
+        lines.append({"dryrun": path.stem, "n_devices": res["n_devices"],
+                      "gb_per_device": b["total"] / 1e9,
+                      "params_gb": b["params"] / 1e9,
+                      "opt_gb": b["opt"] / 1e9,
+                      "inputs_gb": b["inputs"] / 1e9})
+    check(len(lines) == 80, f"{len(lines)} dry run cells, want 80")
+    lines.append({"phase": "dryrun", "cells": len(lines), "seconds": wall,
+                  "card": card})
+    return lines
+
+
+def mesh_phase(torch, dev, card, counted) -> tuple:
+    """Phase 5n: ``(lines, counts)``, the counts those of the world-1 runs
+    (the other processes' launches are in their lines)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    lines = []
+    counts_all = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + v
+
+    torch.cuda.empty_cache()
+    make_host_mesh(device_type="cuda")       # the world-1 NCCL group
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          "the world-1 mesh is not NCCL")
+    try:
+        for full in (True, False):
+            world1 = {}
+            for label, make in mesh_graphs(not full):
+                g = make(dev)
+                src, dst = padded_edges(torch, g, 1 if full else MESH_RANKS)
+                line, res, counts = mesh_cc_world1(
+                    torch, dev, card, counted, g, label, src, dst, full)
+                add(counts)
+                world1[label] = res
+                lines.append(line)
+                del g, src, dst
+                torch.cuda.empty_cache()
+            if not full:
+                lines.extend(mesh_cc_ranks(torch, world1, card))
+            del world1
+        lines.append(mesh_moe(torch, dev, card, counted))
+        lines.append(mesh_compression(torch, dev, card))
+    finally:
+        dist.destroy_process_group()
+    lines.extend(mesh_dryrun(card))
+    return lines, counts_all
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-out", type=pathlib.Path, default=None)
+    # One rank of phase 5n b, started by this script itself.
+    parser.add_argument("--mesh-rank", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-world", type=int, default=MESH_RANKS,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-store", help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-out", help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.mesh_rank is not None:
+        return mesh_rank_main(args)
 
     import torch
     if not torch.cuda.is_available():
@@ -4866,6 +5352,21 @@ def main() -> int:
     emit({"phase": "lm", "matmul_allow_tf32":
           torch.backends.cuda.matmul.allow_tf32, "launches": lm_launches,
           "seconds": time.perf_counter() - t_lm})
+
+    # 5n. The mesh code: distributed connectivity at world 1 (NCCL, full
+    # width) and at four ranks (gloo on the card's tensors), the
+    # expert-parallel MoE, the int8 gradient compression, the dry run.
+    t_mesh = time.perf_counter()
+    lines, counts = mesh_phase(torch, dev, card, counted)
+    for line in lines:
+        emit(line)
+    for name in launches:
+        launches[name] += counts.get(name, 0)
+    check(counts.get("pointer_jump_double", 0) > 0,
+          "the mesh path never launched pointer_jump_double")
+    emit({"phase": "mesh", "launches": {k: v for k, v in counts.items()
+                                        if v},
+          "seconds": time.perf_counter() - t_mesh})
 
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the paths never launched: {launches}")

@@ -5,7 +5,7 @@ the device the caller of ``main`` names). Wires together: config registry
 → cell factory → fault-tolerant loop (checkpoint/restart, watchdog,
 straggler log) → synthetic data per family (``lm``, ``gnn``,
 ``recsys``). A cell that does not fit one card (``sharded_cell``) is
-refused: it waits for the mesh code.
+refused: it waits for the DTensor half of the mesh code.
 """
 from __future__ import annotations
 
@@ -171,7 +171,7 @@ def main(argv: list[str] | None = None, *,
     if not args.smoke and sharded_cell(spec.arch_id, shape_name):
         raise NotImplementedError(
             f"{args.arch}/{shape_name} does not fit one card; it waits for "
-            "the mesh code (ROADMAP §1 item 15)")
+            "the DTensor half of the mesh code (ROADMAP §1 item 16)")
     shape = spec.shapes[shape_name]
 
     step_fn, state, _ = build_cell(spec, shape_name, smoke=args.smoke,

@@ -20,8 +20,8 @@ reference's: ``jax.checkpoint`` is ``torch.utils.checkpoint`` at the same
 places, ``lax.scan`` over stacked layers is a loop, DimeNet streams its
 triplets in chunks and carries its edge states in bfloat16 from 2^22
 edges. ``_constrain_rows`` / ``set_gnn_data_axes`` (activation sharding
-over a mesh) are not ported: they wait for the mesh code (ROADMAP §1
-item 15).
+over a mesh) are not ported: they wait for the DTensor half of the mesh
+code (ROADMAP §1 item 16).
 
 Ties: ``jnp.maximum`` and ``jnp.clip`` pass half the gradient to each side
 of a tie and ``torch.clamp`` passes all of it to the input, so a clip of a

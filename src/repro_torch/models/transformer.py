@@ -35,20 +35,26 @@ with the reference's cast points for the rest.
     the dropped slots and is cut off; dropped tokens fall back to the
     residual.
 
-Not ported: ``set_lm_mesh``, ``moe_block_shard_map`` and the
-``_constrain_*`` / ``_gather_moe_weight`` helpers, which place activations
-and experts on a device mesh; they wait for the mesh code (ROADMAP §1
-item 15). The config keeps ``act_batch_axes``, ``act_seq_axis`` and
-``moe_expert_axis``; the forward raises ``NotImplementedError`` when any is
-set.
+Expert parallelism over a mesh is ``moe_block_shard_map``: each rank's
+shards in, its block of the output out, with explicit ``torch.distributed``
+collectives where the reference's ``shard_map`` has JAX ones
+(``set_lm_mesh`` keeps the mesh handle). The forward does not call it yet.
+Not ported: the ``_constrain_*`` / ``_gather_moe_weight`` helpers, which
+leave the placement of activations and experts to GSPMD; they, and the
+sharded forward that calls ``moe_block_shard_map``, wait for the DTensor
+half of the mesh code (ROADMAP §1 item 16). The config keeps
+``act_batch_axes``, ``act_seq_axis`` and ``moe_expert_axis``; the forward
+raises ``NotImplementedError`` when any is set.
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -80,7 +86,7 @@ class LMConfig:
     remat_groups: int = 0      # 0 = flat per-layer remat; G>0 = 2-level
     tie_embeddings: bool = False
     # Mesh plumbing (activation and expert sharding): kept as fields; the
-    # forward refuses them until the mesh code is ported.
+    # forward refuses them until the DTensor mesh code is ported.
     act_batch_axes: tuple = ()
     act_seq_axis: Any = None
     moe_expert_axis: Any = None
@@ -130,8 +136,9 @@ def _check_no_mesh(cfg: LMConfig) -> None:
             or cfg.moe_expert_axis is not None:
         raise NotImplementedError(
             f"{cfg.name}: act_batch_axes, act_seq_axis and moe_expert_axis "
-            "place activations and experts on a device mesh, which waits "
-            "for the mesh code (ROADMAP §1 item 15)")
+            "place activations and experts on a device mesh through the "
+            "forward, which waits for the DTensor half of the mesh code "
+            "(ROADMAP §1 item 16)")
 
 
 # ---------------------------------------------------------------------------
@@ -397,31 +404,39 @@ def moe_route(x: torch.Tensor, router_w: torch.Tensor, cfg: LMConfig):
     return top_g, top_e, pos, pos < cap, cap
 
 
-def _moe_block_flat(x, router_w, w_gate, w_up, w_down, cfg: LMConfig):
+def _experts(x, top_g, top_e, pos, keep, cap: int, n_e: int, w_gate, w_up,
+             w_down):
+    """Dispatch, expert FFN and combine of a routed flat token table x:
+    [T, d] over ``n_e`` experts (``top_e`` in [0, n_e) where kept)."""
     t, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
-    top_g, top_e, pos, keep, cap = moe_route(x, router_w, cfg)
-
+    k = top_e.shape[1]
     # Kept (token, slot)s to their bucket rows, one indexed copy a slot (no
-    # [T·k, d] staging copy); dropped slots all land on the trash row e·cap.
-    rows = torch.where(keep, top_e * cap + pos, e * cap)
-    buckets = x.new_zeros((e * cap + 1, d))
+    # [T·k, d] staging copy); dropped slots all land on the trash row
+    # n_e·cap.
+    rows = torch.where(keep, top_e * cap + pos, n_e * cap)
+    buckets = x.new_zeros((n_e * cap + 1, d))
     for j in range(k):
         buckets.index_copy_(0, rows[:, j], x)
-    b3 = buckets[:e * cap].view(e, cap, d)
+    b3 = buckets[:n_e * cap].view(n_e, cap, d)
 
     g = torch.bmm(b3, w_gate)
     u = torch.bmm(b3, w_up)
     h = F.silu(g.float()).to(x.dtype) * u
-    y = torch.bmm(h, w_down).reshape(e * cap, d)          # [E·cap, d]
+    y = torch.bmm(h, w_down).reshape(n_e * cap, d)        # [n_e·cap, d]
 
     # Combine: per-slot gather + gate-weighted accumulate in x.dtype.
-    safe = torch.clamp_max(rows, e * cap - 1)
+    safe = torch.clamp_max(rows, n_e * cap - 1)
     out = torch.zeros_like(x)
     for j in range(k):
         yj = torch.where(keep[:, j:j + 1], y.index_select(0, safe[:, j]), 0)
         out = out + yj * top_g[:, j:j + 1].to(x.dtype)
     return out
+
+
+def _moe_block_flat(x, router_w, w_gate, w_up, w_down, cfg: LMConfig):
+    top_g, top_e, pos, keep, cap = moe_route(x, router_w, cfg)
+    return _experts(x, top_g, top_e, pos, keep, cap, cfg.n_experts, w_gate,
+                    w_up, w_down)
 
 
 def moe_block(x, router_w, w_gate, w_up, w_down, cfg: LMConfig):
@@ -451,6 +466,108 @@ def moe_block(x, router_w, w_gate, w_up, w_down, cfg: LMConfig):
     flat = _moe_block_flat(x.reshape(b * s, d), router_w, w_gate, w_up,
                            w_down, cfg)
     return flat.reshape(b, s, d)
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel MoE over a mesh
+# ---------------------------------------------------------------------------
+
+_LM_MESH: contextvars.ContextVar = contextvars.ContextVar("lm_mesh",
+                                                          default=None)
+
+
+def set_lm_mesh(mesh) -> None:
+    """Mesh handle for the expert-parallel MoE path (set by the step
+    factory)."""
+    _LM_MESH.set(mesh)
+
+
+def moe_route_local(x: torch.Tensor, router_w: torch.Tensor, cfg: LMConfig,
+                    ridx: int, e_per: int):
+    """The routing of rank ``ridx``'s experts [ridx·e_per, (ridx+1)·e_per)
+    for a flat token table x: [T, d]: ``(top_g, local_e, pos, keep, cap)``.
+    Every token is routed over all experts (``moe_route``); a (token, slot)
+    whose expert lies elsewhere has ``keep`` False, ``local_e`` and ``pos``
+    0. A kept slot's position is its place among the (token, slot)s of its
+    expert, so it is ``moe_route``'s; ``cap`` is counted over all
+    ``n_experts``."""
+    top_g, top_e, pos, keep, cap = moe_route(x, router_w, cfg)
+    local_e = top_e - ridx * e_per
+    mine = (local_e >= 0) & (local_e < e_per)
+    return (top_g, torch.where(mine, local_e, 0), torch.where(mine, pos, 0),
+            mine & keep, cap)
+
+
+def _gather_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Tiled all-gather along ``dim``: the group's blocks concatenated in
+    rank order (the collective works on dim 0)."""
+    world = dist.get_world_size(group)
+    if world == 1:
+        return t
+    src = t.movedim(dim, 0).contiguous()
+    out = src.new_empty((world * src.shape[0],) + src.shape[1:])
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Sum over the group, then rank r keeps block r of ``dim``."""
+    world = dist.get_world_size(group)
+    if world == 1:
+        return t
+    src = t.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // world,) + src.shape[1:])
+    dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=group)
+    return out.movedim(0, dim)
+
+
+def moe_block_shard_map(x, router_w, w_gate, w_up, w_down, cfg: LMConfig,
+                        mesh):
+    """Expert-parallel MoE with explicit collectives.
+
+    Takes this rank's shards, as the reference's ``shard_map`` in_specs
+    give them: x ``P(act_batch_axes, act_seq_axis, None)`` [b_l, s_l, d],
+    the router replicated, ``w_gate`` / ``w_up`` ``P(model, "data", None)``
+    [e_per, d/|data|, f] and ``w_down`` ``P(model, None, "data")``. It
+    returns this rank's block of the output, placed as x.
+
+      * the expert weights are FSDP-stored (d over ``data``) and
+        all-gathered over the mesh's ``data`` group before the products;
+      * with ``act_seq_axis`` set, the sequence shard of x is all-gathered
+        over that axis;
+      * this rank (``mesh.get_local_rank(moe_expert_axis)``) routes every
+        local token but buckets ONLY the experts it owns, a local scatter;
+      * the partial outputs (each rank's experts' share) are combined with
+        one reduce-scatter over ``act_seq_axis`` along the sequence, or an
+        all-reduce over the expert axis's group when it is None.
+    """
+    seq_ax = cfg.act_seq_axis
+    model_ax = cfg.moe_expert_axis
+    names = mesh.mesh_dim_names
+    e_total = cfg.n_experts
+    model_size = mesh.size(names.index(model_ax))
+    assert e_total % model_size == 0
+    e_per = e_total // model_size
+
+    data_group = mesh.get_group("data")
+    wg = _gather_dim(w_gate, data_group, 1)
+    wu = _gather_dim(w_up, data_group, 1)
+    wd = _gather_dim(w_down, data_group, 2)
+    x_full = x if seq_ax is None else _gather_dim(x, mesh.get_group(seq_ax),
+                                                   1)
+    bl, s, d = x_full.shape
+    xf = x_full.reshape(bl * s, d)
+    ridx = mesh.get_local_rank(model_ax)
+    top_g, local_e, pos, keep, cap = moe_route_local(xf, router_w, cfg, ridx,
+                                                     e_per)
+    out = _experts(xf, top_g, local_e, pos, keep, cap, e_per, wg, wu,
+                   wd).reshape(bl, s, d)
+    if seq_ax is not None:
+        return _reduce_scatter_dim(out, mesh.get_group(seq_ax), 1)
+    if model_size > 1:
+        dist.all_reduce(out, op=dist.ReduceOp.SUM,
+                        group=mesh.get_group(model_ax))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -11,9 +11,11 @@ reference's abstract inputs). Feed ``step_fn(state, batch)`` from
 A GNN cell at a shape of ``SHARDED_SHAPES`` is built with its state on
 ``meta`` too: it does not fit one card (ogb_products: MeshGraphNet's edge
 input [E, 384] float32 alone is 95 GB, SchNet's RBF [E, 300] 74 GB), and
-the reference runs it sharded over a pod, which waits for the mesh code
-(ROADMAP §1 item 15). Its bytes can be read; its step is not run. So is
-an LM cell of ``LM_SHARDED_CELLS`` at its full shape.
+the reference runs it sharded over a pod, which waits for the DTensor half
+of the mesh code (ROADMAP §1 item 16). Its bytes can be read; its step is
+not run. So is an LM cell of ``LM_SHARDED_CELLS`` at its full shape. With
+``device="meta"`` every cell is built there (``launch.dryrun`` reads each
+card's bytes from it through ``distributed.sharding``).
 """
 from __future__ import annotations
 
@@ -68,7 +70,7 @@ def _meta(shape, dtype):
 
 def sharded_cell(arch_id: str, shape_name: str) -> bool:
     """Whether the cell at this full shape is built on ``meta``: it does
-    not fit one card and waits for the mesh code."""
+    not fit one card and waits for the DTensor half of the mesh code."""
     return (shape_name in SHARDED_SHAPES
             or (arch_id, shape_name) in LM_SHARDED_CELLS)
 

@@ -1562,3 +1562,94 @@ def test_lm_on_card_matches_cpu(cuda, arch):
         assert _scaled(m_g[k], m_c[k]) <= LM_TOL, k
     for k, want in new_c["opt"]["m"].items():
         assert _scaled(new_g["opt"]["m"][k], want) <= LM_TOL, k
+
+
+# ---------------------------------------------------------------------------
+# The mesh code on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_world_one(cuda):
+    """A world-1 group in this process, NCCL for the card's tensors and
+    gloo for the CPU's (the CPU twins below), destroyed after the test."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("cpu:gloo,cuda:nccl", store=dist.HashStore(),
+                            rank=0, world_size=1)
+    mesh = make_host_mesh()
+    assert "cuda:nccl" in dist.get_backend()
+    yield mesh
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name,make", [
+    ("grid2d(64)", lambda dev: graphs.grid2d(64, device=dev)),
+    ("rmat(12, 16)", lambda dev: graphs.rmat(12, edge_factor=16,
+                                             device=dev))])
+def test_distributed_cc_world_one_on_card(nccl_world_one, cuda, name, make):
+    """World-1 NCCL ``distributed_cc_spanning_forest``: the kernel path
+    (pointer_jump_double once a compress sync) bit-equal to
+    ``use_kernel=False`` and to the same call on the CPU's tensors."""
+    from repro_torch.core.distributed import distributed_cc_spanning_forest
+    g = make(cuda)
+    run = distributed_cc_spanning_forest(nccl_world_one)
+    plain = distributed_cc_spanning_forest(nccl_world_one, use_kernel=False)
+    pointer_jump_double_k.launches = 0
+    rep, forest, rounds, syncs = run(g.src, g.dst, n_nodes=g.n_nodes,
+                                     return_syncs=True)
+    torch.cuda.synchronize()
+    assert pointer_jump_double_k.launches == syncs > 0
+    want = plain(g.src, g.dst, n_nodes=g.n_nodes, return_syncs=True)
+    cpu = plain(g.src.cpu(), g.dst.cpu(), n_nodes=g.n_nodes)
+    assert torch.equal(rep, want[0]) and torch.equal(forest, want[1])
+    assert (rounds, syncs) == want[2:]
+    assert torch.equal(rep.cpu(), cpu[0]) and torch.equal(forest.cpu(),
+                                                          cpu[1])
+    assert rounds == cpu[2]
+
+
+def test_compression_on_card_matches_cpu(cuda):
+    """int8 compression with error feedback, bit-equal card against CPU
+    (IEEE division and round-half-even on both), padded and not."""
+    from repro_torch.optim.compression import compress_with_error_feedback
+    gen = torch.Generator().manual_seed(0)
+    for n in (1 << 20, 12_345):
+        g = torch.randn(n, generator=gen) * 3
+        r = torch.randn(n, generator=gen) * 1e-3
+        want = compress_with_error_feedback(g, r)
+        got = compress_with_error_feedback(g.to(cuda), r.to(cuda))
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+        gb = g.to(torch.bfloat16)
+        want = compress_with_error_feedback(gb, r)
+        got = compress_with_error_feedback(gb.to(cuda), r.to(cuda))
+        assert got[0].dtype == torch.bfloat16
+        assert torch.equal(got[0].cpu(), want[0])
+
+
+def test_moe_shard_map_world_one_on_card(nccl_world_one, cuda):
+    """``moe_block_shard_map`` on a world-1 ("data", "model") mesh, float32
+    smoke widths: the card against the CPU within LM_TOL of scale, the
+    routing bit-equal, and the same as ``moe_block`` (one rank owns every
+    expert and the capacity is the same)."""
+    cfg = dataclasses.replace(
+        get_arch("moonshot-v1-16b-a3b").make_smoke_config(),
+        dtype=torch.float32)
+    mcfg = dataclasses.replace(cfg, act_batch_axes=("data",),
+                               act_seq_axis="model", moe_expert_axis="model")
+    gen = torch.Generator().manual_seed(1)
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.d_ff
+    w = [torch.randn(s, generator=gen) * s[-2] ** -0.5
+         for s in ((d, e), (e, d, f), (e, d, f), (e, f, d))]
+    x = torch.randn((4, 24, d), generator=gen)
+    want = tfm.moe_block_shard_map(x, *w, mcfg, nccl_world_one)
+    got = tfm.moe_block_shard_map(x.to(cuda), *[t.to(cuda) for t in w],
+                                  mcfg, nccl_world_one)
+    assert _scaled(got, want) <= LM_TOL
+    assert _scaled(want, tfm.moe_block(x, *w, cfg)) <= LM_TOL
+    r_cpu = tfm.moe_route_local(x.reshape(-1, d), w[0], mcfg, 0, e)
+    r_gpu = tfm.moe_route_local(x.reshape(-1, d).to(cuda), w[0].to(cuda),
+                                mcfg, 0, e)
+    assert r_cpu[4] == r_gpu[4]
+    for a, b in zip(r_cpu[1:4], r_gpu[1:4]):
+        assert torch.equal(a, b.cpu())
