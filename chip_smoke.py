@@ -250,6 +250,26 @@ Phases, in order; any failure raises and the script exits non-zero:
         writes; e. ``python -m repro_torch.launch.dryrun --all`` in a
         subprocess without the card, every one of the 80 cells ok, one
         ``{"dryrun": ...}`` line each with its per-card GB;
+     o. the sharded cells (``build_cell(..., mesh)``: state and inputs as
+        DTensors placed by ``distributed.sharding``): a. on a world-1 NCCL
+        ``("data", "model")`` mesh against the same cell with no mesh, the
+        same seed-0 weights and batch: llama3.2-1b's train step at full
+        width, batch 4 × 4096 (reduced as 5m b), GAT at minibatch_lg and
+        DIEN at train_batch (65,536 rows), each from a nonzero learning
+        rate, loss, grad norm and every updated master weight compared
+        (1e-5 of scale; GAT and DIEN also 1e-5 absolute and relative), ms a
+        step both ways, peak GB, DIEN's embed_bag launches on the mesh path
+        (> 0); moonshot's prefill_32k at batch 2 (reduced: the largest that
+        fits beside its 56.1 GB of weights), the mesh path through
+        ``moe_block_shard_map``, logits within 1e-5 of scale; b. eight
+        processes of this script (``--mesh-cells``), gloo on the host's
+        CPU, on the (2, 4) mesh beside one at world 1: the smoke train step
+        of qwen3-1.7b, moonshot (its three mesh fields set, capacity factor
+        8 so no token is dropped), GAT and DIEN, every rank's loss and grad
+        norm and the gathered state within the float tolerances of the
+        world-1 run's; c. ``launch.train.main`` for gat-cora and DIEN
+        through its mesh cell (world-1 NCCL), 2 steps then 3, resuming at
+        2;
   6. one JSON line listing the kernels, then the result line
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -2948,14 +2968,15 @@ def lm_serve_cli(torch, dev, card, counted) -> dict:
             "launches": {k: v for k, v in counts.items() if v}}
 
 
-def lm_reduced_spec(arch, shape_name, **changes):
+def reduced_spec(arch, shape_name, **changes):
     """``(spec, name)``: the arch with one cell, ``shape_name``'s shape with
     ``changes`` (a reduced batch), under a name of its own (so
     ``build_cell`` builds it on the card)."""
-    from repro_torch.configs import LM_SHAPES, get_arch
-    shape = dict(LM_SHAPES[shape_name], **changes)
+    from repro_torch.configs import get_arch
+    base = get_arch(arch)
+    shape = dict(base.shapes[shape_name], **changes)
     name = shape_name + "".join(f"/{k}{v}" for k, v in changes.items())
-    return dataclasses.replace(get_arch(arch), shapes={name: shape}), name
+    return dataclasses.replace(base, shapes={name: shape}), name
 
 
 def lm_decode_line(torch, dev, arch, shape_name, card, counted,
@@ -2966,7 +2987,7 @@ def lm_decode_line(torch, dev, arch, shape_name, card, counted,
     beside the step's bound, host syncs a step, peak GB."""
     from repro_torch.models import transformer as tfm
     from repro_torch.train.step import build_cell
-    spec, name = lm_reduced_spec(arch, shape_name, **changes)
+    spec, name = reduced_spec(arch, shape_name, **changes)
     shape = spec.shapes[name]
     b, s = shape["batch"], shape["seq"]
     torch.cuda.empty_cache()
@@ -3023,7 +3044,7 @@ def lm_prefill_line(torch, dev, arch, card, counted, profile=None,
     one call (and one more under ``profile``), ms and tokens/s beside its
     operations bound."""
     from repro_torch.train.step import build_cell
-    spec, name = lm_reduced_spec(arch, "prefill_32k", **changes)
+    spec, name = reduced_spec(arch, "prefill_32k", **changes)
     shape = spec.shapes[name]
     b, s = shape["batch"], shape["seq"]
     cfg = spec.make_config()
@@ -3076,7 +3097,7 @@ def lm_train_line(torch, dev, arch, card, counted, profile=None,
     from repro_torch.launch.train import synthetic_batches
     from repro_torch.train.fault import FaultTolerantLoop
     from repro_torch.train.step import REMAT_GROUPS, build_cell
-    spec, name = lm_reduced_spec(arch, "train_4k", **changes)
+    spec, name = reduced_spec(arch, "train_4k", **changes)
     shape = spec.shapes[name]
     b, s = shape["batch"], shape["seq"]
     cfg = spec.make_config()
@@ -3769,6 +3790,425 @@ def mesh_phase(torch, dev, card, counted) -> tuple:
     return lines, counts_all
 
 
+# ---------------------------------------------------------------------------
+# 5o. The sharded cells (the DTensor half of the mesh code)
+# ---------------------------------------------------------------------------
+
+# Phase 5o a: each cell built on the world-1 NCCL mesh against the same
+# cell with no mesh, on the card: llama3.2-1b's train step at 5m b's
+# reduced batch, moonshot's prefill at the largest batch of prefill_32k's
+# length that fits beside its 56.1 GB of weights (2: its MoE dispatch holds
+# about 8 GB a batch row), GAT at minibatch_lg and DIEN at train_batch,
+# each train cell from MESH_CELL_START (a nonzero learning rate): one step
+# compared, then MESH_CELL_TIMED steps timed each way.
+MESH_CELL_TRAIN = (("llama3.2-1b", "train_4k", {"batch": 4}),
+                   ("gat-cora", "minibatch_lg", {}),
+                   ("dien", "train_batch", {}))
+MESH_CELL_PREFILL = ("moonshot-v1-16b-a3b", "prefill_32k", {"batch": 2})
+MESH_CELL_START = {"lm": 1999, "gnn": 5000, "recsys": 250}
+MESH_CELL_TIMED = 2
+MESH_CELL_TOL = 1e-5
+MESH_CELL_SCALED_TOL = {"lm": 1e-5, "gnn": 1e-4, "recsys": 1e-4}
+# Phase 5o b: 8 gloo ranks on the host's CPU, the (2, 4) mesh, against one
+# rank; moonshot with its three mesh fields and a capacity factor at which
+# no smoke token is dropped (capacity counts per data shard, so with drops
+# the two shardings would route differently).
+MESH_CELL_RANKS = 8
+MESH_CELL_RANK_TIMEOUT_S = 300
+MESH_CELL_RANK_ARCHS = ("qwen3-1.7b", "moonshot-v1-16b-a3b", "gat-cora",
+                        "dien")
+MESH_CELL_NO_DROP = 8.0
+
+
+def mesh_cell_train(torch, dev, card, counted, mesh, arch, shape_name,
+                    changes) -> tuple:
+    """Phase 5o a for one train cell: ``build_cell`` with no mesh and with
+    the world-1 ``mesh``, the same seed-0 weights, the optimizer step set
+    to MESH_CELL_START, the same first batch: one step each, its loss, grad
+    norm and every updated parameter (the float32 master copy) compared,
+    then MESH_CELL_TIMED steps timed each way (the host's clock, the card
+    idle at both ends). ``(line, the mesh path's counts)``."""
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.launch.train import synthetic_batches
+    from repro_torch.train.step import build_cell
+    spec, name = reduced_spec(arch, shape_name, **changes)
+    shape = spec.shapes[name]
+    cfg = spec.make_config()
+    out = {}
+    for way, m in (("plain", None), ("mesh", mesh)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step_fn, state, _ = build_cell(spec, name, m, device=dev)
+        state["opt"]["step"] = torch.tensor(MESH_CELL_START[spec.family],
+                                            dtype=torch.int32, device=dev)
+        batches = synthetic_batches(spec, shape, cfg, device=dev)
+        _, batch = next(batches)
+        torch.cuda.synchronize()
+        (state, metrics), counts = counted(lambda: step_fn(state, batch))
+        res = {"loss": float(metrics["loss"]),
+               "grad_norm": float(metrics["grad_norm"]), "counts": counts,
+               "master": {k: v.detach().clone() for k, v in gather_tree(
+                   state["opt"]["master"]).items()}}
+        ms = []
+        for _ in range(MESH_CELL_TIMED):
+            _, batch = next(batches)
+            (state, _), t = wall_ms(torch, lambda: step_fn(state, batch))
+            ms.append(t)
+        res["step_ms"] = ms
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out[way] = res
+        del step_fn, state, batch, batches
+    plain, meshed = out["plain"], out["mesh"]
+    tol = MESH_CELL_SCALED_TOL[spec.family]
+    for k in ("loss", "grad_norm"):
+        check(abs(meshed[k] - plain[k]) <= MESH_CELL_TOL * abs(plain[k]),
+              f"{arch}/{name}: mesh {k} {meshed[k]} vs {plain[k]}")
+    check(set(meshed["master"]) == set(plain["master"]),
+          f"{arch}/{name}: parameter names differ")
+    worst, equal = 0.0, True
+    for k, want in plain["master"].items():
+        got = meshed["master"][k]
+        equal = equal and bool(torch.equal(got, want))
+        if spec.family != "lm":
+            allclose_err(torch, got, want, MESH_CELL_TOL,
+                         f"{arch}/{name} {k}")
+        if float(want.abs().max()) > 0:
+            worst = max(worst, scaled_err(torch, got, want, tol,
+                                          f"{arch}/{name} {k} (scaled)"))
+    counts = meshed["counts"]
+    if spec.family == "recsys":
+        check(counts["embed_bag"] > 0,
+              f"{arch}/{name}: the mesh path never launched embed_bag")
+    line = {"mesh_cell": f"{arch}/{shape_name}", "card": card,
+            "reduced": changes, "mesh": "1x1 nccl", "kind": "train",
+            "start_step": MESH_CELL_START[spec.family],
+            "loss": [plain["loss"], meshed["loss"]],
+            "grad_norm": [plain["grad_norm"], meshed["grad_norm"]],
+            "params_bit_equal": equal, "params_max_scaled_err": worst,
+            "step_ms": {w: out[w]["step_ms"] for w in out},
+            "ms_per_step": {w: statistics.median(out[w]["step_ms"])
+                            for w in out},
+            "peak_gb": {w: out[w]["peak_gb"] for w in out},
+            "launches": {k: v for k, v in counts.items() if v},
+            "plain_launches": {k: v for k, v in plain["counts"].items()
+                               if v}}
+    del out, plain, meshed
+    torch.cuda.empty_cache()
+    return line, counts
+
+
+def mesh_cell_prefill(torch, dev, card, counted, mesh) -> tuple:
+    """Phase 5o a: moonshot's prefill_32k at MESH_CELL_PREFILL's batch with
+    no mesh and on the world-1 ``mesh`` (the reference's prefill policy:
+    the batch over the data axes and the experts over ``model``, so the
+    MoE runs ``moe_block_shard_map``), the same seed-0 weights and tokens:
+    the logits compared, one call timed each way. ``(line, counts)``."""
+    from repro_torch.train.step import build_cell
+    arch, shape_name, changes = MESH_CELL_PREFILL
+    spec, name = reduced_spec(arch, shape_name, **changes)
+    shape = spec.shapes[name]
+    cfg = spec.make_config()
+    out = {}
+    for way, m in (("plain", None), ("mesh", mesh)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step_fn, params, _ = build_cell(spec, name, m, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        tokens = torch.randint(0, cfg.vocab, (shape["batch"], shape["seq"]),
+                               generator=gen, device=dev, dtype=torch.int32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, counts = counted(lambda: step_fn(params, {"tokens": tokens}))
+        ms = (time.perf_counter() - t0) * 1e3
+        out[way] = {"logits": logits, "ms": ms, "counts": counts,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del step_fn, params, tokens
+    got, want = out["mesh"]["logits"], out["plain"]["logits"]
+    check(bool(torch.isfinite(want).all())
+          and want.shape == (shape["batch"], cfg.vocab),
+          f"{arch}/{name}: logits {tuple(want.shape)}")
+    err = scaled_err(torch, got, want, MESH_CELL_TOL,
+                     f"{arch}/{name}: mesh logits")
+    line = {"mesh_cell": f"{arch}/{shape_name}", "card": card,
+            "reduced": changes, "mesh": "1x1 nccl", "kind": "prefill",
+            "moe_expert_axis": "model", "bit_equal": bool(torch.equal(got,
+                                                                      want)),
+            "logits_max_scaled_err": err,
+            "ms": {w: out[w]["ms"] for w in out},
+            "peak_gb": {w: out[w]["peak_gb"] for w in out},
+            "launches": {k: v for k, v in out["mesh"]["counts"].items()
+                         if v}}
+    counts = out["mesh"]["counts"]
+    del out, got, want
+    torch.cuda.empty_cache()
+    return line, counts
+
+
+def mesh_rank_cell(torch, arch, mesh) -> dict:
+    """One smoke train step of ``arch`` on ``mesh`` (CPU tensors) for
+    phase 5o b: the seed-0 weights (GAT's attention vectors drawn from
+    N(0, 0.5^2), away from the zero init whose gradients are rounding
+    noise), seeded mid-training moments (m ~ N(0, 1e-3^2), v ~ U(1e-6,
+    2e-6): from zero moments an element whose gradient lies at the noise
+    floor takes a step of full size and random sign), the step at
+    MESH_CELL_START, placed by the cell's rules; the loss, grad norm and,
+    gathered whole, the new master weights, m and v."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.launch.train import smoke_spec, synthetic_batches
+    from repro_torch.train.step import build_cell
+    base = get_arch(arch)
+    cfg = base.make_smoke_config()
+    if base.family == "lm":
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+        if cfg.is_moe:
+            cfg = dataclasses.replace(
+                cfg, act_batch_axes=("data",), act_seq_axis="model",
+                moe_expert_axis="model", capacity_factor=MESH_CELL_NO_DROP)
+    spec = dataclasses.replace(smoke_spec(base, cfg),
+                               make_smoke_config=lambda: cfg)
+    step_fn, _, _ = build_cell(spec, "smoke", mesh, smoke=True, device="cpu")
+    _, state, _ = build_cell(spec, "smoke", smoke=True, device="cpu")
+    rng = np.random.default_rng(12)
+    with torch.no_grad():
+        for k, p in state["params"].named_parameters():
+            if arch == "gat-cora" and ".a_" in k:
+                p.copy_(torch.from_numpy(0.5 * rng.standard_normal(
+                    tuple(p.shape)).astype(np.float32)))
+                state["opt"]["master"][k].copy_(p)
+            shape = tuple(p.shape)
+            state["opt"]["m"][k] = torch.from_numpy(
+                rng.standard_normal(shape).astype(np.float32) * 1e-3)
+            state["opt"]["v"][k] = torch.from_numpy(
+                rng.uniform(1e-6, 2e-6, shape).astype(np.float32))
+    state["opt"]["step"] = torch.tensor(MESH_CELL_START[base.family],
+                                        dtype=torch.int32)
+    if base.family == "lm":
+        specs = shr.flat_specs(shr.lm_param_specs(cfg, mesh, fsdp=spec.fsdp))
+    elif base.family == "gnn":
+        specs = shr.gnn_param_specs(state["params"])
+    else:
+        specs = shr.dien_param_specs(state["params"])
+    state = shr.place_tree(state, {"params": specs,
+                                   "opt": shr.opt_specs(specs)}, mesh)
+    _, batch = next(synthetic_batches(spec, spec.shapes["smoke"], cfg,
+                                      device="cpu"))
+    state, metrics = step_fn(state, batch)
+    out = {"loss": metrics["loss"].numpy(),
+           "grad_norm": metrics["grad_norm"].numpy()}
+    for part in ("master", "m", "v"):
+        for k, t in shr.gather_tree(state["opt"][part]).items():
+            out[f"{part}/{k}"] = t.numpy()
+    return out
+
+
+def mesh_cells_rank_main(args) -> int:
+    """One process of phase 5o b (CPU tensors, gloo, rendezvous through a
+    FileStore): the smoke step of each of MESH_CELL_RANK_ARCHS on the (2,
+    world / 2) ``("data", "model")`` mesh, or at world 1 on (1, 1); writes
+    ``rank<R>.npz`` (every rank its loss and grad norm, rank 0 also the
+    gathered state)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1)
+    from repro_torch.launch.mesh import make_host_mesh
+    world = args.mesh_world
+    dist.init_process_group("gloo", store=dist.FileStore(args.mesh_store,
+                                                         world),
+                            rank=args.mesh_rank, world_size=world)
+    try:
+        mesh = make_host_mesh(2 if world > 1 else 1, max(world // 2, 1),
+                              device_type="cpu")
+        out = {}
+        for arch in MESH_CELL_RANK_ARCHS:
+            res = mesh_rank_cell(torch, arch, mesh)
+            for k, v in res.items():
+                if args.mesh_rank == 0 or k in ("loss", "grad_norm"):
+                    out[f"{arch}/{k}"] = v
+        np.savez(pathlib.Path(args.mesh_out) / f"rank{args.mesh_rank}.npz",
+                 **out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_cell_ranks(torch, card) -> dict:
+    """Phase 5o b: MESH_CELL_RANKS processes of this script on the (2, 4)
+    mesh beside one at world 1, all on the host's CPU (no card: there is no
+    JAX on this machine, so the world-1 run is the reference): every
+    rank's loss and grad norm, and rank 0's gathered master weights, m and
+    v, within the float tolerances of the world-1 run's."""
+    import numpy as np
+    root = ROOT / "build" / "mesh_cells"
+    runs = {}
+    procs = []
+    t0 = time.perf_counter()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    for world in (MESH_CELL_RANKS, 1):
+        d = root / f"world{world}"
+        if d.exists():
+            for f in d.iterdir():
+                f.unlink()
+        d.mkdir(parents=True, exist_ok=True)
+        cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-cells",
+               "--mesh-world", str(world), "--mesh-store", str(d / "store"),
+               "--mesh-out", str(d)]
+        procs += [(world, r, subprocess.Popen(
+            cmd + ["--mesh-rank", str(r)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, env=env))
+            for r in range(world)]
+    logs = []
+    try:
+        for _w, _r, p in procs:
+            logs.append(p.communicate(timeout=MESH_CELL_RANK_TIMEOUT_S)[0])
+    finally:
+        for _w, _r, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for (world, r, p), log in zip(procs, logs):
+        check(p.returncode == 0, f"mesh cell rank {r} of {world} exited "
+              f"{p.returncode}:\n{log[-3000:]}")
+    for world in (MESH_CELL_RANKS, 1):
+        runs[world] = [dict(np.load(root / f"world{world}" / f"rank{r}.npz"))
+                       for r in range(world)]
+    want = runs[1][0]
+    arch_errs = {}
+    for arch in MESH_CELL_RANK_ARCHS:
+        lm = arch in ("qwen3-1.7b", "moonshot-v1-16b-a3b")
+        for k in ("loss", "grad_norm"):
+            w = float(want[f"{arch}/{k}"])
+            for r, res in enumerate(runs[MESH_CELL_RANKS]):
+                g = float(res[f"{arch}/{k}"])
+                check(abs(g - w) <= MESH_CELL_TOL * abs(w),
+                      f"{arch} {k}: rank {r} {g} vs world 1 {w}")
+        worst = 0.0
+        got = runs[MESH_CELL_RANKS][0]
+        for key in want:
+            if not key.startswith(f"{arch}/") or key.endswith(
+                    ("/loss", "/grad_norm")):
+                continue
+            g, w = torch.from_numpy(got[key]), torch.from_numpy(want[key])
+            if not lm:
+                allclose_err(torch, g, w, MESH_CELL_TOL, f"{key} (8 ranks)")
+            if float(w.abs().max()) > 0:
+                worst = max(worst, scaled_err(
+                    torch, g, w, MESH_CELL_TOL if lm or "master" in key
+                    else MESH_CELL_SCALED_TOL["gnn"], f"{key} (8 ranks)"))
+        arch_errs[arch] = worst
+    return {"mesh_cell_ranks": MESH_CELL_RANKS, "mesh": "2x4 gloo (CPU)",
+            "torch": torch.__version__, "archs": list(MESH_CELL_RANK_ARCHS),
+            "moonshot_capacity_factor": MESH_CELL_NO_DROP,
+            "loss": {a: float(want[f"{a}/loss"])
+                     for a in MESH_CELL_RANK_ARCHS},
+            "max_scaled_err_vs_world1": arch_errs, "seconds": wall,
+            "card": card}
+
+
+def mesh_train_cli(torch, card, counted) -> tuple:
+    """Phase 5o c: ``launch.train.main`` through its mesh cell (a spy on
+    its ``build_cell`` records the mesh: world-1 NCCL, (1, 1)): gat-cora
+    at full_graph_sm for 2 steps with a checkpoint every 2, then to 3,
+    resuming at 2; DIEN at train_batch likewise (embed_bag on the mesh
+    path)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import checkpoint as ckpt
+    root = ROOT / "build"
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="mesh-cli-", dir=root))
+    real = train_cli.build_cell
+    meshes = []
+
+    def spy(spec, shape_name, mesh=None, **kw):
+        meshes.append((tuple(mesh.shape), dist.get_backend()))
+        return real(spec, shape_name, mesh, **kw)
+
+    total = {}
+    lines = []
+    train_cli.build_cell = spy
+    try:
+        for arch in ("gat-cora", "dien"):
+            argv = ["--arch", arch, "--ckpt-every", "2", "--ckpt-dir",
+                    str(tmp)]
+            reports, secs = [], []
+            for steps in (2, 3):
+                out = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    loop, counts = counted(lambda: train_cli.main(
+                        argv + ["--steps", str(steps)]))
+                secs.append(time.perf_counter() - t0)
+                reports.append(out.getvalue().splitlines())
+                for k, v in counts.items():
+                    total[k] = total.get(k, 0) + v
+                check(loop.step == steps
+                      and reports[-1][-1].startswith(f"done: {steps} steps"),
+                      f"train cli {arch} on the mesh: {reports[-1]}")
+                check(not dist.is_initialized(),
+                      "main left its process group behind")
+            check(ckpt.latest_step(tmp / arch) == 2
+                  and int(loop.state["opt"]["step"]) == 3,
+                  f"train cli {arch}: resume at 2")
+            if arch == "dien":
+                check(total.get("embed_bag", 0) > 0,
+                      "train cli dien: no embed_bag launch on the mesh path")
+            lines.append({"mesh_train_cli": arch, "card": card,
+                          "steps": [2, 3], "resumed_at": 2,
+                          "seconds": secs, "report": reports[0] + reports[1],
+                          "meshes": [f"{'x'.join(map(str, s))} {b}"
+                                     for s, b in meshes]})
+            meshes.clear()
+    finally:
+        train_cli.build_cell = real
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lines, total
+
+
+def mesh_cells_phase(torch, dev, card, counted) -> tuple:
+    """Phase 5o: ``(lines, counts)``, the counts those of the mesh paths of
+    (a) and (c) (the CPU ranks of (b) launch no kernel)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    lines = []
+    counts_all = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            counts_all[k] = counts_all.get(k, 0) + v
+
+    torch.cuda.empty_cache()
+    mesh = make_host_mesh()
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+          and tuple(mesh.shape) == (1, 1), "the 5o mesh is not world-1 NCCL")
+    try:
+        for arch, shape_name, changes in MESH_CELL_TRAIN:
+            line, counts = mesh_cell_train(torch, dev, card, counted, mesh,
+                                           arch, shape_name, changes)
+            add(counts)
+            lines.append(line)
+        line, counts = mesh_cell_prefill(torch, dev, card, counted, mesh)
+        add(counts)
+        lines.append(line)
+    finally:
+        dist.destroy_process_group()
+    lines.append(mesh_cell_ranks(torch, card))
+    cli_lines, counts = mesh_train_cli(torch, card, counted)
+    add(counts)
+    lines.extend(cli_lines)
+    return lines, counts_all
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-out", type=pathlib.Path, default=None)
@@ -3779,9 +4219,13 @@ def main() -> int:
                         help=argparse.SUPPRESS)
     parser.add_argument("--mesh-store", help=argparse.SUPPRESS)
     parser.add_argument("--mesh-out", help=argparse.SUPPRESS)
+    # One process of phase 5o b (with the four flags above).
+    parser.add_argument("--mesh-cells", action="store_true",
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.mesh_rank is not None:
-        return mesh_rank_main(args)
+        return (mesh_cells_rank_main if args.mesh_cells
+                else mesh_rank_main)(args)
 
     import torch
     if not torch.cuda.is_available():
@@ -5367,6 +5811,19 @@ def main() -> int:
     emit({"phase": "mesh", "launches": {k: v for k, v in counts.items()
                                         if v},
           "seconds": time.perf_counter() - t_mesh})
+
+    # 5o. The sharded cells: each family's cell on the world-1 NCCL mesh
+    # against no mesh, 8 gloo ranks on the CPU against one, the training
+    # CLI through its mesh cell.
+    t_cells = time.perf_counter()
+    lines, counts = mesh_cells_phase(torch, dev, card, counted)
+    for line in lines:
+        emit(line)
+    for name in launches:
+        launches[name] += counts.get(name, 0)
+    emit({"phase": "mesh cells", "launches": {k: v for k, v in
+                                              counts.items() if v},
+          "seconds": time.perf_counter() - t_cells})
 
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the paths never launched: {launches}")

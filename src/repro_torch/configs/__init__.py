@@ -3,8 +3,9 @@
 The port's own copy of ``repro.configs``: the same ids, the same configs
 (an LM's ``dtype`` a torch dtype) and the LM, GNN and recsys shape tables.
 ``fsdp`` (FSDP parameter sharding of an LM) picks the parameter specs of
-``distributed.sharding.lm_param_specs`` (the dry run reads them); a sharded
-step waits for the DTensor half of the mesh code (ROADMAP §1 item 16).
+``distributed.sharding.lm_param_specs``, by which ``train.step.build_cell``
+places a cell's parameters on a mesh (and the dry run reads their
+bytes).
 """
 from __future__ import annotations
 

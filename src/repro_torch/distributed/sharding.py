@@ -26,6 +26,17 @@ The trees differ from the reference's in one place: the port's KV cache is
 laid out ``[L, B, Hkv, S, Dh]`` (``models.transformer.init_kv_cache``), so
 ``lm_cache_specs`` gives the reference's specs with its S and Hkv entries
 swapped.
+
+Real tensors are placed as DTensors (the counterpart of the reference's
+``train/step.py::_abstract``): ``place`` puts a tensor under its spec,
+``place_tree`` a tree of named tensors under a spec tree, and
+``opt_specs`` is the reference's ``_opt_specs``. Every rank holds the same
+full tensor (the same seed, the same batch), so each keeps its own block
+and nothing is scattered (``distribute_tensor(..., src_data_rank=None)``).
+A ``meta`` tensor becomes a ``Sharded`` pair instead. ``local`` and
+``from_local`` cross between a DTensor and this rank's block inside a
+sharded function, with the gradient placements that make its backward
+right.
 """
 from __future__ import annotations
 
@@ -124,6 +135,127 @@ class Sharded(NamedTuple):
     """An abstract input: a ``meta`` tensor and its sharding."""
     tensor: torch.Tensor
     sharding: NamedSharding
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def place(t: torch.Tensor, sharding: NamedSharding):
+    """``t`` (the same full tensor on every rank) under ``sharding``: a
+    DTensor holding this rank's block, or on ``meta`` a ``Sharded`` pair.
+    A DTensor is redistributed; a host int, and a replicated 0-d tensor
+    (AdamW's step: every rank holds the same scalar), are left as they
+    are."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    if is_dtensor(t):
+        return t.redistribute(sharding.mesh, sharding.placements)
+    if t.device.type == "meta":
+        sharding.local_shape(tuple(t.shape))        # the blocks must divide
+        return Sharded(t, sharding)
+    if t.dim() == 0 and not any(sharding.spec):
+        return t
+    sharding.local_shape(tuple(t.shape))            # the blocks must divide
+    mesh, pl = sharding.mesh, sharding.placements
+    block = t.detach()
+    for d in range(block.dim()):
+        n = math.prod(mesh.size(i) for i, p in enumerate(pl)
+                      if p.is_shard(d))
+        size = block.shape[d] // n
+        block = block.narrow(d, block_offset(mesh, pl, d, size), size)
+    return from_local(block.contiguous(), mesh, pl).requires_grad_(
+        t.requires_grad)
+
+
+def place_tree(tree, specs, mesh):
+    """A tree of tensors (dicts, parameter modules by their
+    ``named_parameters()`` names) placed by a spec tree of the same keys:
+    each leaf under ``NamedSharding(mesh, spec)``, or as given where the
+    spec is already a ``Sharded`` pair. A module comes back as its class's
+    ``from_named`` of the placed tensors (trainable as it was), or on
+    ``meta`` as a dict of ``Sharded`` pairs."""
+    if isinstance(tree, torch.nn.Module):
+        named = dict(tree.named_parameters())
+        placed = place_tree(named, specs, mesh)
+        if any(isinstance(v, Sharded) for v in placed.values()):
+            return placed
+        out = type(tree).from_named(placed)
+        for name, p in out.named_parameters():
+            p.requires_grad_(named[name].requires_grad)
+        return out
+    if isinstance(tree, dict):
+        missing = set(tree) - set(specs)
+        if missing:
+            raise KeyError(f"no sharding rule for {sorted(missing)}")
+        return {k: place_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(specs, Sharded):
+        return place(tree, specs.sharding)
+    return place(tree, NamedSharding(mesh, specs))
+
+
+def replicated(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's global value as a plain tensor (the same on every
+    rank: a collective); a plain tensor as it is."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def gather_tree(tree):
+    """``tree`` with every DTensor gathered whole (a collective: every
+    rank calls it), a module rebuilt by its class's ``from_named`` with
+    its parameters' ``requires_grad``; other leaves as they are."""
+    if isinstance(tree, torch.nn.Module):
+        named = dict(tree.named_parameters())
+        out = type(tree).from_named(gather_tree(named))
+        for name, p in out.named_parameters():
+            p.requires_grad_(named[name].requires_grad)
+        return out
+    if isinstance(tree, dict):
+        return {k: gather_tree(v) for k, v in tree.items()}
+    if is_dtensor(tree):
+        return replicated(tree).detach()
+    return tree
+
+
+def opt_specs(param_specs) -> dict:
+    """AdamW's state: moments and master copy placed as the parameters,
+    the step replicated (the reference's ``_opt_specs``)."""
+    return {"m": param_specs, "v": param_specs, "master": param_specs,
+            "step": P()}
+
+
+def local(x, placements, *, partial: tuple = ()) -> torch.Tensor:
+    """This rank's block of DTensor ``x`` redistributed to ``placements``.
+    The block's gradient comes back ``Partial`` on the mesh dims of
+    ``partial`` where ``x`` is replicated: there each rank used the same
+    copy on its own share of the work, and the gradient is their sum."""
+    from torch.distributed.tensor import Partial
+    x = x.redistribute(x.device_mesh, tuple(placements))
+    grad = tuple(Partial() if i in partial and p.is_replicate() else p
+                 for i, p in enumerate(x.placements))
+    return x.to_local(grad_placements=grad)
+
+
+def from_local(t: torch.Tensor, mesh, placements):
+    """A DTensor from this rank's block ``t`` (blocks divide evenly)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t, mesh, tuple(placements), run_check=False)
+
+
+def block_offset(mesh, placements, dim: int, local_size: int) -> int:
+    """Where this rank's block of tensor dim ``dim`` starts, for blocks of
+    ``local_size``: the mesh dims that split it, outermost first."""
+    idx = 0
+    for i, p in enumerate(placements):
+        if p.is_shard(dim):
+            idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+    return idx * local_size
+
+
+def sharded_dims(placements) -> tuple:
+    """The mesh dims on which a placement splits a tensor."""
+    return tuple(i for i, p in enumerate(placements) if p.is_shard())
 
 
 def data_axes(mesh) -> tuple[str, ...]:

@@ -4,13 +4,13 @@ meshes, without the cards.
 The port of ``repro.launch.dryrun``. For each (arch, shape, mesh) cell it
 starts a fake process group of 256 or 512 ranks (torch's ``fake`` backend:
 no collective runs, no card is touched), builds the mesh with
-``make_production_mesh``, builds the cell's state and inputs on ``meta``
-through ``train.step.build_cell``, places each tensor by the sharding
-rules (``distributed.sharding``; AdamW's moments and master copy follow
-their parameter, its step is replicated, as the reference's
-``_opt_specs`` has it) and writes one JSON a cell: the per-card bytes of
-the parameters, the optimizer state and the inputs, and their global
-bytes. The fake group is destroyed on the way out of every cell, on
+``make_production_mesh``, builds the cell on that mesh on ``meta``
+through ``train.step.build_cell``, whose state and inputs come back as
+``Sharded`` pairs placed by the sharding rules (``distributed.sharding``;
+AdamW's moments and master copy follow their parameter, its step is
+replicated, as the reference's ``_opt_specs`` has it), and writes one
+JSON a cell: the per-card bytes of the parameters, the optimizer state
+and the inputs, and their global bytes. The fake group is destroyed on the way out of every cell, on
 success and on error; importing this module starts none.
 
 Usage:
@@ -42,7 +42,7 @@ import torch.distributed as dist
 from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.distributed import sharding as shr
 from repro_torch.launch.mesh import PRODUCTION_SHAPES, make_production_mesh
-from repro_torch.train.step import ATOM_TYPES, POSITIONS, build_cell
+from repro_torch.train.step import build_cell
 
 GROUPS = ("params", "opt", "inputs")
 
@@ -80,97 +80,32 @@ def _leaves(tree, prefix: str = ""):
         yield prefix[:-1], tree
 
 
-def _gnn_label_spec(arch_id: str, mesh) -> shr.P:
-    da = shr.data_axes(mesh)
-    if arch_id == "gat-cora":
-        return shr.P(da)
-    if arch_id in ("schnet", "dimenet"):      # per-graph energies: replicated
-        return shr.P()
-    if arch_id == "meshgraphnet":
-        return shr.P(da, None)
-    raise KeyError(arch_id)
-
-
-def cell_specs(spec, shape_name: str, mesh, params) -> dict:
-    """The rules' specs of one full-config cell whose parameters are
-    ``params``, by group, keyed as ``_leaves`` names the cell's state and
-    inputs: ``{"params", "opt", "inputs"}`` (``opt`` empty for a serving
-    cell)."""
-    cfg = spec.make_config()
-    shape = spec.shapes[shape_name]
-    kind = shape["kind"]
-    train = kind == "train"
-    if spec.family == "lm":
-        params = shr.flat_specs(shr.lm_param_specs(cfg, mesh,
-                                                   fsdp=spec.fsdp))
-        b, s = shape["batch"], shape["seq"]
-        if train:
-            inputs = shr.lm_input_specs(mesh, b, s)
-        elif kind == "prefill":
-            inputs = {"tokens": shr.abstract(mesh, (b, s), torch.int32,
-                                              shr.data_axes(mesh), None)}
-        else:
-            cache, tok = shr.lm_cache_specs(cfg, mesh, b, s)
-            inputs = {"token": tok["token"], "cache": cache}
-    elif spec.family == "gnn":
-        params = shr.gnn_param_specs(params)
-        graph = shr.gnn_input_specs(
-            mesh, n_nodes=shape["n_nodes"], n_edges=shape["n_edges"],
-            d_feat=shape["d_feat"], positions=spec.arch_id in POSITIONS,
-            atom_types=spec.arch_id in ATOM_TYPES,
-            n_graphs=shape["n_graphs"],
-            n_triplets=4 * shape["n_edges"] if spec.arch_id == "dimenet"
-            else 0)
-        inputs = {"graph": graph,
-                  "labels": _gnn_label_spec(spec.arch_id, mesh)}
-    elif spec.family == "recsys":
-        params = shr.dien_param_specs(params, replicate_tables=not train)
-        if kind == "retrieval":
-            inputs = shr.dien_retrieval_specs(mesh, cfg,
-                                              shape["n_candidates"])
-        else:
-            inputs = shr.dien_input_specs(mesh, cfg, shape["batch"])
-            if not train:
-                inputs.pop("label")
-    else:
-        raise KeyError(f"{spec.arch_id}: unknown family {spec.family!r}")
-    opt = ({"m": params, "v": params, "master": params, "step": shr.P()}
-           if train else {})
-    return {"params": params, "opt": opt, "inputs": inputs}
-
-
 def cell_bytes(spec, shape_name: str, mesh) -> dict:
-    """Build the cell on ``meta`` and place it by the rules: per-card and
-    global bytes by group, the host leaves, the build's seconds."""
+    """Build the cell on ``mesh`` on ``meta``: per-card and global bytes
+    by group (every tensor leaf is a ``Sharded`` pair), the host leaves,
+    the build's seconds."""
     t0 = time.perf_counter()
-    _step, state, inputs = build_cell(spec, shape_name, device="meta")
+    _step, state, inputs = build_cell(spec, shape_name, mesh, device="meta")
     t_build = time.perf_counter() - t0
-    trees = ({"params": state["params"], "opt": state["opt"]}
-             if isinstance(state, dict) else {"params": state, "opt": {}})
+    train = spec.shapes[shape_name]["kind"] == "train"
+    trees = ({"params": state["params"], "opt": state["opt"]} if train
+             else {"params": state, "opt": {}})
     trees["inputs"] = inputs
-    specs = cell_specs(spec, shape_name, mesh, trees["params"])
     local = dict.fromkeys(GROUPS, 0)
     total = dict.fromkeys(GROUPS, 0)
     host = []
     for group in GROUPS:
-        want = {}
-        for path, s in _leaves(specs[group]):
-            want[path] = s.sharding if isinstance(s, shr.Sharded) \
-                else shr.NamedSharding(mesh, s)
-        for path, t in _leaves(trees[group]):
-            if not isinstance(t, torch.Tensor):
+        for path, leaf in _leaves(trees[group]):
+            if isinstance(leaf, shr.Sharded):
+                t = leaf.tensor
+                shp = leaf.sharding.local_shape(tuple(t.shape))
+                local[group] += t.element_size() * math.prod(shp)
+                total[group] += t.element_size() * t.numel()
+            elif isinstance(leaf, torch.Tensor):
+                raise RuntimeError(f"{group}.{path} is not placed on the "
+                                   "mesh")
+            else:
                 host.append(f"{group}.{path}")
-                continue
-            if t.device.type != "meta":
-                raise RuntimeError(f"{group}.{path} was built on {t.device}")
-            if path not in want:
-                raise KeyError(f"no sharding rule for {group}.{path}")
-            shp = want.pop(path).local_shape(tuple(t.shape))
-            local[group] += t.element_size() * math.prod(shp)
-            total[group] += t.element_size() * t.numel()
-        unused = sorted(p for p in want if f"{group}.{p}" not in host)
-        if unused:
-            raise KeyError(f"rules for leaves the cell lacks: {unused}")
     local["total"] = sum(local[g] for g in GROUPS)
     total["total"] = sum(total[g] for g in GROUPS)
     return {"bytes_per_device": local, "bytes_global": total,

@@ -18,6 +18,7 @@ types.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -81,3 +82,17 @@ def make_host_mesh(data: int = 1, model: int = 1,
     data = min(data, n)
     model = max(min(model, n // data), 1)
     return _mesh(dtype, (data, model), ("data", "model"))
+
+
+@contextlib.contextmanager
+def host_mesh_session(device_type: str | None = None):
+    """``make_host_mesh(device_type=...)`` for the length of a ``with``:
+    the world-1 group it starts when none is initialized is destroyed on
+    the way out (on success and on error); a group the caller started is
+    left as it is."""
+    started = not dist.is_initialized()
+    try:
+        yield make_host_mesh(device_type=device_type)
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()

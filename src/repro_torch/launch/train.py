@@ -2,10 +2,12 @@
 
 The port of ``repro.launch.train``. Runs real steps on the card (or on
 the device the caller of ``main`` names). Wires together: config registry
-→ cell factory → fault-tolerant loop (checkpoint/restart, watchdog,
-straggler log) → synthetic data per family (``lm``, ``gnn``,
-``recsys``). A cell that does not fit one card (``sharded_cell``) is
-refused: it waits for the DTensor half of the mesh code.
+→ host mesh (``make_host_mesh``: a world-1 NCCL mesh on the card, gloo on
+the CPU, or the ranks of a group the caller started) → cell factory on
+that mesh → fault-tolerant loop (checkpoint/restart, watchdog, straggler
+log) → synthetic data per family (``lm``, ``gnn``, ``recsys``). A cell
+whose state and inputs (the dry run's bytes) exceed one card on the mesh
+is refused.
 """
 from __future__ import annotations
 
@@ -19,9 +21,13 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.core.graph import resolve_device
 from repro_torch.data.gnn_batch import random_graph_batch
+from repro_torch.distributed.sharding import gather_tree
+from repro_torch.launch.mesh import host_mesh_session
 from repro_torch.train.fault import FaultTolerantLoop
-from repro_torch.train.step import (ATOM_TYPES, POSITIONS, build_cell,
-                                    sharded_cell)
+from repro_torch.train.step import ATOM_TYPES, POSITIONS, build_cell
+
+#: One card's memory where the device is not a card: an H100's 80 GB.
+CARD_BYTES = 80e9
 
 
 # The reference's shape of a ``--smoke`` run, by family: the cell named
@@ -144,13 +150,32 @@ def smoke_spec(spec, cfg):
     return dataclasses.replace(spec, shapes={"smoke": shape})
 
 
+def check_fits(spec, shape_name: str, mesh, device) -> float:
+    """The cell's bytes a card on ``mesh`` (its state and inputs, as the
+    dry run counts them); raises ``NotImplementedError`` when they exceed
+    one card (the device's memory, or ``CARD_BYTES`` off a card)."""
+    from repro_torch.launch.dryrun import cell_bytes
+    per_card = cell_bytes(spec, shape_name, mesh)["bytes_per_device"]["total"]
+    card = (torch.cuda.get_device_properties(device).total_memory
+            if device.type == "cuda" else CARD_BYTES)
+    if per_card > card:
+        shape = "x".join(map(str, mesh.shape))
+        raise NotImplementedError(
+            f"{spec.arch_id}/{shape_name}: {per_card / 1e9:.1f} GB a card "
+            f"on the {shape} mesh (the dry run's state and inputs) exceed "
+            f"one card's {card / 1e9:.1f} GB")
+    return per_card
+
+
 def main(argv: list[str] | None = None, *,
          device: str | torch.device | None = None) -> FaultTolerantLoop:
-    """The CLI: build the cell, resume from the newest checkpoint under
-    ``<ckpt-dir>/<arch>``, run to ``--steps`` under ``FaultTolerantLoop``
-    and print ``step … loss … ms`` every 5 steps (and at step 1) and a
-    ``done:`` line. Runs on ``device``: the card unless the caller passes
-    another. Returns the loop."""
+    """The CLI: build the cell on the host mesh, resume from the newest
+    checkpoint under ``<ckpt-dir>/<arch>``, run to ``--steps`` under
+    ``FaultTolerantLoop`` and print ``step … loss … ms`` every 5 steps (and
+    at step 1) and a ``done:`` line. Runs on ``device``: the card unless
+    the caller passes another. The process group it starts for the mesh
+    is destroyed on the way out; the returned loop's state is gathered
+    whole (plain tensors)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, required=True)
     ap.add_argument("--shape", default=None)
@@ -168,29 +193,29 @@ def main(argv: list[str] | None = None, *,
         shape_name = "smoke"
     else:
         shape_name = args.shape or list(spec.shapes)[0]
-    if not args.smoke and sharded_cell(spec.arch_id, shape_name):
-        raise NotImplementedError(
-            f"{args.arch}/{shape_name} does not fit one card; it waits for "
-            "the DTensor half of the mesh code (ROADMAP §1 item 16)")
     shape = spec.shapes[shape_name]
 
-    step_fn, state, _ = build_cell(spec, shape_name, smoke=args.smoke,
-                                   device=dev)
-    loop = FaultTolerantLoop(
-        step_fn=step_fn, state=state,
-        data_iter=synthetic_batches(spec, shape, cfg, device=dev),
-        ckpt_dir=f"{args.ckpt_dir}/{args.arch}",
-        ckpt_every=args.ckpt_every)
-    loop.resume()
+    with host_mesh_session(dev.type) as mesh:
+        if not args.smoke:
+            check_fits(spec, shape_name, mesh, dev)
+        step_fn, state, _ = build_cell(spec, shape_name, mesh,
+                                       smoke=args.smoke, device=dev)
+        loop = FaultTolerantLoop(
+            step_fn=step_fn, state=state,
+            data_iter=synthetic_batches(spec, shape, cfg, device=dev),
+            ckpt_dir=f"{args.ckpt_dir}/{args.arch}",
+            ckpt_every=args.ckpt_every)
+        loop.resume()
 
-    t0 = time.time()
+        t0 = time.time()
 
-    def on_metrics(step, metrics, dt):
-        if step % 5 == 0 or step == 1:
-            loss = float(metrics["loss"])
-            print(f"step {step:5d}  loss {loss:.4f}  {dt*1e3:.0f} ms")
+        def on_metrics(step, metrics, dt):
+            if step % 5 == 0 or step == 1:
+                loss = float(metrics["loss"])
+                print(f"step {step:5d}  loss {loss:.4f}  {dt*1e3:.0f} ms")
 
-    loop.run(args.steps, on_metrics=on_metrics)
+        loop.run(args.steps, on_metrics=on_metrics)
+        loop.state = gather_tree(loop.state)
     print(f"done: {args.steps} steps in {time.time()-t0:.1f}s; "
           f"retries={loop.retries} stragglers={len(loop.stragglers)}")
     return loop

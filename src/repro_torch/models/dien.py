@@ -26,6 +26,16 @@ Parameters keep the reference's names and its ``[in, out]`` layout
 (``x @ w + b``), so ``params_from_reference`` transposes nothing. They are
 built without gradients, for serving; ``params.requires_grad_()`` makes
 them trainable.
+
+Over a device mesh (DTensor parameters and batch, placed by
+``distributed.sharding``'s rules) each rank runs the forward on its block
+of the batch rows against the replicated dense weights. A table whose
+rows are split (training: ``P("model", None)``) is read by a masked
+lookup on this rank's rows, summed over the ranks that split them; the
+user profile's bag runs the ``embed_bag`` kernel on the rank's rows as a
+weighted sum (weight 0 for an id outside them), then the sum over the
+ranks is divided by the whole bag's weight. Retrieval gathers its
+replicated parameters and candidates and scores them all on every rank.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.graph import resolve_device
+from repro_torch.distributed import sharding as shr
 from repro_torch.kernels.embed_bag.ops import embed_bag
 
 
@@ -250,11 +261,17 @@ def interest_evolution(cfg: DIENConfig, params, hs, behavior, target_vec,
     return h
 
 
-def _behavior(params, batch):
-    """[B, T, 2e] item ‖ cate embeddings of the history, zero where masked."""
-    behavior = torch.cat([params["item_table"][batch["hist_items"]],
-                          params["cate_table"][batch["hist_cates"]]], -1)
+def _behavior(lookup, batch):
+    """[B, T, 2e] item ‖ cate embeddings of the history, zero where
+    masked; ``lookup(table name, ids)`` reads the rows."""
+    behavior = torch.cat([lookup("item_table", batch["hist_items"]),
+                          lookup("cate_table", batch["hist_cates"])], -1)
     return behavior.masked_fill_(~batch["hist_mask"][..., None], 0)
+
+
+def _target(lookup, items, cates):
+    return torch.cat([lookup("item_table", items),
+                      lookup("cate_table", cates)], -1)
 
 
 def _sumpool(hs, mask):
@@ -296,21 +313,93 @@ def dien_forward(cfg: DIENConfig, params: DIENParams, batch: dict, *,
       user_feats: [B, hot] int32 (multi-hot → embedding bag)
     Runs on ``device``: the card unless the caller passes another; the
     parameters must lie there, the batch is moved there. ``use_kernel``
-    goes to ``embed_bag``.
+    goes to ``embed_bag``. DTensor parameters and batch (a mesh) give
+    DTensor logits split as the batch rows.
     """
+    if shr.is_dtensor(params["item_table"]):
+        return _sharded_forward(cfg, params, batch, use_kernel)
     batch = _on_device(params, batch, device)
-    mask = batch["hist_mask"]
-    behavior = _behavior(params, batch)                  # [B, T, 2e]
-    tgt = torch.cat([params["item_table"][batch["target_item"]],
-                     params["cate_table"][batch["target_cate"]]], -1)
+    return _forward(cfg, params, batch, lambda name, ids: params[name][ids],
+                    lambda ids: embed_bag(ids, params["user_table"],
+                                          mean=True, use_kernel=use_kernel))
 
+
+def _forward(cfg: DIENConfig, params, batch: dict, lookup, user_bag):
+    """The forward on one device's rows: ``lookup(table, ids)`` reads the
+    item and category rows, ``user_bag(ids)`` the user profile's mean."""
+    mask = batch["hist_mask"]
+    behavior = _behavior(lookup, batch)                  # [B, T, 2e]
+    tgt = _target(lookup, batch["target_item"], batch["target_cate"])
     hs = interest_extractor(cfg, params, behavior)
     final = interest_evolution(cfg, params, hs, behavior, tgt, mask)
-    user = embed_bag(batch["user_feats"], params["user_table"], mean=True,
-                     use_kernel=use_kernel)
+    user = user_bag(batch["user_feats"])
     feat = torch.cat([final, tgt, user.to(cfg.dtype), _sumpool(hs, mask)],
                      -1)
     return _mlp(params, feat)
+
+
+def _sharded_forward(cfg: DIENConfig, params: DIENParams, batch: dict,
+                     use_kernel) -> torch.Tensor:
+    """``dien_forward`` over a mesh: this rank's rows of the batch against
+    the replicated dense weights (their gradients are partial sums over
+    the ranks that split the rows) and the tables' row blocks."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = params["item_table"].device_mesh
+    rows = tuple(Shard(0) if p.is_shard(0) else Replicate()
+                 for p in batch["hist_items"].placements)
+    split = shr.sharded_dims(rows)
+    rep = (Replicate(),) * mesh.ndim
+    lb = {k: shr.local(v, rows) for k, v in batch.items()}
+    dense = {n: shr.local(t, rep, partial=split)
+             for n, t in params.named_parameters()
+             if n not in shr.DIEN_TABLES}
+    local_params = {
+        **{n: {k: dense[f"{n}.{k}"] for k in _GRU_KEYS}
+           for n in ("gru1", "augru")},
+        "att_w": dense["att_w"], "proj_target": dense["proj_target"],
+        "mlp": [(dense[f"mlp.{i}.0"], dense[f"mlp.{i}.1"])
+                for i in range(len(params["mlp"]))]}
+    tables = {}
+    for name in shr.DIEN_TABLES:
+        t = params[name]
+        pl = tuple(Shard(0) if p.is_shard(0) else Replicate()
+                   for p in t.placements)
+        block = shr.local(t, pl, partial=split)
+        tables[name] = (block, t.shape[0], shr.block_offset(
+            mesh, pl, 0, block.shape[0]), shr.sharded_dims(pl))
+
+    def summed(part, row_dims):
+        """The blocks' partial results summed over ``row_dims``."""
+        return shr.from_local(part, mesh, tuple(
+            Partial() if i in row_dims else p for i, p in enumerate(rows))
+        ).redistribute(mesh, rows).to_local()
+
+    def in_block(name, ids):
+        block, v, r0, _dims = tables[name]
+        i = ids.long()
+        i = torch.where(i < 0, i + v, i) - r0
+        ok = (i >= 0) & (i < block.shape[0])
+        return torch.where(ok, i, 0), ok
+
+    def lookup(name, ids):
+        block, _v, _r0, row_dims = tables[name]
+        if not row_dims:
+            return block[ids]
+        i, ok = in_block(name, ids)
+        return summed(torch.where(ok[..., None], block[i], 0), row_dims)
+
+    def user_bag(ids):
+        block, _v, _r0, row_dims = tables["user_table"]
+        if not row_dims:
+            return embed_bag(ids, block, mean=True, use_kernel=use_kernel)
+        i, ok = in_block("user_table", ids)
+        w = ok.to(torch.float32)
+        part = embed_bag(i.to(torch.int32), block, w, mean=False,
+                         use_kernel=use_kernel)
+        return summed(part, row_dims) / max(float(ids.shape[1]), 1e-9)
+
+    logits = _forward(cfg, local_params, lb, lookup, user_bag)
+    return shr.from_local(logits, mesh, rows)
 
 
 def dien_loss(cfg: DIENConfig, params: DIENParams, batch: dict, *,
@@ -340,11 +429,19 @@ def dien_retrieval_score(cfg: DIENConfig, params: DIENParams, batch: dict,
     block of ``cand_block`` candidates at a time. As in the reference, the
     candidates are padded with id 0 up to a whole number of blocks and the
     padding's scores are returned too (``C`` rounded up to ``cand_block``).
-    Device and ``use_kernel`` as for ``dien_forward``.
+    Device and ``use_kernel`` as for ``dien_forward``. On a mesh every
+    rank gathers the (replicated) parameters and all the candidates and
+    scores them all.
     """
+    if shr.is_dtensor(params["item_table"]):
+        params = DIENParams.from_named(
+            {n: p.full_tensor() for n, p in params.named_parameters()})
+        batch = {k: v.full_tensor() if shr.is_dtensor(v) else v
+                 for k, v in batch.items()}
     batch = _on_device(params, batch, device)
     mask = batch["hist_mask"]
-    behavior = _behavior(params, batch)                  # [1, T, 2e]
+    behavior = _behavior(lambda name, ids: params[name][ids],
+                         batch)                          # [1, T, 2e]
     hs = interest_extractor(cfg, params, behavior)       # [1, T, g]
     user = embed_bag(batch["user_feats"], params["user_table"], mean=True,
                      use_kernel=use_kernel)
@@ -361,8 +458,8 @@ def dien_retrieval_score(cfg: DIENConfig, params: DIENParams, batch: dict,
     fixed = torch.cat([user.to(cfg.dtype), sumpool], -1).expand(cand_block, -1)
     scores = hs.new_empty(n_blocks * cand_block)
     for i in range(n_blocks):
-        tgt = torch.cat([params["item_table"][cand_items[i]],
-                         params["cate_table"][cand_cates[i]]], -1)
+        tgt = _target(lambda name, ids: params[name][ids], cand_items[i],
+                      cand_cates[i])
         final = interest_evolution(cfg, params, hs_b, beh_b, tgt, mask_b)
         feat = torch.cat([final, tgt, fixed], -1)
         scores[i * cand_block:(i + 1) * cand_block] = _mlp(params, feat)

@@ -19,9 +19,19 @@ so ``params_from_reference`` transposes nothing. The memory design is the
 reference's: ``jax.checkpoint`` is ``torch.utils.checkpoint`` at the same
 places, ``lax.scan`` over stacked layers is a loop, DimeNet streams its
 triplets in chunks and carries its edge states in bfloat16 from 2^22
-edges. ``_constrain_rows`` / ``set_gnn_data_axes`` (activation sharding
-over a mesh) are not ported: they wait for the DTensor half of the mesh
-code (ROADMAP §1 item 16).
+edges.
+
+Over a device mesh (a sharded cell of ``train.step.build_cell``) the
+graph's tensors are DTensors split over the data axes by rows (nodes,
+edges, triplets) and the parameters are replicated. The dense steps are
+DTensor ops. A gather ``x[index]`` (``_rows``) takes the replicated ``x``
+and this rank's block of the index; a scatter into nodes (``scatter_sum``,
+``_index_add``, the softmax's max) adds this rank's rows into all of them
+and the partial results are summed over the ranks (the max reduced),
+then placed back on the rows by ``_constrain_rows`` at the reference's
+sites when ``set_gnn_data_axes`` is set, else replicated. The softmax's
+max passes its gradient (zero in exact arithmetic: a softmax does not
+depend on the shift it subtracts) to each rank's own largest score.
 
 Ties: ``jnp.maximum`` and ``jnp.clip`` pass half the gradient to each side
 of a tie and ``torch.clamp`` passes all of it to the input, so a clip of a
@@ -31,6 +41,7 @@ activations are written as the reference's ``where``s (``leaky_relu`` at
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import math
 
@@ -40,6 +51,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.graph import resolve_device
+from repro_torch.distributed import sharding as shr
 
 #: DimeNet's triplet chunk: the reference's ``_pick_chunks(t, 4_194_304)``.
 TRIPLET_CHUNK = 4_194_304
@@ -64,10 +76,73 @@ class GraphBatch:
     trip_out: torch.Tensor | None = None     # [T] edge id (j→i)
 
 
+# Mesh axes for activation sharding constraints (set by the step factory
+# for full-scale cells; unset → no constraints, e.g. smoke cells).
+_GNN_DATA_AXES: contextvars.ContextVar[tuple] = contextvars.ContextVar(
+    "gnn_data_axes", default=())
+
+
+def set_gnn_data_axes(axes: tuple) -> None:
+    _GNN_DATA_AXES.set(tuple(axes))
+
+
+def _constrain_rows(x: torch.Tensor) -> torch.Tensor:
+    """Shard the leading (node/edge/triplet) dim over the data axes; a
+    plain tensor raises while the axes are set."""
+    axes = _GNN_DATA_AXES.get()
+    if not axes:
+        return x
+    if not shr.is_dtensor(x):
+        raise TypeError(f"_constrain_rows: the rows are placed over {axes}, "
+                        "so the tensor must be a DTensor; got a plain one")
+    mesh = x.device_mesh
+    spec = shr.P(axes, *([None] * (x.dim() - 1)))
+    return x.redistribute(mesh, shr.NamedSharding(mesh, spec).placements)
+
+
+def _row_placements(index, ndim: int) -> tuple:
+    """The placements of a tensor of ``ndim`` dims whose rows are
+    ``index``'s: its split of dim 0, replicated elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Shard(0) if p.is_shard(0) else Replicate()
+                 for p in index.placements)
+
+
+def _summed(out: torch.Tensor, index, reduce: str = "sum"):
+    """This rank's scatter ``out`` (of its rows of ``index``) as the sum
+    (or max) over the ranks that split the rows: constrained to the rows,
+    or replicated."""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = index.device_mesh
+    split = shr.sharded_dims(index.placements)
+    out = shr.from_local(out, mesh, tuple(
+        Partial(reduce) if i in split else Replicate()
+        for i in range(mesh.ndim)))
+    if _GNN_DATA_AXES.get() and reduce == "sum":
+        return _constrain_rows(out)
+    return out.redistribute(mesh, (Replicate(),) * mesh.ndim)
+
+
+def _index_add(n: int, index: torch.Tensor,
+               values: torch.Tensor) -> torch.Tensor:
+    """``zeros(n, ...).index_add(0, index, values)`` (every index in
+    [0, n)); on a mesh the ranks' partial sums are summed."""
+    if not shr.is_dtensor(index):
+        return values.new_zeros((n,) + values.shape[1:]).index_add(
+            0, index, values)
+    il = shr.local(index, index.placements)
+    vl = shr.local(values, _row_placements(index, values.dim()))
+    return _summed(_index_add(n, il, vl), index)
+
+
 def scatter_sum(values: torch.Tensor, index: torch.Tensor,
                 n: int) -> torch.Tensor:
     """Σ of ``values`` rows into ``n`` rows by ``index``; an index ≥ n
     (padding) goes to a drop row that is cut off, as ``mode="drop"``."""
+    if shr.is_dtensor(index):
+        vl = shr.local(values, _row_placements(index, values.dim()))
+        return _summed(scatter_sum(vl, shr.local(index, index.placements), n),
+                       index)
     idx = torch.where(index < n, index, n).long()
     out = values.new_zeros((n + 1,) + values.shape[1:])
     return out.index_add(0, idx, values)[:n]
@@ -82,8 +157,17 @@ def _rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     """``x[index]`` for a differentiated ``x``: its backward is
     ``index_add`` (one atomic add a row), where ``x[index]``'s sorts the
     index and walks each repeated row in one warp, which serializes a hub
-    (rmat's thousands of edges out of one node) or a padding row."""
-    return x.index_select(0, index)
+    (rmat's thousands of edges out of one node) or a padding row. On a
+    mesh: the replicated ``x`` at this rank's block of the index (``x``'s
+    gradient is a partial sum over the ranks that split the index)."""
+    if not shr.is_dtensor(index):
+        return x.index_select(0, index)
+    from torch.distributed.tensor import Replicate
+    mesh = index.device_mesh
+    xl = shr.local(x, (Replicate(),) * mesh.ndim,
+                   partial=shr.sharded_dims(index.placements))
+    out = xl.index_select(0, shr.local(index, index.placements))
+    return shr.from_local(out, mesh, _row_placements(index, out.dim()))
 
 
 def _max(x: torch.Tensor, floor: float) -> torch.Tensor:
@@ -96,18 +180,50 @@ def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return torch.minimum(_max(x, lo), x.new_tensor(hi))
 
 
-def segment_softmax(scores: torch.Tensor, index: torch.Tensor, n: int):
-    """Softmax over incoming edges per node. scores: [E, H]."""
+def _segment_max(scores: torch.Tensor, index: torch.Tensor, n: int):
+    """The per-node max of ``scores`` [E, H] over ``index`` (an index ≥ n
+    dropped), -1e30 where a node has no edge: [n, H]."""
+    if shr.is_dtensor(index):
+        sl = shr.local(scores, _row_placements(index, scores.dim()))
+        return _summed(_segment_max(sl, shr.local(index, index.placements),
+                                    n), index, "max")
     idx = torch.where(index < n, index, n).long()
     mx = torch.full((n + 1,) + scores.shape[1:], -1e30, dtype=scores.dtype,
                     device=scores.device)
-    mx = mx.scatter_reduce(0, idx[:, None].expand_as(scores), scores,
-                           "amax")[:n]
+    return mx.scatter_reduce(0, idx[:, None].expand_as(scores), scores,
+                             "amax")[:n]
+
+
+def segment_softmax(scores: torch.Tensor, index: torch.Tensor, n: int):
+    """Softmax over incoming edges per node. scores: [E, H]."""
+    mx = _segment_max(scores, index, n)
     safe = _clip_index(index, n)
     ex = torch.exp(scores - _rows(mx, safe))
     ex = torch.where((index < n)[:, None], ex, 0)
     den = scatter_sum(ex, index, n)
     return ex / _max(_rows(den, safe), 1e-16)
+
+
+def _const(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A small constant ``t`` beside ``like``: replicated on its mesh when
+    ``like`` is a DTensor."""
+    if not shr.is_dtensor(like):
+        return t
+    from torch.distributed.tensor import Replicate
+    mesh = like.device_mesh
+    return shr.from_local(t, mesh, (Replicate(),) * mesh.ndim)
+
+
+def _arange_rows(like: torch.Tensor) -> torch.Tensor:
+    """``arange(len(like))``, split as ``like``'s rows on a mesh."""
+    if not shr.is_dtensor(like):
+        return torch.arange(like.shape[0], device=like.device)
+    mesh = like.device_mesh
+    pl = _row_placements(like, 1)
+    n_l = shr.local(like, pl).shape[0]
+    start = shr.block_offset(mesh, pl, 0, n_l)
+    return shr.from_local(torch.arange(start, start + n_l,
+                                       device=like.device), mesh, pl)
 
 
 def _silu(x):
@@ -340,13 +456,13 @@ def gat_forward(cfg: GATConfig, params: GNNParams,
     dst_ok = (g.dst < n)[:, None, None]
     layers = params["layers"]
     for i, lp in enumerate(layers):
-        h = torch.einsum("nf,fhd->nhd", x, lp["w"])           # [N, H, D]
+        h = _constrain_rows(torch.einsum("nf,fhd->nhd", x, lp["w"]))
         e_src = torch.sum(h * lp["a_src"], -1)                # [N, H]
         e_dst = torch.sum(h * lp["a_dst"], -1)
         scores = _leaky_relu(_rows(e_src, src_safe)
                              + _rows(e_dst, dst_safe))          # [E, H]
         alpha = segment_softmax(scores, g.dst, n)             # [E, H]
-        msg = _rows(h, src_safe) * alpha[..., None]          # [E, H, D]
+        msg = _constrain_rows(_rows(h, src_safe) * alpha[..., None])
         agg = scatter_sum(torch.where(dst_ok, msg, 0), g.dst, n)
         x = agg.mean(1) if i + 1 == len(layers) else _elu(agg.reshape(n, -1))
     return x
@@ -394,34 +510,35 @@ def schnet_forward(cfg: SchNetConfig, params: GNNParams,
     h = _atom_embed(params, g.node_feat)
     src_safe = _clip_index(g.src, n)
     dst_safe = _clip_index(g.dst, n)
-    d_ij = _norm(g.positions[dst_safe] - g.positions[src_safe] + 1e-9)
+    d_ij = _norm(_rows(g.positions, dst_safe) - _rows(g.positions, src_safe)
+                 + 1e-9)
     dst_ok = (g.dst < n)[:, None]
 
     # The RBF expansion (E × n_rbf: 74 GB float32 at ogb_products) is
     # recomputed inside each checkpointed interaction, not stashed.
     def edge_filter(lp_filter):
-        centers = torch.linspace(0.0, cfg.cutoff, cfg.n_rbf,
-                                 device=d_ij.device)
+        centers = _const(torch.linspace(0.0, cfg.cutoff, cfg.n_rbf,
+                                        device=d_ij.device), d_ij)
         gamma = cfg.n_rbf / cfg.cutoff
         rbf = torch.exp(-gamma * (d_ij[:, None] - centers) ** 2).to(cfg.dtype)
         env = 0.5 * (torch.cos(math.pi * _clip(d_ij / cfg.cutoff, 0.0, 1.0))
                      + 1.0)
         w = _mlp(lp_filter, rbf, act=_ssp, final_act=True)
-        return w * env[:, None].to(cfg.dtype)
+        return _constrain_rows(w * env[:, None].to(cfg.dtype))
 
     for lp in params["inter"]:
         def interaction(h, lp=lp):
             w = edge_filter(lp["filter"])
             x = _mlp(lp["w_in"], h)
-            msg = _rows(x, src_safe) * w
+            msg = _constrain_rows(_rows(x, src_safe) * w)
             agg = scatter_sum(torch.where(dst_ok, msg, 0), g.dst, n)
             return h + _mlp(lp["w_out"], agg, act=_ssp)
 
         h = _remat(interaction, h)
 
     atom_e = _mlp(params["readout"], h, act=_ssp)[:, 0]      # [N]
-    gid = g.graph_id if g.graph_id is not None else torch.zeros(
-        n, dtype=torch.int32, device=h.device)
+    gid = g.graph_id if g.graph_id is not None else _const(torch.zeros(
+        n, dtype=torch.int32, device=h.device), h)
     return scatter_sum(atom_e, gid, g.n_graphs)
 
 
@@ -469,20 +586,21 @@ def dimenet_forward(cfg: DimeNetConfig, params: GNNParams,
     n = g.n_nodes
     src_safe = _clip_index(g.src, n)
     dst_safe = _clip_index(g.dst, n)
-    vec = g.positions[dst_safe] - g.positions[src_safe]      # j→i per edge
+    vec = _rows(g.positions, dst_safe) - _rows(g.positions, src_safe)
     d_ij = _norm(vec + 1e-9)
 
     # Radial basis: sin(kπ d / c) / d  (Bessel j0 harmonics).
-    kk = torch.arange(1, cfg.n_radial + 1, dtype=torch.float32,
-                      device=vec.device)
+    kk = _const(torch.arange(1, cfg.n_radial + 1, dtype=torch.float32,
+                             device=vec.device), vec)
     rbf = (torch.sin(kk * math.pi * (d_ij / cfg.cutoff)[:, None])
            / _max(d_ij, 1e-6)[:, None]).to(cfg.dtype)
 
     h = _atom_embed(params, g.node_feat)
     rbf_d = _mlp(params["rbf_proj"], rbf)
-    m = _mlp(params["edge_init"],
-             torch.cat([_rows(h, src_safe), _rows(h, dst_safe), rbf_d], -1),
-             act=_silu, final_act=True)                     # [E, d]
+    m = _constrain_rows(_mlp(
+        params["edge_init"],
+        torch.cat([_rows(h, src_safe), _rows(h, dst_safe), rbf_d], -1),
+        act=_silu, final_act=True))                         # [E, d]
     return _dimenet_blocks(cfg, params, g, m, rbf, vec, n)
 
 
@@ -511,14 +629,14 @@ def _dimenet_blocks(cfg, params, g, m, rbf, vec, n, *,
     tc = t // n_chunks
     ti_all = g.trip_in.reshape(n_chunks, tc)
     to_all = g.trip_out.reshape(n_chunks, tc)
-    sph_k = torch.arange(cfg.n_spherical, device=m.device)
+    sph_k = _const(torch.arange(cfg.n_spherical, device=m.device), m)
 
     def triplet_chunk(m_kj, w_sbf, bilinear, ti_raw, to_raw):
         ti = _clip_index(ti_raw, e)
         to = _clip_index(to_raw, e)
         valid = (ti_raw < e) & (to_raw < e)
-        v_in = -vec[ti]                                   # j→k direction
-        v_out = vec[to]
+        v_in = -_rows(vec, ti)                            # j→k direction
+        v_out = _rows(vec, to)
         # The reference's ``jnp.linalg.norm(x, -1)`` passes -1 as ``ord``
         # with no axis: the matrix norm of the whole chunk (the least
         # column sum of |x|, padding rows included), one scalar per chunk.
@@ -528,7 +646,7 @@ def _dimenet_blocks(cfg, params, g, m, rbf, vec, n, *,
         angles = torch.arccos(_clip(cos_a, -1.0, 1.0))
         # Chebyshev angular basis T_l(cos α) × radial basis of the in-edge.
         sph = torch.cos(angles[:, None] * sph_k)
-        sbf = (sph[:, :, None] * rbf[ti].float()[:, None, :]
+        sbf = (sph[:, :, None] * _rows(rbf, ti).float()[:, None, :]
                ).reshape(tc, -1).to(cfg.dtype)
         basis = sbf @ w_sbf                               # [tc, n_bilinear]
         # Padded triplets are masked to 0; the reference gathers and
@@ -536,7 +654,7 @@ def _dimenet_blocks(cfg, params, g, m, rbf, vec, n, *,
         # taking every padded triplet's atomics (three quarters of
         # minibatch_lg's). Here they gather and add their 0 at rows spread
         # over [0, e): the same sums.
-        spread = torch.remainder(torch.arange(tc, device=ti.device), e)
+        spread = torch.remainder(_arange_rows(ti), e)
         ti_m = torch.where(valid, ti, spread)
         to_m = torch.where(valid, to, spread)
         # The reference's einsum("td,dbe,tb->te"), as one GEMM over (b, d).
@@ -545,19 +663,20 @@ def _dimenet_blocks(cfg, params, g, m, rbf, vec, n, *,
                  * _rows(m_kj, ti_m)[:, None, :]).reshape(tc, -1)
         tmsg = outer @ bilinear.transpose(0, 1).reshape(nb * d, d)
         tmsg = torch.where(valid[:, None], tmsg, 0)
-        return m_kj.new_zeros((e, d)).index_add(0, to_m, tmsg)
+        return _constrain_rows(_index_add(e, to_m, tmsg))
 
     carry_dtype = _carry_dtype(e, m.dtype)
 
     def one_block(m_c, bp):
         m = m_c.to(cfg.dtype)
-        m_kj = _mlp(bp["w_kj"], m)                        # [E, d]
-        agg = m.new_zeros((e, d))
+        m_kj = _constrain_rows(_mlp(bp["w_kj"], m))       # [E, d]
+        agg = None                  # the first chunk's sum starts it
         for idx in range(n_chunks):
-            agg = agg + _remat(triplet_chunk, m_kj, bp["w_sbf"],
-                               bp["bilinear"], ti_all[idx], to_all[idx])
+            part = _remat(triplet_chunk, m_kj, bp["w_sbf"], bp["bilinear"],
+                          ti_all[idx], to_all[idx])
+            agg = part if agg is None else agg + part
         m = m + _mlp(bp["update"], _mlp(bp["w_ji"], m) + agg, act=_silu)
-        return m.to(carry_dtype)
+        return _constrain_rows(m.to(carry_dtype))
 
     m = m.to(carry_dtype)
     for bp in params["blocks"]:
@@ -565,8 +684,8 @@ def _dimenet_blocks(cfg, params, g, m, rbf, vec, n, *,
     m = m.to(cfg.dtype)
     edge_e = _mlp(params["out"], m, act=_silu)[:, 0]
     node_e = scatter_sum(torch.where(g.dst < n, edge_e, 0), g.dst, n)
-    gid = g.graph_id if g.graph_id is not None else torch.zeros(
-        n, dtype=torch.int32, device=m.device)
+    gid = g.graph_id if g.graph_id is not None else _const(torch.zeros(
+        n, dtype=torch.int32, device=m.device), m)
     return scatter_sum(node_e, gid, g.n_graphs)
 
 
@@ -622,21 +741,21 @@ def mgn_forward(cfg: MGNConfig, params: GNNParams,
     dst_safe = _clip_index(g.dst, n)
     h = _mlp(params["enc_node"], g.node_feat.to(cfg.dtype))
     if g.positions is not None:
-        rel = g.positions[dst_safe] - g.positions[src_safe]
+        rel = _rows(g.positions, dst_safe) - _rows(g.positions, src_safe)
         dist = _norm(rel + 1e-9, keepdim=True)
         ef = torch.cat([rel, dist], -1).to(cfg.dtype)
     else:
-        ef = torch.zeros((g.src.shape[0], cfg.d_in_edge), dtype=cfg.dtype,
-                         device=h.device)
+        ef = _const(torch.zeros((g.src.shape[0], cfg.d_in_edge),
+                                dtype=cfg.dtype, device=h.device), h)
     he = _mlp(params["enc_edge"], ef)
     dst_ok = (g.dst < n)[:, None]
 
     def one_layer(h, he, edge_mlp, node_mlp):
         e_in = torch.cat([he, _rows(h, src_safe), _rows(h, dst_safe)], -1)
-        he = he + _ln(_mlp(edge_mlp, e_in))
+        he = _constrain_rows(he + _ln(_mlp(edge_mlp, e_in)))
         agg = scatter_sum(torch.where(dst_ok, he, 0), g.dst, n)
         n_in = torch.cat([h, agg], -1)
-        h = h + _ln(_mlp(node_mlp, n_in))
+        h = _constrain_rows(h + _ln(_mlp(node_mlp, n_in)))
         return h, he
 
     stacked = params["layers"]

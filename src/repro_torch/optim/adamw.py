@@ -8,18 +8,28 @@ count. The update is the reference's, in its order: gradients clipped to a
 global norm first, bias corrections from ``step + 1``, and decoupled weight
 decay on every tensor (tables and biases too). Nothing is updated in place:
 each call returns new tensors.
+
+Leaves may be DTensors (a sharded train step): the state keeps each
+parameter's placement, the step is a plain 0-d tensor (replicated), and
+the global norm adds each leaf's sum of squares reduced to a replicated
+scalar first, so every rank scales by the same norm.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import replicated
+
 
 def adamw_init(params: dict[str, torch.Tensor]) -> dict:
-    """Zero moments, a float32 master copy of each parameter, step 0."""
+    """Zero moments, a float32 master copy of each parameter, step 0.
+    Each moment is placed as its parameter."""
     dev = next(iter(params.values())).device
-    return {"m": {k: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+    return {"m": {k: torch.zeros_like(p, dtype=torch.float32,
+                                      memory_format=torch.contiguous_format)
                   for k, p in params.items()},
-            "v": {k: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+            "v": {k: torch.zeros_like(p, dtype=torch.float32,
+                                      memory_format=torch.contiguous_format)
                   for k, p in params.items()},
             "master": {k: p.detach().to(torch.float32, copy=True)
                        for k, p in params.items()},
@@ -30,8 +40,9 @@ def adamw_init(params: dict[str, torch.Tensor]) -> dict:
 def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float):
     """(grads scaled so that their global float32 norm is at most
     ``max_norm``, the norm before scaling). The squares are summed tensor
-    by tensor in the dict's order."""
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+    by tensor in the dict's order; a DTensor's sum is first reduced to a
+    replicated plain scalar."""
+    gn = torch.sqrt(sum(replicated(torch.sum(torch.square(g.float())))
                         for g in grads.values()))
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
     return {k: (g.float() * scale).to(g.dtype) for k, g in grads.items()}, gn

@@ -20,6 +20,8 @@ The port of ``repro.train.checkpoint`` (DESIGN.md §8):
   * ``restore`` puts each tensor on the device of the matching leaf of
     ``state_like`` (the card, for a state on the card) and rejects a tree
     whose leaf names differ;
+  * a DTensor leaf (a sharded train state) is written whole (gathered:
+    every rank saves) and restored placed as the matching leaf;
   * retention: keep the newest ``keep`` checkpoints.
 
 The manifest is JSON (the standard library), not the reference's msgpack,
@@ -103,6 +105,9 @@ def _to_host(leaf) -> np.ndarray:
     """A leaf as an npz-safe host array (exotic dtypes as raw bytes)."""
     if not isinstance(leaf, torch.Tensor):
         return np.asarray(leaf)
+    from torch.distributed.tensor import DTensor
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     t = leaf.detach().cpu().contiguous()
     if t.dtype in _NATIVE:
         return t.numpy()
@@ -119,7 +124,12 @@ def _from_host(raw: np.ndarray, kind: str, shape, like):
         t = torch.from_numpy(np.ascontiguousarray(raw))
     else:
         t = torch.from_numpy(np.ascontiguousarray(raw)).view(dtype)
-    return t.reshape(shape).to(device=like.device, dtype=like.dtype)
+    t = t.reshape(shape).to(device=like.device, dtype=like.dtype)
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if isinstance(like, DTensor):
+        return distribute_tensor(t, like.device_mesh, like.placements,
+                                 src_data_rank=None)
+    return t
 
 
 def save(ckpt_dir: str | pathlib.Path, state, step: int, *,

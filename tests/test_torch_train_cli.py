@@ -3,14 +3,21 @@ CPU at the smoke configs: for each LM id, each GNN id and DIEN, 4 steps
 with a checkpoint every 2, then a second call with ``--steps 6`` that
 resumes at 4 (and a third with ``--steps 4`` that resumes at 4, runs
 nothing and holds the first call's state bit-equal), the reference's
-report lines; the full-shape cells that do not fit one card (every LM's
-default ``train_4k``, ``ogb_products``) raise, naming the mesh code."""
+report lines, through the cell on the host mesh (a world-1 gloo group
+that ``main`` starts and destroys); the full-shape cells whose state and
+inputs exceed one card on that mesh (dbrx-132b's, the decode_32k KV
+caches) raise, naming their bytes a card, and those that fit (llama's
+train_4k, moonshot's prefill_32k, ogb_products) pass the check, which
+reads the dry run's bytes on ``meta`` (nothing is built)."""
 import re
 
 import pytest
 import torch
+import torch.distributed as dist
 
+from repro_torch.configs import get_arch
 from repro_torch.launch import train
+from repro_torch.launch.mesh import host_mesh_session
 from repro_torch.train import checkpoint as ckpt
 from test_torch_transformer import one_torch_thread  # noqa: F401 (autouse)
 
@@ -61,13 +68,21 @@ def test_main_smoke_runs_and_resumes(capsys, tmp_path, arch):
 
 
 def test_main_refuses_what_is_not_ported(tmp_path):
-    for arch, shape in (("llama3.2-1b", None), ("dbrx-132b", "long_500k"),
+    for arch, shape in (("dbrx-132b", None), ("dbrx-132b", "long_500k"),
                         ("qwen3-1.7b", "decode_32k"),
-                        ("moonshot-v1-16b-a3b", "prefill_32k")):
+                        ("moonshot-v1-16b-a3b", "decode_32k")):
         argv = ["--arch", arch, "--ckpt-dir", str(tmp_path)]
-        with pytest.raises(NotImplementedError, match="mesh code"):
+        with pytest.raises(NotImplementedError,
+                           match=r"GB a card on the 1x1 mesh .* exceed one "
+                                 r"card's 80\.0 GB"):
             train.main(argv + (["--shape", shape] if shape else []),
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh code"):
-        train.main(["--arch", "gat-cora", "--shape", "ogb_products",
-                    "--ckpt-dir", str(tmp_path)], device="cpu")
+        assert not dist.is_initialized()
+    with host_mesh_session("cpu") as mesh:
+        for arch, shape in (("llama3.2-1b", "train_4k"),
+                            ("moonshot-v1-16b-a3b", "prefill_32k"),
+                            ("gat-cora", "ogb_products")):
+            got = train.check_fits(get_arch(arch), shape, mesh,
+                                   torch.device("cpu"))
+            assert 0 < got <= train.CARD_BYTES, (arch, shape, got)
+    assert not dist.is_initialized()

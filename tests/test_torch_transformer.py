@@ -254,12 +254,18 @@ def test_params_round_trip():
 
 
 def test_mesh_fields_raise():
-    _, tc = configs("llama3.2-1b", "float32")
-    p = port_params("llama3.2-1b", "float32")
+    """An activation or expert axis set on plain tensors (no mesh): the
+    constraint that places them raises, as the reference's constraint
+    does without a mesh; the sharded forward is in
+    ``tests/test_torch_mesh_cells.py``."""
     toks = torch.zeros((1, 8), dtype=torch.int32)
-    for change in (dict(act_batch_axes=("data",)), dict(act_seq_axis="model"),
-                   dict(moe_expert_axis="model")):
-        with pytest.raises(NotImplementedError, match="mesh code"):
+    for arch, change in (
+            ("llama3.2-1b", dict(act_batch_axes=("data",))),
+            ("llama3.2-1b", dict(act_seq_axis="model")),
+            ("moonshot-v1-16b-a3b", dict(moe_expert_axis="model"))):
+        _, tc = configs(arch, "float32")
+        p = port_params(arch, "float32")
+        with pytest.raises(TypeError, match="must be a DTensor"):
             tt.forward(dataclasses.replace(tc, **change), p, toks)
 
 

@@ -1,0 +1,205 @@
+"""One rank of the port's sharded-cell tests (gloo, CPU tensors), started
+by ``tests/test_torch_mesh_cells.py`` once per module:
+
+    python tests/torch_mesh_ranks.py RANK WORLD STORE JOB OUT
+
+``STORE`` is a ``FileStore`` path (no TCP port), ``JOB`` an ``.npz`` of
+each case's starting state (``<case>/p/<name>``, ``<case>/m/<name>``,
+``<case>/v/<name>``, ``<case>/start``) and decode tokens, ``OUT`` the
+directory this rank writes ``rank<RANK>.npz`` into. On the (2, WORLD / 2)
+``("data", "model")`` host mesh it builds each case's cell with the mesh,
+places the job's state by the cell's rules, runs one step on the first
+synthetic batch and writes the loss and grad norm (every rank) and the
+new parameters, m and v gathered whole (rank 0):
+  * ``qwen3``: qwen3-1.7b's smoke train cell (float32);
+  * ``moonshot``: moonshot's, with ``act_batch_axes=("data",)``,
+    ``act_seq_axis="model"`` and ``moe_expert_axis="model"``; each MoE
+    layer's routing of the first forward (``moonshot/route/<layer>/``: the
+    rank's token table and its ``moe_route_local`` results);
+  * ``moonshot_prefill``: its prefill cell on the same weights, batch axes
+    and expert axis set (the logits, ``<case>/logits``);
+  * ``gnn/<arch>``: the four GNN smoke train cells with their rows
+    constrained over ``data``;
+  * ``dien``: DIEN's smoke train cell, tables row-split over ``model``;
+  * ``decode/<batch>``: qwen3's decode cell, three steps from an empty
+    cache of 16 positions (batch 4: batch over ``data``, positions over
+    ``model``; batch 1: positions over ``data``), the logits of each.
+"""
+import dataclasses
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+LM_SHAPE = dict(kind="train", batch=4, seq=64)
+FIELDS = {"qwen3": ("qwen3-1.7b", {}),
+          "moonshot": ("moonshot-v1-16b-a3b",
+                       dict(act_batch_axes=("data",), act_seq_axis="model",
+                            moe_expert_axis="model"))}
+PREFILL_FIELDS = dict(act_batch_axes=("data",), moe_expert_axis="model")
+GNN_ARCHS = ("gat-cora", "schnet", "dimenet", "meshgraphnet")
+DECODE_LEN = 16
+DECODE_STEPS = 3
+
+
+def lm_spec(arch: str, shape: dict, **fields):
+    """``arch``'s spec with one cell "smoke" of ``shape`` whose smoke
+    config is float32 with ``fields``."""
+    from repro_torch.configs import get_arch
+    spec = get_arch(arch)
+    cfg = dataclasses.replace(spec.make_smoke_config(), dtype=torch.float32,
+                              **fields)
+    return dataclasses.replace(spec, shapes={"smoke": dict(shape)},
+                               make_smoke_config=lambda: cfg), cfg
+
+
+def named_arrays(data, prefix: str) -> dict:
+    return {k[len(prefix):]: torch.from_numpy(np.array(data[k]))
+            for k in data.files if k.startswith(prefix)}
+
+
+def start_state(data, case: str, cls, specs_fn, mesh):
+    """The job's parameters, moments and step for ``case``, placed."""
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.optim import adamw_init
+    params = cls.from_named(named_arrays(data, f"{case}/p/")).requires_grad_()
+    opt = adamw_init(dict(params.named_parameters()))
+    for part in ("m", "v"):
+        got = named_arrays(data, f"{case}/{part}/")
+        if got:
+            opt[part] = got
+    opt["step"] = torch.tensor(int(data[f"{case}/start"]), dtype=torch.int32)
+    specs = specs_fn(params)
+    return shr.place_tree({"params": params, "opt": opt},
+                          {"params": specs, "opt": shr.opt_specs(specs)},
+                          mesh)
+
+
+def whole(t) -> np.ndarray:
+    from repro_torch.distributed.sharding import is_dtensor
+    t = t.full_tensor() if is_dtensor(t) else t
+    return t.detach().numpy()
+
+
+def train_case(res, rank, case, spec, cfg, step_fn, state):
+    from repro_torch.launch.train import synthetic_batches
+    _, batch = next(synthetic_batches(spec, spec.shapes["smoke"], cfg,
+                                      device="cpu"))
+    state, metrics = step_fn(state, batch)
+    res[f"{case}/loss"] = metrics["loss"].numpy()
+    res[f"{case}/gn"] = metrics["grad_norm"].numpy()
+    named = dict(state["params"].named_parameters())
+    for k, p in named.items():
+        # full_tensor is a collective: every rank gathers, rank 0 keeps.
+        got = {"p": whole(p), "m": whole(state["opt"]["m"][k]),
+               "v": whole(state["opt"]["v"][k])}
+        if rank == 0:
+            for part, a in got.items():
+                res[f"{case}/{part}/{k}"] = a
+    res[f"{case}/step"] = np.array(int(state["opt"]["step"]))
+
+
+def main(rank: int, world: int, store: str, job: str, out: str) -> None:
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import smoke_spec
+    from repro_torch.models import dien as td
+    from repro_torch.models import gnn as tg
+    from repro_torch.models import transformer as tt
+    from repro_torch.train import step as ts
+
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    data = np.load(job)
+    mesh = make_host_mesh(2, world // 2, device_type="cpu")
+    res = {"coordinate": np.array(mesh.get_coordinate())}
+
+    # The LM train cells; moonshot's routing recorded on the way.
+    route_calls = []
+    local_route = tt.moe_route_local
+
+    def recording(x, router_w, cfg, ridx, e_per):
+        out = local_route(x, router_w, cfg, ridx, e_per)
+        route_calls.append((x.detach().clone(), ridx, e_per, out))
+        return out
+    tt.moe_route_local = recording
+    for case, (arch, fields) in FIELDS.items():
+        spec, cfg = lm_spec(arch, LM_SHAPE, **fields)
+        step_fn, _, _ = ts.build_cell(spec, "smoke", mesh, smoke=True,
+                                      device="cpu")
+        state = start_state(data, case, tt.LMParams, lambda p: shr.flat_specs(
+            shr.lm_param_specs(cfg, mesh, fsdp=spec.fsdp)), mesh)
+        route_calls.clear()
+        train_case(res, rank, case, spec, cfg, step_fn, state)
+    tt.moe_route_local = local_route
+    for i, (x, ridx, e_per, (_g, le, pos, keep, cap)) in enumerate(
+            route_calls[:2]):
+        tag = f"moonshot/route/{i}"
+        res[f"{tag}/x"], res[f"{tag}/ridx"] = x.numpy(), np.array(ridx)
+        res[f"{tag}/local_e"], res[f"{tag}/pos"] = le.numpy(), pos.numpy()
+        res[f"{tag}/keep"], res[f"{tag}/cap"] = keep.numpy(), np.array(cap)
+
+    # moonshot's prefill on the train case's weights.
+    spec, cfg = lm_spec("moonshot-v1-16b-a3b",
+                        dict(LM_SHAPE, kind="prefill"), **PREFILL_FIELDS)
+    step_fn, _, _ = ts.build_cell(spec, "smoke", mesh, smoke=True,
+                                  device="cpu")
+    params = shr.place_tree(
+        tt.LMParams.from_named(named_arrays(data, "moonshot/p/")),
+        shr.flat_specs(shr.lm_param_specs(cfg, mesh, fsdp=spec.fsdp)), mesh)
+    tokens = torch.from_numpy(data["prefill/tokens"])
+    res["moonshot_prefill/logits"] = step_fn(params, {"tokens": tokens}
+                                             ).numpy()
+
+    # The GNN cells, rows constrained over the data axis.
+    for arch in GNN_ARCHS:
+        base = get_arch(arch)
+        spec = smoke_spec(base, base.make_smoke_config())
+        cfg = ts.gnn_cell_config(arch, spec.make_smoke_config(),
+                                 spec.shapes["smoke"])
+        step_fn, _, _ = ts.gnn_train_cell(arch, cfg, spec.shapes["smoke"],
+                                          device=torch.device("cpu"),
+                                          mesh=mesh, constrain=True)
+        state = start_state(data, f"gnn/{arch}", tg.GNNParams,
+                            shr.gnn_param_specs, mesh)
+        train_case(res, rank, f"gnn/{arch}", spec, cfg, step_fn, state)
+
+    # DIEN's train cell, its tables' rows over the model axis.
+    base = get_arch("dien")
+    spec = dataclasses.replace(base, shapes={"smoke": dict(
+        kind="train", batch=16)})
+    step_fn, _, _ = ts.build_cell(spec, "smoke", mesh, smoke=True,
+                                  device="cpu")
+    state = start_state(data, "dien", td.DIENParams, shr.dien_param_specs,
+                        mesh)
+    train_case(res, rank, "dien", spec, spec.make_smoke_config(), step_fn,
+               state)
+
+    # qwen3's decode cell from an empty cache.
+    for batch in (4, 1):
+        spec, cfg = lm_spec("qwen3-1.7b", dict(kind="decode", batch=batch,
+                                               seq=DECODE_LEN))
+        step_fn, params, _ = ts.build_cell(spec, "smoke", mesh, smoke=True,
+                                           device="cpu")
+        params = shr.place_tree(
+            tt.LMParams.from_named(named_arrays(data, "qwen3/p/")),
+            shr.flat_specs(shr.lm_param_specs(cfg, mesh, fsdp=spec.fsdp)),
+            mesh)
+        cache = tt.init_kv_cache(cfg, batch, DECODE_LEN, device="cpu")
+        toks = torch.from_numpy(data["decode/tokens"][:, :batch])
+        for i in range(DECODE_STEPS):
+            logits, cache = step_fn(params, {"token": toks[i],
+                                             "cache": cache})
+            res[f"decode/{batch}/{i}"] = logits.numpy()
+        res[f"decode/{batch}/len"] = np.array(cache["len"])
+
+    np.savez(f"{out}/rank{rank}.npz", **res)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:6])
