@@ -247,9 +247,12 @@ Phases, in order; any failure raises and the script exits non-zero:
         ``moe_block``; d. ``compress_with_error_feedback`` at llama3.2-1b's
         gradient size (1.24e9 float32 values), its first 2^26 values
         bit-equal to the CPU's, GB/s against the bytes it reads and
-        writes; e. ``python -m repro_torch.launch.dryrun --all`` in a
-        subprocess without the card, every one of the 80 cells ok, one
-        ``{"dryrun": ...}`` line each with its per-card GB;
+        writes; e. ``python -m repro_torch.launch.dryrun --all --jobs 6``
+        in a subprocess without the card (started with 5o d's analyses
+        right after the build, on the host's CPU at the lowest priority
+        beside the phases before), every one of the 80 cells ok, one
+        ``{"dryrun": ...}`` line each with its per-card GB, its counted
+        TFLOP, collective GB (by kind) and temp GB a card for one step;
      o. the sharded cells (``build_cell(..., mesh)``: state and inputs as
         DTensors placed by ``distributed.sharding``): a. on a world-1 NCCL
         ``("data", "model")`` mesh against the same cell with no mesh, the
@@ -269,7 +272,15 @@ Phases, in order; any failure raises and the script exits non-zero:
         norm and the gathered state within the float tolerances of the
         world-1 run's; c. ``launch.train.main`` for gat-cora and DIEN
         through its mesh cell (world-1 NCCL), 2 steps then 3, resuming at
-        2;
+        2; d. ``launch.cost_analysis.analyze_cell`` on a's four cells at
+        their cuts, on a fake world of one (a process without the card):
+        the predicted peak (arguments + temp) within 25 % of the mesh
+        step's measured peak (``torch.cuda.max_memory_allocated`` above
+        what was held outside the step, plus its arguments), the counted
+        flops within 2 % of ``torch.profiler``'s ``with_flops`` count of
+        the products (mm, addmm, bmm, baddbmm) that launched a kernel in
+        the plain step, and the achieved TFLOP/s and its share of the
+        card's peak;
   6. one JSON line listing the kernels, then the result line
      ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -518,8 +529,20 @@ LM_GATE_TOL = 1e-4
 LM_BF16_TOL = 5e-2
 
 
+#: Processes started in the background (phase 5n e's dry run, 5o d's
+#: analyses); every one still running is killed on the way out.
+BACKGROUND: list = []
+
+
 def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def stop_background() -> None:
+    for proc in BACKGROUND:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3357,7 +3380,11 @@ MOE_GATE_LAYERS = 2
 MOE_TIME_SHAPE = (16, 4096)
 MOE_GATE_TOL = 1e-4
 COMPRESS_SLICE = 1 << 26
-DRYRUN_TIMEOUT_S = 300
+# The dry run's 80 cells each run one step on ``meta`` (a second to about
+# a minute of host time a cell), in DRYRUN_JOBS processes at the lowest
+# priority, so the phases that run meanwhile keep the cores they use.
+DRYRUN_JOBS = 6
+DRYRUN_TIMEOUT_S = 1000
 
 
 def wall_ms(torch, fn) -> tuple:
@@ -3714,42 +3741,98 @@ def mesh_compression(torch, dev, card) -> dict:
     return line
 
 
-def mesh_dryrun(card) -> list:
-    """Phase 5n e: ``launch/dryrun.py --all`` in a subprocess (no card:
-    the fake process group of 256 or 512 ranks), every cell ok, one line
-    per cell with its per-card GB."""
-    out_dir = ROOT / "build" / "dryrun"
+def _lowest_priority() -> None:
+    os.nice(19)
+
+
+def start_cost_jobs() -> dict:
+    """Start phase 5n e's dry run and phase 5o d's analyses, each in a
+    process of its own without the card (``CUDA_VISIBLE_DEVICES=""``) at
+    the lowest CPU priority, outputs under ``build/``; their phases wait
+    for them."""
+    build_dir = ROOT / "build"
+    out_dir = build_dir / "dryrun"
     if out_dir.exists():
         for f in out_dir.glob("*.json"):
             f.unlink()
+    out_dir.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-         "--out", str(out_dir)], cwd=ROOT, env=env, capture_output=True,
-        text=True, timeout=DRYRUN_TIMEOUT_S)
-    wall = time.perf_counter() - t0
-    check(proc.returncode == 0 and "all 80 cells OK" in proc.stdout,
-          f"the dry run failed ({proc.returncode}):\n"
-          f"{(proc.stdout + proc.stderr)[-3000:]}")
+    jobs = {}
+    for name, argv, out in (
+            ("dryrun", ["-m", "repro_torch.launch.dryrun", "--all",
+                        "--jobs", str(DRYRUN_JOBS), "--out", str(out_dir)],
+             out_dir),
+            ("cells", [str(ROOT / "chip_smoke.py"), "--analyze-cells",
+                       str(build_dir / "cost_cells.json")],
+             build_dir / "cost_cells.json")):
+        log = open(build_dir / f"{name}.log", "w")
+        proc = subprocess.Popen([sys.executable, *argv], cwd=ROOT, env=env,
+                                stdout=log, stderr=subprocess.STDOUT,
+                                preexec_fn=_lowest_priority)
+        BACKGROUND.append(proc)
+        jobs[name] = {"proc": proc, "log": log, "out": out,
+                      "t0": time.perf_counter()}
+    return jobs
+
+
+def wait_job(job: dict, timeout: float, what: str) -> tuple:
+    """``(exit code, log text, seconds from start to end)`` of a
+    background job; fails if it runs past ``timeout`` seconds from its
+    start."""
+    left = timeout - (time.perf_counter() - job["t0"])
+    try:
+        rc = job["proc"].wait(timeout=max(left, 1.0))
+    except subprocess.TimeoutExpired:
+        job["proc"].kill()
+        job["proc"].wait()
+        fail(f"{what} ran past {timeout} s")
+    job["log"].close()
+    text = pathlib.Path(job["log"].name).read_text()
+    return rc, text, time.perf_counter() - job["t0"]
+
+
+def mesh_dryrun(card, job: dict) -> list:
+    """Phase 5n e: ``launch/dryrun.py --all`` (started by
+    ``start_cost_jobs``; no card: the fake process group of 256 or 512
+    ranks), every cell ok, one line per cell with its per-card GB, and
+    its analysis: TFLOP, collective GB by kind and temp GB a card for one
+    step, and the peak (arguments + temp)."""
+    rc, text, wall = wait_job(job, DRYRUN_TIMEOUT_S, "the dry run")
+    check(rc == 0 and "all 80 cells OK" in text,
+          f"the dry run failed ({rc}):\n{text[-3000:]}")
     lines = []
-    for path in sorted(out_dir.glob("*.json")):
+    for path in sorted(job["out"].glob("*.json")):
         res = json.loads(path.read_text())
         check(res["ok"], f"dry run cell {path.stem} not ok")
-        b = res["bytes_per_device"]
+        b, c = res["bytes_per_device"], res["cost"]
+        mem = res["memory_analysis"]
+        check(mem["argument_size_in_bytes"] == b["total"],
+              f"dry run cell {path.stem}: argument bytes "
+              f"{mem['argument_size_in_bytes']} != {b['total']}")
         lines.append({"dryrun": path.stem, "n_devices": res["n_devices"],
                       "gb_per_device": b["total"] / 1e9,
                       "params_gb": b["params"] / 1e9,
                       "opt_gb": b["opt"] / 1e9,
-                      "inputs_gb": b["inputs"] / 1e9})
+                      "inputs_gb": b["inputs"] / 1e9,
+                      "tflop_per_device": c["flops"] / 1e12,
+                      "coll_gb_per_device": c["collective_bytes"] / 1e9,
+                      "per_collective": {k: v / 1e9 for k, v in
+                                         c["per_collective"].items()},
+                      "bytes_accessed_gb": c["bytes_accessed"] / 1e9,
+                      "temp_gb": mem["temp_size_in_bytes"] / 1e9,
+                      "peak_gb": (b["total"] + mem["temp_size_in_bytes"])
+                      / 1e9,
+                      "analyze_s": res["timings_s"]["analyze"]})
     check(len(lines) == 80, f"{len(lines)} dry run cells, want 80")
     lines.append({"phase": "dryrun", "cells": len(lines), "seconds": wall,
-                  "card": card})
+                  "jobs": DRYRUN_JOBS, "card": card,
+                  "over_80gb": sorted(ln["dryrun"] for ln in lines
+                                      if ln["peak_gb"] > 80)})
     return lines
 
 
-def mesh_phase(torch, dev, card, counted) -> tuple:
+def mesh_phase(torch, dev, card, counted, dryrun_job) -> tuple:
     """Phase 5n: ``(lines, counts)``, the counts those of the world-1 runs
     (the other processes' launches are in their lines)."""
     import torch.distributed as dist
@@ -3786,7 +3869,7 @@ def mesh_phase(torch, dev, card, counted) -> tuple:
         lines.append(mesh_compression(torch, dev, card))
     finally:
         dist.destroy_process_group()
-    lines.extend(mesh_dryrun(card))
+    lines.extend(mesh_dryrun(card, dryrun_job))
     return lines, counts_all
 
 
@@ -3818,6 +3901,84 @@ MESH_CELL_RANK_TIMEOUT_S = 300
 MESH_CELL_RANK_ARCHS = ("qwen3-1.7b", "moonshot-v1-16b-a3b", "gat-cora",
                         "dien")
 MESH_CELL_NO_DROP = 8.0
+# Phase 5o d: launch.cost_analysis on a's cells against what a measured:
+# the predicted peak memory of a step within COST_PEAK_TOL of the mesh
+# step's, the counted flops within COST_FLOP_TOL of the profiler's count
+# of the same products in the plain step. The card's dense peak rates (the
+# H100 SXM data sheet at 700 W), bf16 on the tensor cores and float32
+# (TF32 off) beside them.
+COST_PEAK_TOL = 0.25
+COST_FLOP_TOL = 0.02
+COST_JOB_TIMEOUT_S = 900
+PRODUCT_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+PEAK_FLOP_PER_S = {"bfloat16": BF16_FLOP_PER_S, "float32": 67e12}
+
+
+def step_memory(torch, fn, args) -> tuple:
+    """``(fn(), {"argument_gb", "step_peak_gb", "peak_gb"})``: the bytes of
+    ``args`` on the card, and the most the step held above what was
+    allocated before it; ``peak_gb`` is their sum. The peak counter is
+    reset for the step; the peak before it is kept in ``before_gb``."""
+    torch.cuda.synchronize()
+    before = torch.cuda.max_memory_allocated()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    above = torch.cuda.max_memory_allocated() - base
+    from repro_torch.launch.cost_analysis import storage_bytes
+    arg = storage_bytes(args)
+    return out, {"argument_gb": arg / 1e9, "step_peak_gb": above / 1e9,
+                 "peak_gb": (arg + above) / 1e9, "before_gb": before / 1e9}
+
+
+def profiled_flops(torch, fn, *, kernels: bool = True) -> tuple:
+    """``(fn(), {"products", "products_entered", "all"})`` from
+    ``torch.profiler``'s ``with_flops``: the flops of the products
+    (PRODUCT_OPS) that ran, of every product the host entered, and of
+    every op the profiler has a formula for (also ``mul`` and ``add``).
+    The profiler records an op when the host enters it: under
+    ``torch.utils.checkpoint``'s early stop the replay of a region ends
+    inside the op whose inputs it saves last, which then runs no kernel.
+    So with ``kernels`` (a step under autograd) the card's activity is
+    traced too and a product counts as run only if it launched a kernel;
+    without (a call under ``no_grad``, where nothing is replayed) the
+    host's activity alone is traced, every product entered runs, and a
+    long call's hundreds of thousands of kernels are not traced."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    activities = [ProfilerActivity.CPU]
+    if kernels:
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, with_flops=True) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    if not kernels:
+        # The profiler's own events, not its parsed tree: parsing a long
+        # call's million events takes minutes of host time.
+        entered = every = 0.0
+        for e in prof.profiler.kineto_results.events():
+            f = e.flops()
+            if f:
+                every += f
+                if e.name() in PRODUCT_OPS:
+                    entered += f
+        return out, {"products": entered, "products_entered": entered,
+                     "all": every, "seconds": time.perf_counter() - t0}
+    ran = entered = every = 0.0
+    for e in prof.events():
+        if not e.flops:
+            continue
+        every += e.flops
+        if e.name in PRODUCT_OPS:
+            entered += e.flops
+            dt = getattr(e, "device_time_total", None)
+            if dt is None:
+                dt = e.cuda_time_total
+            if dt > 0:
+                ran += e.flops
+    return out, {"products": ran, "products_entered": entered, "all": every,
+                 "seconds": time.perf_counter() - t0}
 
 
 def mesh_cell_train(torch, dev, card, counted, mesh, arch, shape_name,
@@ -3844,18 +4005,27 @@ def mesh_cell_train(torch, dev, card, counted, mesh, arch, shape_name,
         batches = synthetic_batches(spec, shape, cfg, device=dev)
         _, batch = next(batches)
         torch.cuda.synchronize()
-        (state, metrics), counts = counted(lambda: step_fn(state, batch))
+        if m is None:      # 5o d: the profiler's flops of the plain step
+            ((state, metrics), counts), flops = profiled_flops(
+                torch, lambda: counted(lambda: step_fn(state, batch)))
+            extra = {"profiler_flops": flops}
+        else:              # 5o d: the mesh step's memory
+            ((state, metrics), counts), memory = step_memory(
+                torch, lambda: counted(lambda: step_fn(state, batch)),
+                (state, batch))
+            extra = {"step_memory": memory}
         res = {"loss": float(metrics["loss"]),
                "grad_norm": float(metrics["grad_norm"]), "counts": counts,
                "master": {k: v.detach().clone() for k, v in gather_tree(
-                   state["opt"]["master"]).items()}}
+                   state["opt"]["master"]).items()}, **extra}
         ms = []
         for _ in range(MESH_CELL_TIMED):
             _, batch = next(batches)
             (state, _), t = wall_ms(torch, lambda: step_fn(state, batch))
             ms.append(t)
         res["step_ms"] = ms
-        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        res["peak_gb"] = max(torch.cuda.max_memory_allocated() / 1e9,
+                             res.get("step_memory", {}).get("before_gb", 0))
         out[way] = res
         del step_fn, state, batch, batches
     plain, meshed = out["plain"], out["mesh"]
@@ -3891,7 +4061,9 @@ def mesh_cell_train(torch, dev, card, counted, mesh, arch, shape_name,
             "peak_gb": {w: out[w]["peak_gb"] for w in out},
             "launches": {k: v for k, v in counts.items() if v},
             "plain_launches": {k: v for k, v in plain["counts"].items()
-                               if v}}
+                               if v},
+            "step_memory": meshed["step_memory"],
+            "profiler_flops": plain["profiler_flops"]}
     del out, plain, meshed
     torch.cuda.empty_cache()
     return line, counts
@@ -3918,10 +4090,25 @@ def mesh_cell_prefill(torch, dev, card, counted, mesh) -> tuple:
                                generator=gen, device=dev, dtype=torch.int32)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, counts = counted(lambda: step_fn(params, {"tokens": tokens}))
+        if m is None:
+            logits, counts = counted(lambda: step_fn(params,
+                                                     {"tokens": tokens}))
+            torch.cuda.synchronize()
+            extra = {}
+        else:              # 5o d: the mesh call's memory
+            (logits, counts), memory = step_memory(
+                torch, lambda: counted(lambda: step_fn(
+                    params, {"tokens": tokens})), (params, tokens))
+            extra = {"step_memory": memory}
         ms = (time.perf_counter() - t0) * 1e3
         out[way] = {"logits": logits, "ms": ms, "counts": counts,
-                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+                    "peak_gb": max(torch.cuda.max_memory_allocated() / 1e9,
+                                   extra.get("step_memory", {}).get(
+                                       "before_gb", 0)), **extra}
+        if m is None:      # 5o d: the profiler's flops of one more call
+            out[way]["profiler_flops"] = profiled_flops(
+                torch, lambda: step_fn(params, {"tokens": tokens}),
+                kernels=False)[1]
         del step_fn, params, tokens
     got, want = out["mesh"]["logits"], out["plain"]["logits"]
     check(bool(torch.isfinite(want).all())
@@ -3937,7 +4124,9 @@ def mesh_cell_prefill(torch, dev, card, counted, mesh) -> tuple:
             "ms": {w: out[w]["ms"] for w in out},
             "peak_gb": {w: out[w]["peak_gb"] for w in out},
             "launches": {k: v for k, v in out["mesh"]["counts"].items()
-                         if v}}
+                         if v},
+            "step_memory": out["mesh"]["step_memory"],
+            "profiler_flops": out["plain"]["profiler_flops"]}
     counts = out["mesh"]["counts"]
     del out, got, want
     torch.cuda.empty_cache()
@@ -4174,7 +4363,93 @@ def mesh_train_cli(torch, card, counted) -> tuple:
     return lines, total
 
 
-def mesh_cells_phase(torch, dev, card, counted) -> tuple:
+def analyze_cells_main(out: str) -> int:
+    """Phase 5o d's predictions, in a process of its own without the card:
+    ``launch.cost_analysis.analyze_cell`` on each of 5o a's cells at its
+    cut, on a ``("data", "model")`` (1, 1) mesh (5o a's) over a fake world
+    of one; JSON to ``out``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch.cost_analysis import analyze_cell
+    from repro_torch.launch.dryrun import fake_world
+    res = {}
+    for arch, shape_name, changes in (*MESH_CELL_TRAIN, MESH_CELL_PREFILL):
+        spec, name = reduced_spec(arch, shape_name, **changes)
+        t0 = time.perf_counter()
+        with fake_world(1):
+            mesh = DeviceMesh("cpu", torch.zeros((1, 1), dtype=torch.int64),
+                              mesh_dim_names=("data", "model"))
+            got = analyze_cell(spec, name, mesh)
+        res[f"{arch}/{shape_name}"] = {
+            "cost": got["cost"].to_json(),
+            "memory_analysis": got["memory_analysis"],
+            "dtype": str(spec.make_config().dtype).removeprefix("torch."),
+            "seconds": time.perf_counter() - t0}
+    pathlib.Path(out).write_text(json.dumps(res, indent=1))
+    return 0
+
+
+def cost_checks(torch, card, cell_lines: list, job: dict) -> list:
+    """Phase 5o d: each of 5o a's cells, ``analyze_cell``'s prediction
+    (``start_cost_jobs``) beside what 5o a measured: the predicted peak
+    (arguments + temp) within COST_PEAK_TOL of the mesh step's, the
+    counted flops within COST_FLOP_TOL of the profiler's products that
+    ran in the plain step, and the achieved TFLOP/s (the counted flops
+    over the mesh step's median time) and its share of the card's peak
+    for the cell's dtype."""
+    rc, text, wall = wait_job(job, COST_JOB_TIMEOUT_S, "5o d's analyses")
+    check(rc == 0, f"5o d's analyses failed ({rc}):\n{text[-3000:]}")
+    pred = json.loads(job["out"].read_text())
+    lines = []
+    for line in cell_lines:
+        cell = line["mesh_cell"]
+        p = pred[cell]
+        mem, flops = p["memory_analysis"], p["cost"]["flops"]
+        want = line["step_memory"]
+        peak = (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+                ) / 1e9
+        peak_ratio = peak / want["peak_gb"]
+        prof = line["profiler_flops"]
+        flop_ratio = flops / prof["products"] if prof["products"] else 0.0
+        ms = (line["ms_per_step"]["mesh"] if line["kind"] == "train"
+              else line["ms"]["mesh"])
+        rate = flops / (ms / 1e3)
+        out = {"cost_check": cell, "card": card, "reduced": line["reduced"],
+               "mesh": line["mesh"], "kind": line["kind"],
+               "predicted": {"argument_gb": mem["argument_size_in_bytes"]
+                             / 1e9,
+                             "temp_gb": mem["temp_size_in_bytes"] / 1e9,
+                             "peak_gb": peak, "tflop": flops / 1e12,
+                             "coll_gb": p["cost"]["collective_bytes"] / 1e9,
+                             "bytes_accessed_gb":
+                             p["cost"]["bytes_accessed"] / 1e9},
+               "measured": {**{k: v for k, v in want.items()
+                               if k != "before_gb"},
+                            "profiler_tflop_products": prof["products"]
+                            / 1e12,
+                            "profiler_tflop_products_entered":
+                            prof["products_entered"] / 1e12,
+                            "profiler_tflop_all": prof["all"] / 1e12},
+               "peak_ratio": peak_ratio, "flop_ratio": flop_ratio,
+               "step_ms": ms, "achieved_tflop_s": rate / 1e12,
+               "dtype": p["dtype"],
+               "peak_share": rate / PEAK_FLOP_PER_S[p["dtype"]],
+               "analyze_s": p["seconds"]}
+        lines.append(out)
+        check(abs(peak_ratio - 1) <= COST_PEAK_TOL,
+              f"5o d {cell}: predicted peak {peak:.3f} GB against "
+              f"{want['peak_gb']:.3f} GB measured")
+        check(abs(flop_ratio - 1) <= COST_FLOP_TOL,
+              f"5o d {cell}: counted {flops:.4e} flops against the "
+              f"profiler's {prof['products']:.4e}")
+    lines.append({"phase": "cost checks", "cells": len(lines),
+                  "read_after_s": wall, "card": card})
+    return lines
+
+
+def mesh_cells_phase(torch, dev, card, counted, cost_job) -> tuple:
     """Phase 5o: ``(lines, counts)``, the counts those of the mesh paths of
     (a) and (c) (the CPU ranks of (b) launch no kernel)."""
     import torch.distributed as dist
@@ -4202,10 +4477,12 @@ def mesh_cells_phase(torch, dev, card, counted) -> tuple:
         lines.append(line)
     finally:
         dist.destroy_process_group()
+    cell_lines = list(lines)
     lines.append(mesh_cell_ranks(torch, card))
     cli_lines, counts = mesh_train_cli(torch, card, counted)
     add(counts)
     lines.extend(cli_lines)
+    lines.extend(cost_checks(torch, card, cell_lines, cost_job))
     return lines, counts_all
 
 
@@ -4222,10 +4499,14 @@ def main() -> int:
     # One process of phase 5o b (with the four flags above).
     parser.add_argument("--mesh-cells", action="store_true",
                         help=argparse.SUPPRESS)
+    # Phase 5o d's analyses, started by this script itself.
+    parser.add_argument("--analyze-cells", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.mesh_rank is not None:
         return (mesh_cells_rank_main if args.mesh_cells
                 else mesh_rank_main)(args)
+    if args.analyze_cells is not None:
+        return analyze_cells_main(args.analyze_cells)
 
     import torch
     if not torch.cuda.is_available():
@@ -4392,6 +4673,9 @@ def main() -> int:
         print(f"build {name}: {'; '.join(regs)}")
     emit({"phase": "build", "seconds": round(build_s, 3),
           "built": sorted(reports)})
+    # Phase 5n e's dry run and 5o d's analyses run on the host's CPU from
+    # here on, beside the phases before them.
+    cost_jobs = start_cost_jobs()
 
     # 3. Kernels against their plain versions, at main-path sizes.
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -5801,7 +6085,8 @@ def main() -> int:
     # width) and at four ranks (gloo on the card's tensors), the
     # expert-parallel MoE, the int8 gradient compression, the dry run.
     t_mesh = time.perf_counter()
-    lines, counts = mesh_phase(torch, dev, card, counted)
+    lines, counts = mesh_phase(torch, dev, card, counted,
+                               cost_jobs["dryrun"])
     for line in lines:
         emit(line)
     for name in launches:
@@ -5814,9 +6099,10 @@ def main() -> int:
 
     # 5o. The sharded cells: each family's cell on the world-1 NCCL mesh
     # against no mesh, 8 gloo ranks on the CPU against one, the training
-    # CLI through its mesh cell.
+    # CLI through its mesh cell, the cost analysis against the first.
     t_cells = time.perf_counter()
-    lines, counts = mesh_cells_phase(torch, dev, card, counted)
+    lines, counts = mesh_cells_phase(torch, dev, card, counted,
+                                     cost_jobs["cells"])
     for line in lines:
         emit(line)
     for name in launches:
@@ -5865,4 +6151,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        stop_background()
+    sys.exit(rc)

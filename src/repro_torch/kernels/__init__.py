@@ -41,6 +41,10 @@ CUDA tensor and runs the plain version for a CPU tensor; ``True`` on a CPU
 tensor raises; ``False`` runs the plain version on either device. A kernel
 that fails to build or launch raises; nothing swaps in the plain version.
 
+``plain_as_kernel`` runs a wrapper's plain version where the card would
+launch its kernel; while ``launch.cost_analysis`` counts a step (its
+hook set by ``set_cost_hook``), the call counts as the one launch.
+
 Not ported, as TPU plumbing with no counterpart here: the reference's
 ``pad_to_tile`` (the (8, 128) TPU tile), ``auto_interpret`` and
 ``core.compress.default_interpret`` (Pallas interpret mode off the TPU);
@@ -73,3 +77,23 @@ def check_int32_cuda(name: str, *tensors: torch.Tensor) -> None:
                 f"{name}: expected contiguous 1-D int32 tensors on one CUDA "
                 f"device, got dtype={t.dtype} shape={tuple(t.shape)} "
                 f"device={t.device} contiguous={t.is_contiguous()}")
+
+
+_COST_HOOK = None
+
+
+def set_cost_hook(hook):
+    """Install ``hook(name, run, inputs)`` (None: none); returns the one it
+    replaces. ``launch.cost_analysis`` sets it while it counts a step."""
+    global _COST_HOOK
+    prev, _COST_HOOK = _COST_HOOK, hook
+    return prev
+
+
+def plain_as_kernel(name: str, run, *inputs):
+    """``run()``, the plain version of kernel ``name`` on ``inputs``, where
+    the card would launch the kernel: under the cost hook it is counted as
+    that launch (its boundary's bytes, not its intermediate ops)."""
+    if _COST_HOOK is None:
+        return run()
+    return _COST_HOOK(name, run, inputs)

@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build, kernel_wanted
+from repro_torch.kernels import build, kernel_wanted, plain_as_kernel
 from repro_torch.kernels.embed_bag.ref import embed_bag_ref
 
 _ARGTYPES = {
@@ -114,7 +114,11 @@ def _forward(idx: torch.Tensor, table: torch.Tensor,
              use_kernel: bool | None) -> torch.Tensor:
     """The kernel's launch, or the plain version, by ``kernel_wanted``."""
     if not kernel_wanted(idx, use_kernel):
-        return embed_bag_ref(idx, weights, table, mean=mean)
+        def run():
+            return embed_bag_ref(idx, weights, table, mean=mean)
+        if use_kernel is False:
+            return run()
+        return plain_as_kernel("embed_bag", run, idx, table, weights)
     _check("embed_bag", idx, table, weights)
     (b, hot), d = idx.shape, table.shape[1]
     out = table.new_empty((b, d))

@@ -612,6 +612,23 @@ def _pick_chunks(t: int, target: int) -> int:
     return n
 
 
+def _chunk_rows(idx: torch.Tensor, n_chunks: int) -> torch.Tensor:
+    """``idx`` [t] as [n_chunks, t / n_chunks], chunk i its i-th run. A
+    DTensor split along t comes back split along each chunk instead:
+    gathered whole, viewed, and each rank keeps its block of every chunk
+    (DTensor cannot view a split dim as more chunks than its blocks
+    divide)."""
+    tc = idx.shape[0] // n_chunks
+    if n_chunks == 1 or not shr.is_dtensor(idx) or not any(
+            p.is_shard(0) for p in idx.placements):
+        return idx.reshape(n_chunks, tc)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = idx.device_mesh
+    whole = idx.redistribute(mesh, (Replicate(),) * mesh.ndim)
+    return whole.reshape(n_chunks, tc).redistribute(mesh, tuple(
+        Shard(1) if p.is_shard(0) else p for p in idx.placements))
+
+
 def _carry_dtype(e: int, dtype: torch.dtype) -> torch.dtype:
     """The inter-block carry's dtype: bfloat16 from ``BF16_CARRY_EDGES``
     edges (halves the per-block stash; block math stays in ``dtype``)."""
@@ -627,8 +644,8 @@ def _dimenet_blocks(cfg, params, g, m, rbf, vec, n, *,
     t = g.trip_in.shape[0]
     n_chunks = _pick_chunks(t, chunk_target)
     tc = t // n_chunks
-    ti_all = g.trip_in.reshape(n_chunks, tc)
-    to_all = g.trip_out.reshape(n_chunks, tc)
+    ti_all = _chunk_rows(g.trip_in, n_chunks)
+    to_all = _chunk_rows(g.trip_out, n_chunks)
     sph_k = _const(torch.arange(cfg.n_spherical, device=m.device), m)
 
     def triplet_chunk(m_kj, w_sbf, bilinear, ti_raw, to_raw):

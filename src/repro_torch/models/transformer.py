@@ -830,7 +830,10 @@ def _attention_sharded(cfg: LMConfig, h, lp):
     """Causal self-attention of DTensor h [B, S, d]: q, k and v are
     DTensor products, then each rank runs the norms, rope and
     ``chunked_attention`` on its batch and head block (no collective
-    inside); the result is a DTensor [B, S, H, Dh]."""
+    inside); the result is a DTensor [B, S, H·Dh], each rank's heads
+    flattened on its own block (DTensor cannot view a dim split over more
+    ranks than the heads it holds, as the output product's gradient is,
+    back into heads)."""
     s = h.shape[1]
     mesh = h.device_mesh
     h = _whole_seq(h)
@@ -848,7 +851,7 @@ def _attention_sharded(cfg: LMConfig, h, lp):
     k = rope(k, positions, cfg.rope_theta)
     out = chunked_attention(q, k, v, causal=True, q_offset=0,
                             q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    return shr.from_local(out, mesh, pl)
+    return shr.from_local(out.reshape(out.shape[0], s, -1), mesh, pl)
 
 
 def _layer_fwd(cfg: LMConfig, x, lp, positions, kv_cache=None):

@@ -10,8 +10,13 @@ ranks) equal the sum, over the reference's ``build_cell`` trees (its
 divided by its spec's shard counts, group by group (parameters, AdamW
 state, inputs). The one difference is the KV cache's ``len``: the
 reference's int32 scalar (4 bytes on every card) is a host int in the
-port. Then the CLI: JSON a cell, ``--skip-existing``, and a failing cell,
-after which no process group is left.
+port. Then each kind of cell's record on both meshes: the cost analysis's
+keys (``launch/cost_analysis.py``, held to the reference in
+``tests/test_torch_cost_analysis.py``), its argument bytes equal to the
+per-card bytes. Then the CLI: JSON a cell, ``--skip-existing``, and a
+failing cell, after which no process group is left;
+the CLI's cells take a stub analysis (a step on ``meta`` takes seconds a
+cell, the records above run the real one).
 """
 import json
 
@@ -24,7 +29,7 @@ from jax.sharding import AbstractMesh as JMesh
 from repro.configs import get_arch as jax_get_arch
 from repro.train.step import build_cell as jax_build_cell
 from repro_torch.configs import ARCH_IDS, get_arch
-from repro_torch.launch import dryrun
+from repro_torch.launch import cost_analysis, dryrun
 from repro_torch.launch.mesh import make_production_mesh
 
 MESHES = {False: ((16, 16), ("data", "model")),
@@ -73,7 +78,50 @@ def test_bytes_match_reference(arch, multi_pod):
         assert got["host_leaves"] == host
 
 
-def test_cli_writes_json_and_skips(tmp_path, capsys):
+COST_KEYS = {"flops", "bytes_accessed", "collective_bytes", "per_collective"}
+MEMORY_KEYS = {"argument_size_in_bytes", "output_size_in_bytes",
+               "alias_size_in_bytes", "temp_size_in_bytes"}
+
+
+@pytest.mark.parametrize("multi_pod", (False, True),
+                         ids=("16x16", "2x16x16"))
+@pytest.mark.parametrize("arch,shape", [
+    ("dien", "serve_p99"), ("dien", "train_batch"),
+    ("llama3.2-1b", "decode_32k"), ("qwen3-1.7b", "long_500k"),
+    ("gat-cora", "full_graph_sm"), ("schnet", "molecule")])
+def test_cell_record_carries_cost(tmp_path, arch, shape, multi_pod):
+    res = dryrun.run_cell(arch, shape, multi_pod=multi_pod, out_dir=tmp_path)
+    assert not dist.is_initialized()
+    saved = json.loads(next(tmp_path.glob("*.json")).read_text())
+    assert saved == json.loads(json.dumps(res))
+    assert set(res["cost"]) == COST_KEYS
+    assert set(res["memory_analysis"]) == MEMORY_KEYS
+    mem, cost = res["memory_analysis"], res["cost"]
+    assert mem["argument_size_in_bytes"] == res["bytes_per_device"]["total"]
+    assert cost["flops"] > 0 and cost["bytes_accessed"] > 0
+    assert cost["collective_bytes"] == sum(cost["per_collective"].values())
+    assert set(cost["per_collective"]) <= set(cost_analysis.COLLECTIVE_OPS)
+    assert mem["temp_size_in_bytes"] > 0
+    assert mem["alias_size_in_bytes"] <= min(mem["output_size_in_bytes"],
+                                             mem["argument_size_in_bytes"])
+    if get_arch(arch).shapes[shape]["kind"] == "decode":
+        # The cache is written in place: every input byte but the token
+        # ids is aliased.
+        batch = get_arch(arch).shapes[shape]["batch"]
+        ids = res["bytes_per_device"]["inputs"] - mem["alias_size_in_bytes"]
+        assert 0 < ids <= 4 * batch
+    else:
+        assert mem["alias_size_in_bytes"] == 0
+    assert set(res["timings_s"]) == {"build", "analyze"}
+
+
+def stub_analysis(_spec, _shape, _mesh, smoke=False):
+    return {"cost": cost_analysis.OpCost(flops=1.0),
+            "memory_analysis": dict.fromkeys(MEMORY_KEYS, 0)}
+
+
+def test_cli_writes_json_and_skips(tmp_path, capsys, monkeypatch):
+    monkeypatch.setattr(dryrun, "analyze_cell", stub_analysis)
     out = tmp_path / "dry"
     dryrun.main(["--arch", "llama3.2-1b", "--shape", "decode_32k",
                  "--multi-pod", "--out", str(out)])
@@ -82,7 +130,8 @@ def test_cli_writes_json_and_skips(tmp_path, capsys):
     assert res["ok"] and res["n_devices"] == 512 and res["mesh"] == "2x16x16"
     assert res["bytes_per_device"]["total"] == sum(
         res["bytes_per_device"][g] for g in dryrun.GROUPS)
-    assert set(res["timings_s"]) == {"build"}
+    assert set(res["timings_s"]) == {"build", "analyze"}
+    assert res["cost"]["flops"] == 1.0 and "memory_analysis" in res
     capsys.readouterr()
     dryrun.main(["--all", "--single-pod-only", "--skip-existing", "--out",
                  str(out)])

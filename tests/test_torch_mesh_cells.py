@@ -550,3 +550,39 @@ def test_meta_mesh_cell_gives_sharded_pairs(arch, shape):
                 assert isinstance(leaf, shr.Sharded)
                 leaf.sharding.local_shape(tuple(leaf.tensor.shape))
     assert not dist.is_initialized()
+
+
+def test_dimenet_triplet_chunks_over_a_data_split(world_one, monkeypatch):
+    """DimeNet's triplet chunks on a mesh: each chunk's triplets are split
+    over the data axes (``gnn._chunk_rows``), so a chunk count the data
+    split does not divide runs. At one rank the two-chunk mesh step equals
+    the two-chunk step with no mesh."""
+    monkeypatch.setattr(tg, "_pick_chunks", lambda t, _target: 2)
+    base = get_arch("dimenet")
+    cfg = base.make_smoke_config()
+    spec = smoke_spec(base, cfg)
+    want, wp = _one_step(spec, cfg, None)
+    got, gp = _one_step(spec, cfg, world_one)
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-6)
+    for k, w in wp.items():
+        torch.testing.assert_close(gp[k], w, rtol=1e-6, atol=1e-6, msg=k)
+
+
+def test_dimenet_chunk_count_not_divided_by_the_data_axis(monkeypatch):
+    """Two triplet chunks over a data axis of 4 (a (4, 2) mesh on a fake
+    world of 8, on ``meta``): the step runs (DTensor alone cannot view the
+    split triplet ids as 2 chunks), each chunk's triplets split 4 ways."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch.cost_analysis import analyze_cell
+    monkeypatch.setattr(tg, "_pick_chunks", lambda t, _target: 2)
+    base = get_arch("dimenet")
+    spec = smoke_spec(base, base.make_smoke_config())
+    with fake_world(8):
+        mesh = DeviceMesh("cpu", torch.arange(8).reshape(4, 2),
+                          mesh_dim_names=("data", "model"))
+        got = analyze_cell(spec, "smoke", mesh, smoke=True)
+    assert got["cost"].flops > 0
+    assert got["cost"].per_collective["all-gather"] > 0
+    assert not dist.is_initialized()
