@@ -268,7 +268,9 @@ Phases, in order; any failure raises and the script exits non-zero:
         processes of this script (``--mesh-cells``), gloo on the host's
         CPU, on the (2, 4) mesh beside one at world 1: the smoke train step
         of qwen3-1.7b, moonshot (its three mesh fields set, capacity factor
-        8 so no token is dropped), GAT and DIEN, every rank's loss and grad
+        8 so no token is dropped), minicpm-2b (a full train cell's batch
+        and sequence fields: 2 head blocks × 2 query blocks), GAT and DIEN,
+        every rank's loss and grad
         norm and the gathered state within the float tolerances of the
         world-1 run's; c. ``launch.train.main`` for gat-cora and DIEN
         through its mesh cell (world-1 NCCL), 2 steps then 3, resuming at
@@ -3895,11 +3897,18 @@ MESH_CELL_SCALED_TOL = {"lm": 1e-5, "gnn": 1e-4, "recsys": 1e-4}
 # Phase 5o b: 8 gloo ranks on the host's CPU, the (2, 4) mesh, against one
 # rank; moonshot with its three mesh fields and a capacity factor at which
 # no smoke token is dropped (capacity counts per data shard, so with drops
-# the two shardings would route differently).
+# the two shardings would route differently); minicpm-2b with a full train
+# cell's activation fields, its 6 heads on 4 model ranks split into 2 head
+# blocks, each over 2 query blocks (``transformer.HeadSplit``).
 MESH_CELL_RANKS = 8
 MESH_CELL_RANK_TIMEOUT_S = 300
-MESH_CELL_RANK_ARCHS = ("qwen3-1.7b", "moonshot-v1-16b-a3b", "gat-cora",
-                        "dien")
+MESH_CELL_RANK_ARCHS = ("qwen3-1.7b", "moonshot-v1-16b-a3b", "minicpm-2b",
+                        "gat-cora", "dien")
+MESH_CELL_RANK_FIELDS = {
+    "moonshot-v1-16b-a3b": dict(act_batch_axes=("data",),
+                                act_seq_axis="model",
+                                moe_expert_axis="model"),
+    "minicpm-2b": dict(act_batch_axes=("data",), act_seq_axis="model")}
 MESH_CELL_NO_DROP = 8.0
 # Phase 5o d: launch.cost_analysis on a's cells against what a measured:
 # the predicted peak memory of a step within COST_PEAK_TOL of the mesh
@@ -4150,11 +4159,11 @@ def mesh_rank_cell(torch, arch, mesh) -> dict:
     base = get_arch(arch)
     cfg = base.make_smoke_config()
     if base.family == "lm":
-        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+        cfg = dataclasses.replace(cfg, dtype=torch.float32,
+                                  **MESH_CELL_RANK_FIELDS.get(arch, {}))
         if cfg.is_moe:
-            cfg = dataclasses.replace(
-                cfg, act_batch_axes=("data",), act_seq_axis="model",
-                moe_expert_axis="model", capacity_factor=MESH_CELL_NO_DROP)
+            cfg = dataclasses.replace(cfg,
+                                      capacity_factor=MESH_CELL_NO_DROP)
     spec = dataclasses.replace(smoke_spec(base, cfg),
                                make_smoke_config=lambda: cfg)
     step_fn, _, _ = build_cell(spec, "smoke", mesh, smoke=True, device="cpu")
@@ -4232,6 +4241,8 @@ def mesh_cell_ranks(torch, card) -> dict:
     rank's loss and grad norm, and rank 0's gathered master weights, m and
     v, within the float tolerances of the world-1 run's."""
     import numpy as np
+
+    from repro_torch.configs import get_arch
     root = ROOT / "build" / "mesh_cells"
     runs = {}
     procs = []
@@ -4269,7 +4280,7 @@ def mesh_cell_ranks(torch, card) -> dict:
     want = runs[1][0]
     arch_errs = {}
     for arch in MESH_CELL_RANK_ARCHS:
-        lm = arch in ("qwen3-1.7b", "moonshot-v1-16b-a3b")
+        lm = get_arch(arch).family == "lm"
         for k in ("loss", "grad_norm"):
             w = float(want[f"{arch}/{k}"])
             for r, res in enumerate(runs[MESH_CELL_RANKS]):

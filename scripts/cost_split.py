@@ -4,7 +4,8 @@
 Run from the repository root after the dry run, on the CPU (no card):
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --jobs 8 --out DIR
-    PYTHONPATH=src python scripts/cost_split.py --dryrun DIR [--jobs 8]
+    PYTHONPATH=src python scripts/cost_split.py --dryrun DIR [--jobs 8] \
+        [--reference REF]
 
 For each cell of the dry run's JSON under ``DIR`` it counts the same step
 on a (1, 1) ``("data", "model")`` mesh over a fake world of one
@@ -15,8 +16,18 @@ port repeats on several cards (``ROADMAP.md``, "Standing departures").
 Prints one JSON line a cell (``tflop_whole``, ``tflop_per_card``,
 ``split``: whole / per-card, against n; ``excess_tflop``: per-card −
 whole / n; ``excess_ms``: that excess at the card's dense peak for the
-cell's dtype, 989 TFLOP/s bf16 or 67 float32 on an H100 SXM), the cells
-ranked by ``excess_ms``, and writes them to ``DIR/split.json``.
+cell's dtype, 989 TFLOP/s bf16 or 67 float32 on an H100 SXM; ``temp_gb``
+a card), the cells ranked by ``excess_ms``, and writes them to
+``DIR/split.json``.
+
+With ``--reference REF`` it also reads the reference's dry-run JSONs from
+``REF`` (the files that ``PYTHONPATH=src python -m repro.launch.dryrun
+--out REF`` writes, one a cell: only the files are read, nothing of the
+reference is imported) and puts the reference's per-card TFLOP
+(``hlo_parsed.flops``) and temp GB beside the port's in each cell it has
+(``ref_tflop_per_card``, ``ref_temp_gb``, ``vs_ref``: the port's flops /
+the reference's), then one line ``{"vs_reference": ...}`` listing the
+cells where the port counts more flops or more temp than the reference.
 """
 from __future__ import annotations
 
@@ -49,10 +60,27 @@ def whole_flops(arch: str, shape: str) -> tuple:
     return flops, str(spec.make_config().dtype).removeprefix("torch.")
 
 
+def reference_row(path: pathlib.Path, tflop_per_card: float) -> dict:
+    """The reference's per-card TFLOP and temp GB of one cell from its
+    dry-run JSON at ``path`` (nothing where the file is missing or the
+    cell failed there)."""
+    if not path.exists():
+        return {}
+    ref = json.loads(path.read_text())
+    if not ref.get("ok"):
+        return {}
+    tflop = ref["hlo_parsed"]["flops"] / 1e12
+    return {"ref_tflop_per_card": tflop,
+            "ref_temp_gb": ref["memory_analysis"]["temp_size_in_bytes"] / 1e9,
+            "vs_ref": tflop_per_card / tflop if tflop else None}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dryrun", type=pathlib.Path, required=True)
     ap.add_argument("--jobs", type=int, default=4)
+    ap.add_argument("--reference", type=pathlib.Path, default=None,
+                    help="the reference's dry-run JSONs, to compare")
     args = ap.parse_args(argv)
     cells = [json.loads(p.read_text()) for p in
              sorted(args.dryrun.glob("*__*.json"))]
@@ -72,10 +100,23 @@ def main(argv=None) -> int:
                      "tflop_per_card": per_card / 1e12,
                      "split": flops / per_card if per_card else None,
                      "excess_tflop": excess / 1e12, "dtype": dtype,
-                     "excess_ms": excess / PEAK_FLOP_PER_S[dtype] * 1e3})
+                     "excess_ms": excess / PEAK_FLOP_PER_S[dtype] * 1e3,
+                     "temp_gb":
+                     c["memory_analysis"]["temp_size_in_bytes"] / 1e9})
+    if args.reference is not None:
+        for r in rows:
+            r.update(reference_row(args.reference / f"{r['cell']}.json",
+                                   r["tflop_per_card"]))
     rows.sort(key=lambda r: -r["excess_ms"])
     for r in rows:
         print(json.dumps(r))
+    if args.reference is not None:
+        print(json.dumps({"vs_reference": {
+            "cells": sum("ref_tflop_per_card" in r for r in rows),
+            "more_flops": [r["cell"] for r in rows
+                           if (r.get("vs_ref") or 0) > 1],
+            "more_temp": [r["cell"] for r in rows if "ref_temp_gb" in r
+                          and r["temp_gb"] > r["ref_temp_gb"]]}}))
     (args.dryrun / "split.json").write_text(json.dumps(rows, indent=1))
     return 0
 

@@ -50,14 +50,21 @@ parameters and the tokens are DTensors placed by
     the ranks that split the rows (DTensor's own vocab-parallel embedding
     builds its mask from the tokens' placement, which is wrong for
     batch-sharded tokens);
-  * the attention, the loss's chunked cross-entropy and the MoE dispatch
-    run on each rank's block (``sharding.local``): attention over the
-    batch and head blocks, the loss over the batch (and sequence) block,
-    and with ``moe_expert_axis`` set ``moe_block_shard_map`` on the
-    blocks of the reference's ``shard_map`` specs. Without it the MoE
-    routes the whole token table on every rank, as the reference's
-    unsharded routing does, and its expert products are DTensor ops on the
-    constrained buckets.
+  * a layer's attention and dense MLP run on each rank's share of the
+    model axis (``sharding.local``), every rank on the whole rows of its
+    batch block: the MLP on its column block of ``w_gate``/``w_up`` and
+    row block of ``w_down``, the attention on the query heads and query
+    chunks ``HeadSplit`` gives it (gcd(H, m) head blocks, the rest of the
+    axis over causally balanced query chunks, so no head count leaves a
+    rank idle) through its rows of ``wo``. Each returns a partial sum over
+    the model ranks, reduce-scattered to the residual's placement, so the
+    backward hands every product its gradient whole;
+  * the loss's chunked cross-entropy and the MoE dispatch run on each
+    rank's block: the loss over the batch (and sequence) block, and with
+    ``moe_expert_axis`` set ``moe_block_shard_map`` on the blocks of the
+    reference's ``shard_map`` specs. Without it the MoE routes the whole
+    token table on every rank, as the reference's unsharded routing does,
+    and its expert products are DTensor ops on the constrained buckets.
 ``set_lm_mesh`` keeps the mesh handle that turns on the expert-parallel
 path, as in the reference.
 """
@@ -65,6 +72,7 @@ from __future__ import annotations
 
 import contextvars
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
@@ -769,18 +777,20 @@ def _moe_expert_parallel(cfg: LMConfig, x, lp, mesh):
 # Forward passes
 # ---------------------------------------------------------------------------
 
-def _mlp(cfg: LMConfig, h2, lp, *, expert_parallel: bool = False):
-    """The dense or MoE MLP; with ``expert_parallel`` (the training and
-    prefill layers, not decode, as in the reference) and a mesh set by
-    ``set_lm_mesh``, the MoE runs ``moe_block_shard_map``."""
+def _mlp(cfg: LMConfig, h2, lp, *, sharded: bool = False):
+    """The dense or MoE MLP. With ``sharded`` (the training and prefill
+    layers, not decode, as in the reference) a DTensor input takes the
+    mesh path: a dense MLP runs ``_mlp_sharded``, and an MoE with a mesh
+    set by ``set_lm_mesh`` and ``moe_expert_axis`` ``moe_block_shard_map``."""
     if cfg.is_moe:
         mesh = _LM_MESH.get()
-        if expert_parallel and mesh is not None \
+        if sharded and mesh is not None \
                 and cfg.moe_expert_axis is not None:
             return _moe_expert_parallel(cfg, h2, lp, mesh)
         return moe_block(h2, lp["router"], lp["w_gate"], lp["w_up"],
                          lp["w_down"], cfg)
-    h2 = _whole_seq(h2)
+    if sharded and shr.is_dtensor(h2):
+        return _mlp_sharded(h2, lp)
     g = F.silu((h2 @ lp["w_gate"]).float()).to(h2.dtype)
     return (g * (h2 @ lp["w_up"])) @ lp["w_down"]
 
@@ -797,26 +807,6 @@ def _qkv(cfg: LMConfig, h, lp, positions):
         rope(k, positions, cfg.rope_theta), v
 
 
-def _head_placements(cfg: LMConfig, x) -> tuple:
-    """The attention's placements of [B, S, H, Dh] for DTensor x [B, S,
-    d]: the batch as x splits it, heads over every other mesh dim whose
-    size divides both head counts (query head h reads kv head h // rep,
-    so equal blocks of both line up), the sequence whole."""
-    from torch.distributed.tensor import Replicate, Shard
-    mesh, out, n = x.device_mesh, [], 1
-    for i, p in enumerate(x.placements):
-        size = mesh.size(i)
-        if p.is_shard(0):
-            out.append(Shard(0))
-        elif cfg.n_heads % (n * size) == 0 \
-                and cfg.n_kv_heads % (n * size) == 0:
-            n *= size
-            out.append(Shard(2))
-        else:
-            out.append(Replicate())
-    return tuple(out)
-
-
 def _heads(cfg: LMConfig, h, w, n: int, pl):
     """This rank's block [b, s, n_l, Dh] of the heads ``h @ w`` (DTensor h
     [B, S, d]): the product placed at ``pl`` first (whole heads a rank),
@@ -826,32 +816,190 @@ def _heads(cfg: LMConfig, h, w, n: int, pl):
     return shr.local(t.reshape(b, s, n, cfg.d_head), pl)
 
 
+# ---------------------------------------------------------------------------
+# A layer's products on the model axis: each rank's share, then one
+# reduce-scatter
+# ---------------------------------------------------------------------------
+
+def _model_dim(mesh):
+    """The index of the mesh's ``model`` dim, or None without one."""
+    names = mesh.mesh_dim_names or ()
+    return names.index("model") if "model" in names else None
+
+
+def _rows(h) -> tuple:
+    """(``h``'s placements with the sequence and the model dim whole, the
+    mesh dims that split the batch, the model dim) for DTensor h [B, S,
+    d]: every rank of the model axis works on the same rows."""
+    from torch.distributed.tensor import Replicate
+    mi = _model_dim(h.device_mesh)
+    pl = tuple(Replicate() if i == mi or p.is_shard(1) else p
+               for i, p in enumerate(h.placements))
+    return pl, shr.sharded_dims(pl), mi
+
+
+def _weight(w, mi, dim: int | None, split: tuple):
+    """This rank's copy of a layer weight w: split along ``dim`` over the
+    model dim as the rules store it, or gathered whole (``dim`` None),
+    gathered over every other mesh dim. Its gradient is a partial sum over
+    the dims of ``split`` (each rank's batch block) and, gathered, over
+    the model dim (each model rank's share of the work)."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = tuple(Shard(dim) if i == mi and dim is not None else Replicate()
+               for i in range(w.device_mesh.ndim))
+    mine = split if dim is not None or mi is None else split + (mi,)
+    return shr.local(w, pl, partial=mine)
+
+
+def _partial_sum(y, mesh, pl, mi):
+    """DTensor of each rank's block ``y`` of a sum over the model ranks
+    (its other dims placed as ``pl``); ``_placed_as`` then reduce-scatters
+    it to the residual's placement, and the backward hands ``y`` the
+    gradient whole (``from_local`` of a partial takes it replicated)."""
+    from torch.distributed.tensor import Partial
+    return shr.from_local(y, mesh, tuple(Partial() if i == mi else p
+                                         for i, p in enumerate(pl)))
+
+
+def _mlp_sharded(h2, lp):
+    """The dense MLP of DTensor h2 [B, S, d] over the model axis: each rank
+    multiplies the whole rows of its batch block by its column block of
+    ``w_gate`` and ``w_up`` and its row block of ``w_down``; the result is
+    a partial sum over the model ranks (``_partial_sum``)."""
+    pl, split, mi = _rows(h2)
+    h = shr.local(h2, pl, partial=() if mi is None else (mi,))
+    g = F.silu((h @ _weight(lp["w_gate"], mi, 1, split)).float()).to(h.dtype)
+    y = (g * (h @ _weight(lp["w_up"], mi, 1, split))) \
+        @ _weight(lp["w_down"], mi, 0, split)
+    return _partial_sum(y, h2.device_mesh, pl, mi)
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadSplit:
+    """One rank's share of the attention on a model axis of ``m`` ranks.
+
+    The H query heads fall into ``g = gcd(H, m)`` blocks of ``H / g`` and
+    the sequence into ``2·n_q`` chunks, ``n_q = m / g``. Model rank ``r``
+    takes head block ``r // n_q`` and query chunks ``j`` and ``2·n_q − 1 −
+    j`` (``j = r % n_q``), so every rank does the same causal work; its
+    block reads kv heads ``kv0 .. kv0 + n_kv − 1`` (query head h reads
+    h // rep). With ``n_q`` 1 the rank's heads are exactly its column
+    block of wq and row block of wo."""
+    n_q: int
+    head_block: int
+    q_block: int
+    heads: int
+    kv0: int
+    n_kv: int
+
+    @classmethod
+    def of(cls, cfg: LMConfig, m: int, r: int) -> "HeadSplit":
+        g = math.gcd(cfg.n_heads, m)
+        n_q = m // g
+        heads = cfg.n_heads // g
+        rep = cfg.n_heads // cfg.n_kv_heads
+        if heads % rep and rep % heads:
+            raise ValueError(
+                f"{cfg.name}: a block of {heads} query heads (of "
+                f"{cfg.n_heads} on a model axis of {m}) straddles kv "
+                f"heads, {rep} query heads each")
+        hb, qb = divmod(r, n_q)
+        return cls(n_q=n_q, head_block=hb, q_block=qb, heads=heads,
+                   kv0=hb * heads // rep, n_kv=max(heads // rep, 1))
+
+    def chunks(self, seq: int) -> tuple:
+        """The first position of each query chunk this rank takes, and
+        the chunks' length."""
+        if self.n_q == 1:
+            return [0], seq
+        n = 2 * self.n_q
+        if seq % n:
+            raise ValueError(f"{seq} positions do not split into {n} "
+                             "query chunks")
+        c = seq // n
+        return [self.q_block * c, (n - 1 - self.q_block) * c], c
+
+
 def _attention_sharded(cfg: LMConfig, h, lp):
-    """Causal self-attention of DTensor h [B, S, d]: q, k and v are
-    DTensor products, then each rank runs the norms, rope and
-    ``chunked_attention`` on its batch and head block (no collective
-    inside); the result is a DTensor [B, S, H·Dh], each rank's heads
-    flattened on its own block (DTensor cannot view a dim split over more
-    ranks than the heads it holds, as the output product's gradient is,
-    back into heads)."""
+    """Causal self-attention of DTensor h [B, S, d] through the output
+    product, split over the model axis by ``HeadSplit``. Each rank takes
+    the whole rows of its batch block and
+      * computes q for its query heads and chunks (its column block of wq,
+        or with query chunks its head block's columns of wq gathered);
+      * computes its column block of k and v for every row, as wk and wv
+        are stored; unless that block is the kv heads its queries read, it
+        gathers the blocks over the model ranks and keeps those heads:
+        each (row, kv head) is computed once, and its gradient is summed
+        back to the rank that computed it;
+      * runs the norms, rope and ``chunked_attention`` (no collective
+        inside; wholly masked key blocks skipped) and multiplies its heads
+        by their rows of wo.
+    The result is a partial sum over the model ranks (``_partial_sum``),
+    zero outside the rank's query chunks."""
+    from torch.distributed.tensor import Shard
     s = h.shape[1]
     mesh = h.device_mesh
-    h = _whole_seq(h)
-    pl = _head_placements(cfg, h)
-    split = shr.sharded_dims(pl)
-    q = _heads(cfg, h, lp["wq"], cfg.n_heads, pl)
-    k = _heads(cfg, h, lp["wk"], cfg.n_kv_heads, pl)
-    v = _heads(cfg, h, lp["wv"], cfg.n_kv_heads, pl)
+    pl, split, mi = _rows(h)
+    m, r = (1, 0) if mi is None else (mesh.size(mi), mesh.get_local_rank(mi))
+    hs = HeadSplit.of(cfg, m, r)
+    whole = hs.n_q == 1
+    dh = cfg.d_head
+    x = shr.local(h, pl, partial=() if mi is None else (mi,))
+    b = x.shape[0]
+    starts, c = hs.chunks(s)
+
+    def heads(t, first: int, n: int):
+        """Heads first .. first + n − 1 of t [b, s, H·Dh] as [b, s, n,
+        Dh]."""
+        if n * dh != t.shape[-1]:
+            t = t[..., first * dh:(first + n) * dh]
+        return t.reshape(t.shape[0], t.shape[1], n, dh)
+
+    def kv(w):
+        t = x @ _weight(w, mi, 1, split)
+        if t.shape[-1] == hs.n_kv * dh and hs.kv0 * dh == r * t.shape[-1]:
+            return heads(t, 0, hs.n_kv)          # the rank's own block
+        t = shr.local(shr.from_local(t, mesh, tuple(
+            Shard(2) if i == mi else p for i, p in enumerate(pl))),
+            pl, partial=(mi,))
+        return heads(t, hs.kv0, hs.n_kv)
+
+    if whole:
+        q = heads(x @ _weight(lp["wq"], mi, 1, split), 0, hs.heads)
+        wo = _weight(lp["wo"], mi, 0, split)
+    else:
+        first = hs.head_block * hs.heads
+        xq = torch.cat([x[:, i:i + c] for i in starts], 1)
+        wq = _weight(lp["wq"], mi, None, split)
+        q = heads(xq @ wq[:, first * dh:(first + hs.heads) * dh], 0,
+                  hs.heads)
+        wo = _weight(lp["wo"], mi, None, split)[
+            first * dh:(first + hs.heads) * dh]
+    k, v = kv(lp["wk"]), kv(lp["wv"])
     if cfg.qk_norm:
         rep = _replicate(mesh)
-        q = rms_norm(q, shr.local(lp["q_norm"], rep, partial=split))
-        k = rms_norm(k, shr.local(lp["k_norm"], rep, partial=split))
+        norm = split if mi is None else split + (mi,)
+        q = rms_norm(q, shr.local(lp["q_norm"], rep, partial=norm))
+        k = rms_norm(k, shr.local(lp["k_norm"], rep, partial=norm))
     positions = torch.arange(s, device=q.device)
-    q = rope(q, positions, cfg.rope_theta)
+    q = rope(q, positions if whole else torch.cat(
+        [positions[i:i + c] for i in starts]), cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out = chunked_attention(q, k, v, causal=True, q_offset=0,
-                            q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    return shr.from_local(out.reshape(out.shape[0], s, -1), mesh, pl)
+    outs = [chunked_attention(q[:, j * c:(j + 1) * c], k, v, causal=True,
+                              q_offset=i, q_chunk=cfg.q_chunk,
+                              kv_chunk=cfg.kv_chunk)
+            for j, i in enumerate(starts)]
+    out = outs[0] if whole else torch.cat(outs, 1)
+    y = out.reshape(b, out.shape[1], -1) @ wo
+    if not whole:
+        zero = y.new_zeros(())
+        pieces, at = [], 0
+        for j, i in enumerate(starts):
+            pieces += [zero.expand(b, i - at, y.shape[2]),
+                       y[:, j * c:(j + 1) * c]]
+            at = i + c
+        y = torch.cat(pieces + [zero.expand(b, s - at, y.shape[2])], 1)
+    return _partial_sum(y, mesh, pl, mi)
 
 
 def _layer_fwd(cfg: LMConfig, x, lp, positions, kv_cache=None):
@@ -860,24 +1008,29 @@ def _layer_fwd(cfg: LMConfig, x, lp, positions, kv_cache=None):
     With ``kv_cache = (ck, cv)`` ([B, Skv, Hkv, Dh], already holding the
     new tokens' K/V) the queries attend to it unmasked, one query a block,
     and ``new_kv`` is this layer's (k, v). A DTensor x (no cache) takes
-    ``_attention_sharded``."""
+    ``_attention_sharded`` and the sharded MLP, each a partial sum over
+    the model ranks reduce-scattered to x's placement before it joins the
+    residual."""
     b, s, _ = x.shape
     h = rms_norm(x, lp["ln_attn"])
+    new_kv = None
     if shr.is_dtensor(x) and kv_cache is None:
-        attn, new_kv = _attention_sharded(cfg, h, lp), None
-    elif kv_cache is None:
-        q, k, v = _qkv(cfg, h, lp, positions)
-        attn = chunked_attention(q, k, v, causal=True, q_offset=0,
-                                 q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-        new_kv = None
+        y = _attention_sharded(cfg, h, lp)
     else:
         q, k, v = _qkv(cfg, h, lp, positions)
-        ck, cv = kv_cache
-        attn = chunked_attention(q, ck, cv, causal=False, q_offset=0,
-                                 q_chunk=1, kv_chunk=cfg.kv_chunk)
-        new_kv = (k, v)
-    x = x + _placed_as(attn.reshape(b, s, -1) @ lp["wo"], x)
-    y = _mlp(cfg, rms_norm(x, lp["ln_mlp"]), lp, expert_parallel=True)
+        if kv_cache is None:
+            attn = chunked_attention(q, k, v, causal=True, q_offset=0,
+                                     q_chunk=cfg.q_chunk,
+                                     kv_chunk=cfg.kv_chunk)
+        else:
+            ck, cv = kv_cache
+            attn = chunked_attention(q, ck, cv, causal=False, q_offset=0,
+                                     q_chunk=1, kv_chunk=cfg.kv_chunk)
+            new_kv = (k, v)
+        y = attn.reshape(b, s, -1) @ lp["wo"]
+    x = x + _placed_as(y, x)
+    del h, y                   # [B, S, d] each: not held through the MLP
+    y = _mlp(cfg, rms_norm(x, lp["ln_mlp"]), lp, sharded=True)
     return (x + _placed_as(y, x)).to(cfg.dtype), new_kv
 
 

@@ -13,10 +13,11 @@ Against ``repro``: the smoke configs at the smoke shapes of
 ``tests/test_torch_mesh_cells.py`` (LMs batch 4 × 64 positions, the
 GNNs' 64 nodes and 256 edges, DIEN 16 rows; qwen3's decode at batch 4
 against a 16-position cache). The reference is compiled in one
-subprocess with 8 host devices on a (1, 1) and a (2, 4) ``("data",
-"model")`` mesh and read by ``hlo_analysis.analyze``; the port runs
-``analyze_cell`` on a fake world of 1 or 8 with the same mesh. Every
-comparison is within 1% (``REL``).
+subprocess with 256 host devices on a (1, 1) and a (2, 4) ``("data",
+"model")`` mesh (and the production cases below on its (16, 16)) and
+read by ``hlo_analysis.analyze``; the port runs ``analyze_cell`` on a
+fake world of 1, 8 or 256 with the same mesh. Every comparison is within
+1% (``REL``).
 
 GAT, DIEN's train and serve cells: the port's per-card flops equal the
 reference's. Everywhere else a departure changes the products, and the
@@ -36,23 +37,23 @@ the backward, each 2·B·H·S²·Dh a layer):
     (2·N·(d/2), a contraction of length 1) into a broadcast multiply, no
     dot. So on one card: port = ref − (1 − k)·A + 2·T·d·V (LM), ref +
     n_int·2·N·d² + N·d (SchNet).
-On the (2, 4) mesh the reference splits every LM product over the 8
-cards (llama3.2-1b and qwen3-1.7b: its (2, 4) count is its (1, 1) count /
-8 to the flop; minicpm, moonshot and dbrx split theirs less evenly,
-so the port is held to their (1, 1) count / 8 there). The port runs on
-the rank's rows only (÷ n_d, not ÷ n):
+On the (2, 4) mesh the reference splits llama3.2-1b's and qwen3-1.7b's
+products over the 8 cards (its (2, 4) count is its (1, 1) count / 8 to
+the flop) and minicpm's, moonshot's and dbrx's less evenly. The port
+splits every LM's layers evenly: attention by ``transformer.HeadSplit``
+(gcd(H, 4) head blocks, the rest of the model axis over query chunks), k
+and v by wk's and wv's column blocks, every product on the rank's share
+with its gradient whole. So its (2, 4) count is (its (1, 1) count) / 8
+plus the work it runs on the rank's rows only (÷ n_d, not ÷ n), and at
+or under the reference's (2, 4) count plus that work:
   * the loss: each rank's rows against the whole unembedding, its four
     products (forward, replay, two gradients);
-  * attention, where the model axis divides neither head count (llama,
-    qwen3, minicpm, dbrx smoke: 2 or 6 kv heads on 4): heads whole on
-    every model rank;
-  * the products that read a gradient DTensor leaves as a partial sum over
-    the model axis (the reference reduces it first): dense, wo's two
-    gradient products in every layer and w_down's in every layer but the
-    last; MoE, wo's in every layer but the last (its weight gradient in
-    every layer where heads are whole);
 and the router's four products (forward, replay, two gradients) run on
 the whole token table on every card (the MoE without an expert axis).
+On the production (16, 16) mesh, full widths cut to two layers, the
+port's ``train_4k`` step for llama3.2-1b (GQA, one kv head to two model
+ranks) and minicpm-2b (36 heads on 16: four head blocks over four query
+blocks) counts at or under the reference's, compiled at the same cut.
 The decode step (no activation constraint, as in the reference) leaves
 the residual a partial sum over the model axis after the first
 attention's output product: gate and up in every layer, q, k, v after the
@@ -80,6 +81,7 @@ from repro_torch.configs import get_arch
 from repro_torch.kernels.embed_bag.ops import embed_bag
 from repro_torch.launch import cost_analysis as ca
 from repro_torch.launch.dryrun import fake_world
+from repro_torch.launch.mesh import make_production_mesh
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 REL = 0.01
@@ -98,19 +100,26 @@ CASES = {**{f"{a}/train": (a, LM_TRAIN) for a in LMS},
          "dien/serve": ("dien", dict(kind="serve", batch=16))}
 #: The reference's (2, 4) count is its (1, 1) count / 8 for these.
 EVEN_REFERENCE = ("llama3.2-1b", "qwen3-1.7b")
+#: ``train_4k`` on the (16, 16) production mesh at full width, cut to
+#: PRODUCTION_LAYERS layers.
+PRODUCTION = ("llama3.2-1b", "minicpm-2b")
+PRODUCTION_LAYERS = 2
 
 _JAX_SCRIPT = r"""
 import os, sys, json
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=256"
 import dataclasses
 import numpy as np
 import jax
 from jax.sharding import Mesh
 from repro.configs import get_arch
 from repro.launch.hlo_analysis import analyze
+from repro.launch.mesh import make_production_mesh
 from repro.train.step import build_cell
 
-cases, out = json.loads(sys.argv[1]), sys.argv[2]
+cases, production, layers, out = (json.loads(sys.argv[1]),
+                                  json.loads(sys.argv[2]), int(sys.argv[3]),
+                                  sys.argv[4])
 res = {}
 for mesh_name, dims in (("1x1", (1, 1)), ("2x4", (2, 4))):
     devs = np.array(jax.devices()[:dims[0] * dims[1]]).reshape(dims)
@@ -121,6 +130,15 @@ for mesh_name, dims in (("1x1", (1, 1)), ("2x4", (2, 4))):
         with getattr(jax, "set_mesh", lambda m: m)(mesh):
             compiled = jax.jit(step_fn).lower(state, inputs).compile()
         res[f"{label}@{mesh_name}"] = analyze(compiled.as_text()).flops
+mesh = make_production_mesh()
+for arch in production:
+    base = get_arch(arch)
+    cfg = dataclasses.replace(base.make_config(), n_layers=layers)
+    spec = dataclasses.replace(base, make_config=lambda cfg=cfg: cfg)
+    step_fn, state, inputs = build_cell(spec, "train_4k", mesh)
+    with getattr(jax, "set_mesh", lambda m: m)(mesh):
+        compiled = jax.jit(step_fn).lower(state, inputs).compile()
+    res[f"{arch}/train_4k@16x16"] = analyze(compiled.as_text()).flops
 with open(out, "w") as f:
     json.dump(res, f)
 """
@@ -135,11 +153,14 @@ def reference(tmp_path_factory):
                JAX_PLATFORMS="cpu")
     proc = subprocess.Popen(
         [sys.executable, "-c", _JAX_SCRIPT, json.dumps(CASES),
+         json.dumps(PRODUCTION), str(PRODUCTION_LAYERS),
          str(tmp / "ref.json")], env=env, cwd=ROOT, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
     for label in CASES:          # the port's side while the reference runs
         for mesh_name in DIMS:
             port_flops(label, mesh_name)
+    for arch in PRODUCTION:
+        port_production(arch)
     _, err = proc.communicate(timeout=900)
     assert proc.returncode == 0, err[-3000:]
     return json.loads((tmp / "ref.json").read_text())
@@ -159,6 +180,19 @@ def port_cell(label: str, mesh_name: str) -> dict:
 
 def port_flops(label: str, mesh_name: str) -> float:
     return port_cell(label, mesh_name)["cost"].flops
+
+
+@functools.cache
+def port_production(arch: str) -> float:
+    """The port's per-card flops of ``arch``'s ``train_4k`` step on the
+    production (16, 16) mesh (a fake world of 256) at full width, cut to
+    PRODUCTION_LAYERS layers."""
+    base = get_arch(arch)
+    cfg = dataclasses.replace(base.make_config(), n_layers=PRODUCTION_LAYERS)
+    spec = dataclasses.replace(base, make_config=lambda: cfg)
+    with fake_world(256):
+        mesh = make_production_mesh(device_type="cpu")
+        return ca.analyze_cell(spec, "train_4k", mesh)["cost"].flops
 
 
 def near(got: float, want: float) -> bool:
@@ -332,23 +366,16 @@ def lm_math(label) -> float:
 
 
 def lm_partition(label, n_data: int = 2, n: int = 8) -> float:
-    """The port's per-card flops beyond an even split over n cards."""
+    """The port's per-card flops beyond an even split over n cards: the
+    loss's four products (forward, replay, two gradients) on the rank's
+    rows against the whole unembedding (÷ n_d, not ÷ n), and an MoE's
+    router's four on the whole token table."""
     cfg, b, s = _lm(label)
-    attn, k, loss = _lm_terms(label)
-    t, d, L = b * s, cfg.d_model, cfg.n_layers
-    share = 1 / n_data - 1 / n
-    n_model = n // n_data
-    whole_heads = bool(cfg.n_kv_heads % n_model or cfg.n_heads % n_model)
-    out = 4 * loss * share                              # the loss
-    if whole_heads:
-        out += k * attn * share                         # attention
-    wo = 2 * t * cfg.n_heads * cfg.d_head * d
+    _attn, _k, loss = _lm_terms(label)
+    out = 4 * loss * (1 / n_data - 1 / n)
     if cfg.is_moe:
-        out += ((L - 1) + (L if whole_heads else L - 1)) * wo * share
-        out += 4 * L * 2 * t * d * cfg.n_experts * (1 - 1 / n)   # router
-    else:
-        out += 2 * L * wo * share
-        out += 2 * (L - 1) * 2 * t * cfg.d_ff * d * share         # w_down
+        out += 4 * cfg.n_layers * 2 * b * s * cfg.d_model * cfg.n_experts \
+            * (1 - 1 / n)
     return out
 
 
@@ -360,14 +387,28 @@ def test_lm_train_flops_one_card(reference, label):
 
 @pytest.mark.parametrize("label", [f"{a}/train" for a in LMS])
 def test_lm_train_flops_per_card(reference, label):
+    """Each LM's step splits evenly over the 8 cards but for
+    ``lm_partition``'s terms; where the reference splits less evenly, the
+    port counts at or under the reference plus those terms."""
     one = reference[f"{label}@1x1"]
     split = reference[f"{label}@2x4"]
+    got = port_flops(label, "2x4")
+    want = (one + lm_math(label)) / 8 + lm_partition(label)
+    assert near(got, want), (want, split)
     if label.split("/")[0] in EVEN_REFERENCE:
         assert split == one / 8
     else:
         assert split > one / 8          # the reference splits less evenly
-    want = (one + lm_math(label)) / 8 + lm_partition(label)
-    assert near(port_flops(label, "2x4"), want), (want, split)
+        assert got <= split + lm_math(label) / 8 + lm_partition(label)
+
+
+@pytest.mark.parametrize("arch", PRODUCTION)
+def test_production_mesh_train_flops(reference, arch):
+    """Per card on the (16, 16) mesh, where the model axis divides neither
+    head count of llama3.2-1b (8 kv heads) nor minicpm-2b's 36 heads: the
+    port's step at or under the reference's."""
+    want = reference[f"{arch}/train_4k@16x16"]
+    assert port_production(arch) <= want, (port_production(arch), want)
 
 
 def test_decode_flops(reference):

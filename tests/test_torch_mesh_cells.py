@@ -11,6 +11,10 @@ first synthetic batch, which both packages draw bit-equal:
   * qwen3-1.7b's smoke train cell, the reference test's step
     (``tests/test_distributed.py``), in float32 from step 1999 with
     mid-training moments (``test_torch_lm_cells.moments``);
+  * llama3.2-1b's and minicpm-2b's with a full train cell's
+    ``act_batch_axes`` and ``act_seq_axis`` (the attention split by
+    ``transformer.HeadSplit``: one query head a rank, and two head blocks
+    each over two query blocks), minicpm-2b on its WSD schedule;
   * moonshot's, with ``act_batch_axes``, ``act_seq_axis`` and
     ``moe_expert_axis`` set: the MoE runs ``moe_block_shard_map``, whose
     capacity is counted per data shard. A 1-device reference routes all
@@ -225,11 +229,13 @@ def reference_lm_step(case: str):
     opt["step"] = jnp.int32(LM_START)
     batch = _lm_batch(arch, jc)
     if not fields.get("moe_expert_axis"):
+        mesh = jax_host_mesh()
         step_fn, _, _ = jax_step.lm_train_cell(
-            jc, jax_host_mesh(), batch=LM_SHAPE["batch"],
-            seq=LM_SHAPE["seq"], fsdp=jax_get_arch(arch).fsdp)
-        state, metrics = jax.jit(step_fn)({"params": params, "opt": opt},
-                                          batch)
+            jc, mesh, batch=LM_SHAPE["batch"], seq=LM_SHAPE["seq"],
+            fsdp=jax_get_arch(arch).fsdp, use_wsd=arch == "minicpm-2b")
+        with ambient(mesh):
+            state, metrics = jax.jit(step_fn)({"params": params,
+                                               "opt": opt}, batch)
         new_params, new_opt = state["params"], state["opt"]
         loss, gn = metrics["loss"], metrics["grad_norm"]
     else:

@@ -16,6 +16,10 @@ new parameters, m and v gathered whole (rank 0):
     ``act_seq_axis="model"`` and ``moe_expert_axis="model"``; each MoE
     layer's routing of the first forward (``moonshot/route/<layer>/``: the
     rank's token table and its ``moe_route_local`` results);
+  * ``llama`` and ``minicpm``: llama3.2-1b's and minicpm-2b's, with a full
+    train cell's ``act_batch_axes`` and ``act_seq_axis``: attention with
+    one query head a model rank (two sharing a kv head), and with 6 heads
+    on 4 ranks two head blocks of 3, each over two query blocks;
   * ``moonshot_prefill``: its prefill cell on the same weights, batch axes
     and expert axis set (the logits, ``<case>/logits``);
   * ``gnn/<arch>``: the four GNN smoke train cells with their rows
@@ -33,10 +37,13 @@ import torch
 import torch.distributed as dist
 
 LM_SHAPE = dict(kind="train", batch=4, seq=64)
+#: A full train cell's activation fields on the (2, 4) host mesh.
+TRAIN_FIELDS = dict(act_batch_axes=("data",), act_seq_axis="model")
 FIELDS = {"qwen3": ("qwen3-1.7b", {}),
           "moonshot": ("moonshot-v1-16b-a3b",
-                       dict(act_batch_axes=("data",), act_seq_axis="model",
-                            moe_expert_axis="model"))}
+                       dict(TRAIN_FIELDS, moe_expert_axis="model")),
+          "llama": ("llama3.2-1b", TRAIN_FIELDS),
+          "minicpm": ("minicpm-2b", TRAIN_FIELDS)}
 PREFILL_FIELDS = dict(act_batch_axes=("data",), moe_expert_axis="model")
 GNN_ARCHS = ("gat-cora", "schnet", "dimenet", "meshgraphnet")
 DECODE_LEN = 16
@@ -134,9 +141,11 @@ def main(rank: int, world: int, store: str, job: str, out: str) -> None:
             shr.lm_param_specs(cfg, mesh, fsdp=spec.fsdp)), mesh)
         route_calls.clear()
         train_case(res, rank, case, spec, cfg, step_fn, state)
+        if case == "moonshot":
+            routes = list(route_calls)
     tt.moe_route_local = local_route
     for i, (x, ridx, e_per, (_g, le, pos, keep, cap)) in enumerate(
-            route_calls[:2]):
+            routes[:2]):
         tag = f"moonshot/route/{i}"
         res[f"{tag}/x"], res[f"{tag}/ridx"] = x.numpy(), np.array(ridx)
         res[f"{tag}/local_e"], res[f"{tag}/pos"] = le.numpy(), pos.numpy()
