@@ -3387,6 +3387,7 @@ COMPRESS_SLICE = 1 << 26
 # priority, so the phases that run meanwhile keep the cores they use.
 DRYRUN_JOBS = 6
 DRYRUN_TIMEOUT_S = 1000
+GNN_DRYRUN_ARCHS = ("gat-cora", "schnet", "dimenet", "meshgraphnet")
 
 
 def wall_ms(torch, fn) -> tuple:
@@ -3827,10 +3828,14 @@ def mesh_dryrun(card, job: dict) -> list:
                       / 1e9,
                       "analyze_s": res["timings_s"]["analyze"]})
     check(len(lines) == 80, f"{len(lines)} dry run cells, want 80")
+    over = sorted(ln["dryrun"] for ln in lines if ln["peak_gb"] > 80)
+    # SchNet's and DimeNet's ogb_products fit since the analysis leaves
+    # out DTensor's sharding propagation and DimeNet's collectives run
+    # once a block: a GNN cell over 80 GB is a regression.
+    check(not [c for c in over if c.split("__")[0] in GNN_DRYRUN_ARCHS],
+          f"GNN dry-run cells over 80 GB a card: {over}")
     lines.append({"phase": "dryrun", "cells": len(lines), "seconds": wall,
-                  "jobs": DRYRUN_JOBS, "card": card,
-                  "over_80gb": sorted(ln["dryrun"] for ln in lines
-                                      if ln["peak_gb"] > 80)})
+                  "jobs": DRYRUN_JOBS, "card": card, "over_80gb": over})
     return lines
 
 

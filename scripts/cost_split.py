@@ -20,14 +20,18 @@ cell's dtype, 989 TFLOP/s bf16 or 67 float32 on an H100 SXM; ``temp_gb``
 a card), the cells ranked by ``excess_ms``, and writes them to
 ``DIR/split.json``.
 
-With ``--reference REF`` it also reads the reference's dry-run JSONs from
-``REF`` (the files that ``PYTHONPATH=src python -m repro.launch.dryrun
---out REF`` writes, one a cell: only the files are read, nothing of the
-reference is imported) and puts the reference's per-card TFLOP
-(``hlo_parsed.flops``) and temp GB beside the port's in each cell it has
-(``ref_tflop_per_card``, ``ref_temp_gb``, ``vs_ref``: the port's flops /
-the reference's), then one line ``{"vs_reference": ...}`` listing the
-cells where the port counts more flops or more temp than the reference.
+With ``--reference REF`` it also reads every dry-run JSON under ``REF``
+(the files that ``PYTHONPATH=src python -m repro.launch.dryrun --out
+REF`` writes, one a cell, LM, GNN and DIEN alike, ``--all`` or one
+``--arch A --shape S [--multi-pod | --single-pod-only]`` at a time: only
+the files are read, nothing of the reference is imported) and puts the
+reference's per-card TFLOP (``hlo_parsed.flops``), collective GB
+(``hlo_parsed.collective_bytes``) and temp GB beside the port's in each
+cell it has (``ref_tflop_per_card``, ``ref_coll_gb``, ``ref_temp_gb``,
+``vs_ref``: the port's flops / the reference's), then one line
+``{"vs_reference": ...}`` listing the cells where the port counts more
+flops, more collective bytes or more temp than the reference, and the
+reference's cells the port's dry run lacks.
 """
 from __future__ import annotations
 
@@ -71,6 +75,7 @@ def reference_row(path: pathlib.Path, tflop_per_card: float) -> dict:
         return {}
     tflop = ref["hlo_parsed"]["flops"] / 1e12
     return {"ref_tflop_per_card": tflop,
+            "ref_coll_gb": ref["hlo_parsed"]["collective_bytes"] / 1e9,
             "ref_temp_gb": ref["memory_analysis"]["temp_size_in_bytes"] / 1e9,
             "vs_ref": tflop_per_card / tflop if tflop else None}
 
@@ -101,6 +106,7 @@ def main(argv=None) -> int:
                      "split": flops / per_card if per_card else None,
                      "excess_tflop": excess / 1e12, "dtype": dtype,
                      "excess_ms": excess / PEAK_FLOP_PER_S[dtype] * 1e3,
+                     "coll_gb": c["cost"]["collective_bytes"] / 1e9,
                      "temp_gb":
                      c["memory_analysis"]["temp_size_in_bytes"] / 1e9})
     if args.reference is not None:
@@ -111,12 +117,18 @@ def main(argv=None) -> int:
     for r in rows:
         print(json.dumps(r))
     if args.reference is not None:
+        ours = {r["cell"] for r in rows}
         print(json.dumps({"vs_reference": {
             "cells": sum("ref_tflop_per_card" in r for r in rows),
             "more_flops": [r["cell"] for r in rows
                            if (r.get("vs_ref") or 0) > 1],
+            "more_collectives": [r["cell"] for r in rows if "ref_coll_gb" in r
+                                 and r["coll_gb"] > r["ref_coll_gb"]],
             "more_temp": [r["cell"] for r in rows if "ref_temp_gb" in r
-                          and r["temp_gb"] > r["ref_temp_gb"]]}}))
+                          and r["temp_gb"] > r["ref_temp_gb"]],
+            "not_in_dryrun": sorted(p.stem for p in
+                                    args.reference.glob("*__*.json")
+                                    if p.stem not in ours)}}))
     (args.dryrun / "split.json").write_text(json.dumps(rows, indent=1))
     return 0
 

@@ -13,8 +13,11 @@ It returns ``NotImplemented`` for any op with a ``DTensor`` among its
 types, so that DTensor first turns the op into this rank's local ops and
 the collectives its redistributions need (the trick of
 ``torch.distributed.tensor.debug.CommDebugMode``); every number below is
-therefore per card, rank 0's, as the reference's partitioned HLO is. Ops
-that DTensor runs on fake tensors to propagate shapes are not counted.
+therefore per card, rank 0's, as the reference's partitioned HLO is.
+Nothing DTensor runs to infer an op's placements and shapes is counted:
+its ops on fake tensors, and every op while its sharding propagator runs
+(the propagation through an op's decomposition makes ``meta`` tensors of
+the global shape outside any fake mode, which the step never holds).
 
 ``OpCost`` holds the reference's fields (``HloCost.to_json``):
   * ``flops``: 2·M·N·K of every ``mm``, ``addmm``, ``bmm`` and ``baddbmm``
@@ -113,6 +116,9 @@ _NO_BYTES = frozenset({
     "aten.sym_storage_offset", "aten.is_same_size",
     "_c10d_functional.wait_tensor", "_c10d_functional._wrap_tensor_autograd",
 })
+#: Ops whose result is their first argument's storage on the card (a
+#: wrapper) but a new one on ``meta``: counted as that storage.
+_ALIASES = frozenset({"_c10d_functional._wrap_tensor_autograd"})
 
 
 def _mv_flop(a, x, *args, out_val=None, **kwargs) -> int:
@@ -173,6 +179,7 @@ class CostMode(TorchDispatchMode):
         self.peak = 0
         self._owned: dict[int, int] = {}
         self._args: set[int] = set()
+        self._aliased: set[int] = set()
         self._opaque = 0
         self._flops = _product_flops()
 
@@ -201,13 +208,27 @@ class CostMode(TorchDispatchMode):
                 continue
             st = t.untyped_storage()
             key = st._cdata
-            if key in self._owned or key in self._args:
+            if key in self._owned or key in self._args or key in self._aliased:
                 continue
             n = st.nbytes()
             self._owned[key] = n
             self.live += n
             weakref.finalize(st, self._free, key)
         self.peak = max(self.peak, self.live)
+
+    def _alias(self, out: torch.Tensor, src: torch.Tensor) -> None:
+        """``out``'s storage counted as ``src``'s: not itself, and
+        ``src``'s stays live (counted once) for as long as ``out``'s
+        does."""
+        st = out.untyped_storage()
+        key = st._cdata
+        if key == src.untyped_storage()._cdata or key in self._owned:
+            return
+        self._aliased.add(key)
+        weakref.finalize(st, self._unalias, key, src.untyped_storage())
+
+    def _unalias(self, key: int, _src) -> None:
+        self._aliased.discard(key)
 
     # -- counting ----------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -233,8 +254,22 @@ class CostMode(TorchDispatchMode):
             self.cost.bytes_accessed += sum(
                 tensor_bytes(t) for t in tree_leaves((args, kwargs, out))
                 if isinstance(t, torch.Tensor))
-        self._allocated(out)
+        if name in _ALIASES:
+            self._alias(out, args[0])
+        else:
+            self._allocated(out)
         return out
+
+    def propagating(self, fn):
+        """``fn`` with every op it runs left uncounted (DTensor's sharding
+        propagation: bookkeeping, not the step's work)."""
+        def run(*args, **kwargs):
+            self._opaque += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self._opaque -= 1
+        return run
 
     def opaque(self, run, inputs, *, collective: str | None = None):
         """``run()`` counted as one launch: its ops uncounted, its inputs
@@ -263,6 +298,40 @@ def _shape_propagation(types) -> bool:
     return (any(issubclass(t, FakeTensor) for t in types)
             or torch._C._get_dispatch_mode(
                 torch._C._TorchDispatchModeKey.FAKE) is not None)
+
+
+#: The sharding propagator's entry points, outermost first: the op
+#: dispatcher's slow path calls ``propagate_op_sharding`` (an LRU cache of
+#: ``propagate_op_sharding_non_cached``, bound when the propagator is
+#: made, so each is wrapped on the instance), other DTensor code
+#: ``propagate``.
+_PROPAGATOR_ENTRIES = ("propagate", "propagate_op_sharding",
+                       "propagate_op_sharding_non_cached")
+
+
+@contextlib.contextmanager
+def _propagation_uncounted(mode: CostMode):
+    """DTensor's sharding propagator with its entry points wrapped so
+    that ``mode`` counts none of the ops they run. Raises if it lacks
+    ``propagate_op_sharding``: the count would take in DTensor's
+    bookkeeping."""
+    prop = DTensor._op_dispatcher.sharding_propagator
+    names = [n for n in _PROPAGATOR_ENTRIES
+             if callable(getattr(prop, n, None))]
+    if "propagate_op_sharding" not in names:
+        raise RuntimeError("DTensor's sharding propagator has no "
+                           "propagate_op_sharding: its ops would be counted")
+    own = {n: prop.__dict__[n] for n in names if n in prop.__dict__}
+    for n in names:
+        setattr(prop, n, mode.propagating(getattr(prop, n)))
+    try:
+        yield
+    finally:
+        for n in names:
+            if n in own:
+                setattr(prop, n, own[n])
+            else:
+                delattr(prop, n)
 
 
 def storage_bytes(tree) -> int:
@@ -304,8 +373,9 @@ def _alltoall_sites() -> tuple:
 @contextlib.contextmanager
 def counting():
     """A ``CostMode`` active for the length of the ``with``: wrappers'
-    plain versions count as their kernels, and DTensor's CPU fallback for
-    a shard-dim all-to-all counts as the all-to-all."""
+    plain versions count as their kernels, DTensor's CPU fallback for a
+    shard-dim all-to-all counts as the all-to-all, and DTensor's sharding
+    propagation counts nothing."""
     from repro_torch import kernels
     mode = CostMode()
     orig, sites = _alltoall_sites()
@@ -321,7 +391,7 @@ def counting():
     for m in sites:
         m.shard_dim_alltoall = alltoall
     try:
-        with mode:
+        with _propagation_uncounted(mode), mode:
             yield mode
     finally:
         for m in sites:

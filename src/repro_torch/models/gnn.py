@@ -26,10 +26,13 @@ graph's tensors are DTensors split over the data axes by rows (nodes,
 edges, triplets) and the parameters are replicated. The dense steps are
 DTensor ops. A gather ``x[index]`` (``_rows``) takes the replicated ``x``
 and this rank's block of the index; a scatter into nodes (``scatter_sum``,
-``_index_add``, the softmax's max) adds this rank's rows into all of them
-and the partial results are summed over the ranks (the max reduced),
-then placed back on the rows by ``_constrain_rows`` at the reference's
-sites when ``set_gnn_data_axes`` is set, else replicated. The softmax's
+the softmax's max) adds this rank's rows into all of them and the partial
+results are summed over the ranks (the max reduced), then placed back on
+the rows by ``_constrain_rows`` at the reference's sites when
+``set_gnn_data_axes`` is set, else replicated. DimeNet's triplet chunks
+gather and scatter on this rank's tensors, with one gather of the edge
+states and one reduction of the aggregate a block (``_mesh_triplets``).
+The softmax's
 max passes its gradient (zero in exact arithmetic: a softmax does not
 depend on the shift it subtracts) to each rank's own largest score.
 
@@ -126,13 +129,9 @@ def _summed(out: torch.Tensor, index, reduce: str = "sum"):
 def _index_add(n: int, index: torch.Tensor,
                values: torch.Tensor) -> torch.Tensor:
     """``zeros(n, ...).index_add(0, index, values)`` (every index in
-    [0, n)); on a mesh the ranks' partial sums are summed."""
-    if not shr.is_dtensor(index):
-        return values.new_zeros((n,) + values.shape[1:]).index_add(
-            0, index, values)
-    il = shr.local(index, index.placements)
-    vl = shr.local(values, _row_placements(index, values.dim()))
-    return _summed(_index_add(n, il, vl), index)
+    [0, n))."""
+    return values.new_zeros((n,) + values.shape[1:]).index_add(0, index,
+                                                               values)
 
 
 def scatter_sum(values: torch.Tensor, index: torch.Tensor,
@@ -162,12 +161,10 @@ def _rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     gradient is a partial sum over the ranks that split the index)."""
     if not shr.is_dtensor(index):
         return x.index_select(0, index)
-    from torch.distributed.tensor import Replicate
-    mesh = index.device_mesh
-    xl = shr.local(x, (Replicate(),) * mesh.ndim,
-                   partial=shr.sharded_dims(index.placements))
+    xl = _whole(x, shr.sharded_dims(index.placements))
     out = xl.index_select(0, shr.local(index, index.placements))
-    return shr.from_local(out, mesh, _row_placements(index, out.dim()))
+    return shr.from_local(out, index.device_mesh,
+                          _row_placements(index, out.dim()))
 
 
 def _max(x: torch.Tensor, floor: float) -> torch.Tensor:
@@ -212,18 +209,6 @@ def _const(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     from torch.distributed.tensor import Replicate
     mesh = like.device_mesh
     return shr.from_local(t, mesh, (Replicate(),) * mesh.ndim)
-
-
-def _arange_rows(like: torch.Tensor) -> torch.Tensor:
-    """``arange(len(like))``, split as ``like``'s rows on a mesh."""
-    if not shr.is_dtensor(like):
-        return torch.arange(like.shape[0], device=like.device)
-    mesh = like.device_mesh
-    pl = _row_placements(like, 1)
-    n_l = shr.local(like, pl).shape[0]
-    start = shr.block_offset(mesh, pl, 0, n_l)
-    return shr.from_local(torch.arange(start, start + n_l,
-                                       device=like.device), mesh, pl)
 
 
 def _silu(x):
@@ -639,14 +624,43 @@ def _dimenet_blocks(cfg, params, g, m, rbf, vec, n, *,
                     chunk_target: int = TRIPLET_CHUNK):
     """Interaction blocks with the triplets streamed in chunks of about
     ``chunk_target`` (basis, gather, bilinear and scatter a chunk, each
-    under checkpoint), accumulating into the per-edge aggregate."""
+    under checkpoint), accumulating into the per-edge aggregate. On a mesh
+    the block's collectives run once a block (``_mesh_triplets``)."""
     e, d = m.shape
     t = g.trip_in.shape[0]
     n_chunks = _pick_chunks(t, chunk_target)
+    if shr.is_dtensor(g.trip_in):
+        aggregate = _mesh_triplets(cfg, g, vec, rbf, e, n_chunks)
+    else:
+        aggregate = _plain_triplets(cfg, g, vec, rbf, e, d, t, n_chunks)
+    carry_dtype = _carry_dtype(e, m.dtype)
+
+    def one_block(m_c, bp):
+        m = m_c.to(cfg.dtype)
+        m_kj = _constrain_rows(_mlp(bp["w_kj"], m))       # [E, d]
+        agg = aggregate(m_kj, bp)
+        m = m + _mlp(bp["update"], _mlp(bp["w_ji"], m) + agg, act=_silu)
+        return _constrain_rows(m.to(carry_dtype))
+
+    m = m.to(carry_dtype)
+    for bp in params["blocks"]:
+        m = _remat(one_block, m, bp)
+    m = m.to(cfg.dtype)
+    edge_e = _mlp(params["out"], m, act=_silu)[:, 0]
+    node_e = scatter_sum(torch.where(g.dst < n, edge_e, 0), g.dst, n)
+    gid = g.graph_id if g.graph_id is not None else _const(torch.zeros(
+        n, dtype=torch.int32, device=m.device), m)
+    return scatter_sum(node_e, gid, g.n_graphs)
+
+
+def _plain_triplets(cfg, g, vec, rbf, e, d, t, n_chunks):
+    """The block's triplet aggregate on plain tensors: ``aggregate(m_kj,
+    bp)``, each chunk's scatter into its own [E, d] table, the tables
+    summed."""
     tc = t // n_chunks
     ti_all = _chunk_rows(g.trip_in, n_chunks)
     to_all = _chunk_rows(g.trip_out, n_chunks)
-    sph_k = _const(torch.arange(cfg.n_spherical, device=m.device), m)
+    sph_k = torch.arange(cfg.n_spherical, device=vec.device)
 
     def triplet_chunk(m_kj, w_sbf, bilinear, ti_raw, to_raw):
         ti = _clip_index(ti_raw, e)
@@ -671,7 +685,7 @@ def _dimenet_blocks(cfg, params, g, m, rbf, vec, n, *,
         # taking every padded triplet's atomics (three quarters of
         # minibatch_lg's). Here they gather and add their 0 at rows spread
         # over [0, e): the same sums.
-        spread = torch.remainder(_arange_rows(ti), e)
+        spread = torch.remainder(torch.arange(tc, device=ti.device), e)
         ti_m = torch.where(valid, ti, spread)
         to_m = torch.where(valid, to, spread)
         # The reference's einsum("td,dbe,tb->te"), as one GEMM over (b, d).
@@ -682,28 +696,120 @@ def _dimenet_blocks(cfg, params, g, m, rbf, vec, n, *,
         tmsg = torch.where(valid[:, None], tmsg, 0)
         return _constrain_rows(_index_add(e, to_m, tmsg))
 
-    carry_dtype = _carry_dtype(e, m.dtype)
-
-    def one_block(m_c, bp):
-        m = m_c.to(cfg.dtype)
-        m_kj = _constrain_rows(_mlp(bp["w_kj"], m))       # [E, d]
+    def aggregate(m_kj, bp):
         agg = None                  # the first chunk's sum starts it
         for idx in range(n_chunks):
             part = _remat(triplet_chunk, m_kj, bp["w_sbf"], bp["bilinear"],
                           ti_all[idx], to_all[idx])
             agg = part if agg is None else agg + part
-        m = m + _mlp(bp["update"], _mlp(bp["w_ji"], m) + agg, act=_silu)
-        return _constrain_rows(m.to(carry_dtype))
+        return agg
 
-    m = m.to(carry_dtype)
-    for bp in params["blocks"]:
-        m = _remat(one_block, m, bp)
-    m = m.to(cfg.dtype)
-    edge_e = _mlp(params["out"], m, act=_silu)[:, 0]
-    node_e = scatter_sum(torch.where(g.dst < n, edge_e, 0), g.dst, n)
-    gid = g.graph_id if g.graph_id is not None else _const(torch.zeros(
-        n, dtype=torch.int32, device=m.device), m)
-    return scatter_sum(node_e, gid, g.n_graphs)
+    return aggregate
+
+
+class _GatherRows(torch.autograd.Function):
+    """``x.index_select(0, index)`` whose backward adds the gradient into
+    one zero table in place (``index_select``'s adds it into a copy of
+    the zeros: two [E, d] tables where one will do)."""
+
+    @staticmethod
+    def forward(ctx, x, index):
+        ctx.save_for_backward(index)
+        ctx.x_shape = x.shape
+        return x.index_select(0, index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        index, = ctx.saved_tensors
+        return grad.new_zeros(ctx.x_shape).index_add_(0, index, grad), None
+
+
+def _whole(x, split: tuple):
+    """A DTensor whole on this rank (an all-gather; its gradient comes
+    back as the ranks' partial sums over ``split``, reduced once); a
+    plain tensor as it is."""
+    if not shr.is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return shr.local(x, (Replicate(),) * x.device_mesh.ndim, partial=split)
+
+
+def _chunk_norm(x: torch.Tensor, mesh, split: tuple) -> torch.Tensor:
+    """``matrix_norm(x, ord=-1)`` of a chunk whose rows are split over the
+    mesh dims ``split``, from this rank's rows ``x``: the column sums of
+    |x| summed over those ranks, the least of them."""
+    cols = torch.linalg.vector_norm(x, 1, dim=0)
+    if split:
+        from torch.distributed.tensor import Partial, Replicate
+        cols = shr.from_local(cols, mesh, tuple(
+            Partial() if i in split else Replicate()
+            for i in range(mesh.ndim)))
+        cols = cols.redistribute(mesh, (Replicate(),) * mesh.ndim).to_local()
+    return cols.amin()
+
+
+def _mesh_triplets(cfg, g, vec, rbf, e, n_chunks):
+    """The block's triplet aggregate on a mesh: ``aggregate(m_kj, bp)``
+    with the triplet ids' rows split over the data axes.
+
+    Every collective runs once a block, not once a chunk: ``m_kj`` is
+    gathered whole and the rows of all the rank's triplets taken from it
+    at once (its gradient is added into one [E, d] table and
+    reduce-scattered once); the chunks scatter into one [E, d] accumulator
+    of this rank's partial sums, reduce-scattered once onto the rows; the
+    block's weights are taken whole once (their gradients all-reduced
+    once). Edge directions and radial bases are gathered once a step (no
+    gradient). The chunk's angle keeps the reference's norm of the whole
+    chunk: a sum over the ranks of 3 column sums. The gathered ``m_kj`` is
+    freed once its rows are taken: the block holds the rank's rows (T / n_d
+    of them) and one [E, d] table at a time, forward and backward."""
+    ti_all = _chunk_rows(g.trip_in, n_chunks)        # [n_chunks, tc]
+    to_all = _chunk_rows(g.trip_out, n_chunks)
+    mesh, pl = ti_all.device_mesh, ti_all.placements
+    if any(p.is_shard(0) for p in pl):
+        raise ValueError(f"triplet chunks split across chunks: {pl}")
+    split = shr.sharded_dims(pl)
+    ti_raw, to_raw = shr.local(ti_all, pl), shr.local(to_all, pl)
+    tc = ti_raw.shape[1]
+    ti, to = _clip_index(ti_raw, e), _clip_index(to_raw, e)
+    valid = (ti_raw < e) & (to_raw < e)
+    start = shr.block_offset(mesh, pl, 1, tc)
+    spread = torch.remainder(torch.arange(start, start + tc,
+                                          device=ti.device), e)
+    ti_m = torch.where(valid, ti, spread)
+    to_m = torch.where(valid, to, spread)
+    vec_w, rbf_w = _whole(vec, split), _whole(rbf, split)
+    sph_k = torch.arange(cfg.n_spherical, device=ti.device)
+
+    def chunk_msg(rows, w_sbf, wr, i):
+        v_in = -vec_w.index_select(0, ti[i])               # j→k direction
+        v_out = vec_w.index_select(0, to[i])
+        cos_a = torch.sum(v_in * v_out, -1) / _max(
+            _chunk_norm(v_in + 1e-9, mesh, split)
+            * _chunk_norm(v_out + 1e-9, mesh, split), 1e-9)
+        angles = torch.arccos(_clip(cos_a, -1.0, 1.0))
+        sph = torch.cos(angles[:, None] * sph_k)
+        sbf = (sph[:, :, None] * rbf_w.index_select(0, ti[i]).float()[
+            :, None, :]).reshape(tc, -1).to(cfg.dtype)
+        basis = sbf @ w_sbf                               # [tc, n_bilinear]
+        outer = (basis[:, :, None] * rows[:, None, :]).reshape(tc, -1)
+        return torch.where(valid[i][:, None], outer @ wr, 0)
+
+    def aggregate(m_kj, bp):
+        d = m_kj.shape[1]
+        mkj = _whole(m_kj, split)                         # [E, d]
+        rows = _GatherRows.apply(mkj, ti_m.reshape(-1)).view(n_chunks, tc, d)
+        del mkj
+        w_sbf = _whole(bp["w_sbf"], split)
+        bilinear = _whole(bp["bilinear"], split)
+        wr = bilinear.transpose(0, 1).reshape(-1, d)      # [(b, d), d]
+        acc = rows.new_zeros((e, d))
+        for i, rows_i in enumerate(rows.unbind(0)):
+            acc.index_add_(0, to_m[i], _remat(chunk_msg, rows_i, w_sbf, wr,
+                                              i))
+        return _summed(acc, ti_all)
+
+    return aggregate
 
 
 # ---------------------------------------------------------------------------

@@ -76,6 +76,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.utils._pytree import tree_leaves
 
 from repro_torch.configs import get_arch
 from repro_torch.kernels.embed_bag.ops import embed_bag
@@ -130,6 +131,8 @@ for mesh_name, dims in (("1x1", (1, 1)), ("2x4", (2, 4))):
         with getattr(jax, "set_mesh", lambda m: m)(mesh):
             compiled = jax.jit(step_fn).lower(state, inputs).compile()
         res[f"{label}@{mesh_name}"] = analyze(compiled.as_text()).flops
+        res[f"{label}@{mesh_name}/temp"] = \
+            compiled.memory_analysis().temp_size_in_bytes
 mesh = make_production_mesh()
 for arch in production:
     base = get_arch(arch)
@@ -146,8 +149,9 @@ with open(out, "w") as f:
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    """{"<case>@<mesh>": the reference's per-card flops}, compiled in a
-    subprocess started first; the port's analyses run meanwhile."""
+    """{"<case>@<mesh>": the reference's per-card flops, and under
+    "<case>@<mesh>/temp" its temp bytes}, compiled in a subprocess started
+    first; the port's analyses run meanwhile."""
     tmp = tmp_path_factory.mktemp("hlo")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
                JAX_PLATFORMS="cpu")
@@ -307,6 +311,58 @@ def test_temp_of_a_chain():
     assert mode.live == 0            # every storage the chain made is gone
 
 
+def test_sharding_propagation_counts_nothing(world4, monkeypatch):
+    """softplus and its gradient on a row-split ``meta`` DTensor (64 rows
+    over 4 ranks). DTensor infers the placements of softplus's backward by
+    running its decomposition on ``meta`` tensors of the global shape,
+    outside any fake mode; none of that is counted: the peak, bytes,
+    flops and collectives are those of the same ops on the rank's 16
+    rows, no counted op makes a 64-row tensor, and the propagator's entry
+    points are put back after."""
+    made = []
+    allocated = ca.CostMode._allocated
+
+    def recording(self, out):
+        made.extend(tuple(t.shape) for t in tree_leaves(out)
+                    if isinstance(t, torch.Tensor))
+        allocated(self, out)
+    monkeypatch.setattr(ca.CostMode, "_allocated", recording)
+    prop = DTensor._op_dispatcher.sharding_propagator
+    entries = dict(vars(prop))
+
+    def counted(x):
+        with ca.counting() as mode:
+            mode.arguments(x)
+            y = torch.nn.functional.softplus(x)
+            torch.autograd.grad(y, x, torch.ones_like(y))
+        return (mode.peak, mode.cost.bytes_accessed, mode.cost.flops,
+                mode.cost.collective_bytes)
+    sharded = counted(dt(world4, (16, 64), (64, 64), (Shard(0),)
+                         ).requires_grad_())
+    assert made and set(made) == {(16, 64)}
+    assert vars(prop) == entries
+    assert sharded == counted(meta(16, 64).requires_grad_())
+    assert sharded[0] == 3 * 16 * 64 * 4     # y, the ones, the gradient
+
+
+def test_collective_wrapper_counts_as_its_input():
+    """The functional collectives' autograd wrapper of a result
+    (``_c10d_functional._wrap_tensor_autograd``) holds its input's
+    storage on the card but makes a new one on ``meta``: counted as the
+    input's, which stays live until the wrapper and its views are gone."""
+    mib = 1 << 20
+    wrap = torch.ops._c10d_functional._wrap_tensor_autograd
+    with ca.counting() as mode:
+        x = torch.ones(mib // 4, device="meta")
+        w = wrap(x)
+        v = w[:8]
+        assert mode.live == mode.peak == mib
+        del x, w
+        assert mode.live == mib
+        del v
+        assert mode.live == 0
+
+
 def test_embed_bag_counts_as_its_kernel():
     """On ``meta`` the wrapper runs its plain version; under the analysis
     that counts as the kernel's launch: indices, weights, table and result
@@ -438,6 +494,16 @@ def test_schnet_flops(reference):
     assert split == one / 2                 # rows over data, model idle
     rows = 3 * inter * node * (1 - 1 / 2) - 2 * inter * node * (1 / 2 - 1 / 8)
     assert near(port_flops(label, "2x4"), split + math / 2 + rows)
+
+
+def test_schnet_temp_at_or_under_reference(reference):
+    """SchNet's smoke train step on the (2, 4) mesh: the rows' split
+    halves the step's tables on each card, and the count holds no tensor
+    of DTensor's sharding propagation (softplus's backward is propagated
+    through its decomposition at the global shape), so its temp is at or
+    under the reference's."""
+    got = port_cell("schnet/train", "2x4")["memory_analysis"]
+    assert 0 < got["temp_size_in_bytes"] <= reference["schnet/train@2x4/temp"]
 
 
 def test_memory_analysis_keys():

@@ -30,6 +30,9 @@ first synthetic batch, which both packages draw bit-equal:
     ``data`` (``constrain=True``; the reference's constraints do not
     change its math, so its smoke cell is the reference), GAT with random
     attention vectors (``test_torch_gnn._train_params``), from step 5000;
+    and DimeNet's again with its triplets in two chunks, ``_pick_chunks``
+    patched on both sides (the port sums the chunks' scatters on each
+    rank before one reduction a block, the reference reduces each chunk);
   * DIEN's smoke train cell with its tables' rows split over ``model``
     (the ``embed_bag`` kernel's plain version on the rank's rows), from
     step 250;
@@ -72,6 +75,7 @@ from repro.configs import get_arch as jax_get_arch
 from repro.launch.mesh import make_host_mesh as jax_host_mesh
 from repro.launch.train import synthetic_batches as jax_batches
 from repro.models import dien as jd
+from repro.models import gnn as jg
 from repro.models import transformer as jt
 from repro.optim.adamw import adamw_init as jax_adamw_init
 from repro.optim.adamw import adamw_update as jax_adamw_update
@@ -91,8 +95,8 @@ from test_torch_lm_cells import moments
 from test_torch_transformer import (assert_close, flat_reference_tree,
                                     reference_params, scaled_err)
 from test_torch_transformer import one_torch_thread  # noqa: F401 (autouse)
-from torch_mesh_ranks import (DECODE_LEN, DECODE_STEPS, FIELDS, GNN_ARCHS,
-                              LM_SHAPE, PREFILL_FIELDS)
+from torch_mesh_ranks import (DECODE_LEN, DECODE_STEPS, DIMENET_CHUNKS,
+                              FIELDS, GNN_ARCHS, LM_SHAPE, PREFILL_FIELDS)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 WORLD = 8
@@ -304,7 +308,7 @@ def _named_tree(tree) -> dict:
 @functools.cache
 def reference_cell_step(case: str):
     """The reference's smoke train cell (GNN or DIEN): one step from the
-    case's start."""
+    case's start; ``gnn/<arch>@<k>`` with its triplets in k chunks."""
     if case == "dien":
         base = jax_get_arch("dien")
         spec = dataclasses.replace(base, shapes={"smoke": DIEN_SHAPE})
@@ -312,7 +316,7 @@ def reference_cell_step(case: str):
         cfg = spec.make_smoke_config()
         tree = jd.dien_init(cfg, jax.random.key(0))
     else:
-        arch = case.removeprefix("gnn/")
+        arch, _, chunks = case.removeprefix("gnn/").partition("@")
         base = jax_get_arch(arch)
         cfg = base.make_smoke_config()
         shape = smoke_spec(get_arch(arch), get_arch(arch).make_smoke_config()
@@ -325,7 +329,14 @@ def reference_cell_step(case: str):
     opt = jax_adamw_init(tree)
     opt["step"] = jnp.int32(start)
     _, batch = next(jax_batches(spec, spec.shapes["smoke"], cfg))
-    state, metrics = jax.jit(step_fn)({"params": tree, "opt": opt}, batch)
+    pick = jg._pick_chunks
+    if case != "dien" and chunks:
+        jg._pick_chunks = lambda t, target: int(chunks)
+    try:
+        state, metrics = jax.jit(step_fn)({"params": tree, "opt": opt},
+                                          batch)
+    finally:
+        jg._pick_chunks = pick
     leaves = {"p": _named_tree(state["params"]),
               "m": _named_tree(state["opt"]["m"]),
               "v": _named_tree(state["opt"]["v"])}
@@ -424,6 +435,14 @@ def _hold_cell(ranks, case):
 @pytest.mark.parametrize("arch", GNN_ARCHS)
 def test_gnn_train_step_eight_ranks(ranks, arch):
     _hold_cell(ranks, f"gnn/{arch}")
+
+
+def test_dimenet_chunked_train_step_eight_ranks(ranks):
+    """DimeNet with its triplets in ``DIMENET_CHUNKS`` chunks: each rank
+    gathers the edge states and reduces the aggregate once a block, the
+    chunks' scatters summed on the rank first; the step stays within the
+    GNN tolerances of the reference, which reduces each chunk."""
+    _hold_cell(ranks, f"gnn/dimenet@{DIMENET_CHUNKS}")
 
 
 def test_dien_train_step_eight_ranks(ranks):
@@ -592,3 +611,36 @@ def test_dimenet_chunk_count_not_divided_by_the_data_axis(monkeypatch):
     assert got["cost"].flops > 0
     assert got["cost"].per_collective["all-gather"] > 0
     assert not dist.is_initialized()
+
+
+def test_dimenet_collectives_once_a_block(monkeypatch):
+    """DimeNet's smoke step on a (4, 2) mesh (a fake world of 8, on
+    ``meta``) in one and in four triplet chunks: the edge states are
+    gathered and the aggregate reduced once a block, so the reductions
+    do not grow with the chunk count, and the gathers grow only by the
+    triplet ids' (gathered whole once a step to be cut into chunks: two
+    int32 tables, T / 4 entries a rank). Each further chunk adds only the
+    all-reduces of its angle's two norms (3 column sums each), at most
+    three times a block (the forward, the block's replay, the chunk's)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch.cost_analysis import analyze_cell
+    base = get_arch("dimenet")
+    cfg = base.make_smoke_config()
+    spec = smoke_spec(base, cfg)
+    n_trip = 4 * spec.shapes["smoke"]["n_edges"]
+    got = {}
+    for chunks in (1, 4):
+        monkeypatch.setattr(tg, "_pick_chunks",
+                            lambda t, _target, k=chunks: k)
+        with fake_world(8):
+            mesh = DeviceMesh("cpu", torch.arange(8).reshape(4, 2),
+                              mesh_dim_names=("data", "model"))
+            got[chunks] = analyze_cell(spec, "smoke", mesh,
+                                       smoke=True)["cost"].per_collective
+    one, four = got[1], got[4]
+    assert four["reduce-scatter"] == one["reduce-scatter"] > 0
+    assert four["all-gather"] == one["all-gather"] + 2 * (n_trip // 4) * 4
+    norms = (4 - 1) * 3 * cfg.n_blocks * 2 * 3 * 4
+    assert one["all-reduce"] <= four["all-reduce"] <= \
+        one["all-reduce"] + norms

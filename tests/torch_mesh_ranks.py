@@ -23,7 +23,9 @@ new parameters, m and v gathered whole (rank 0):
   * ``moonshot_prefill``: its prefill cell on the same weights, batch axes
     and expert axis set (the logits, ``<case>/logits``);
   * ``gnn/<arch>``: the four GNN smoke train cells with their rows
-    constrained over ``data``;
+    constrained over ``data``; ``gnn/dimenet@2`` DimeNet's again with its
+    triplets in ``DIMENET_CHUNKS`` chunks (``_pick_chunks`` patched), from
+    ``gnn/dimenet``'s starting state;
   * ``dien``: DIEN's smoke train cell, tables row-split over ``model``;
   * ``decode/<batch>``: qwen3's decode cell, three steps from an empty
     cache of 16 positions (batch 4: batch over ``data``, positions over
@@ -46,6 +48,7 @@ FIELDS = {"qwen3": ("qwen3-1.7b", {}),
           "minicpm": ("minicpm-2b", TRAIN_FIELDS)}
 PREFILL_FIELDS = dict(act_batch_axes=("data",), moe_expert_axis="model")
 GNN_ARCHS = ("gat-cora", "schnet", "dimenet", "meshgraphnet")
+DIMENET_CHUNKS = 2
 DECODE_LEN = 16
 DECODE_STEPS = 3
 
@@ -107,12 +110,31 @@ def train_case(res, rank, case, spec, cfg, step_fn, state):
     res[f"{case}/step"] = np.array(int(state["opt"]["step"]))
 
 
+def gnn_case(res, rank, data, mesh, arch: str, case: str) -> None:
+    """``arch``'s smoke train cell, rows constrained over ``data``, from
+    the job's ``gnn/<arch>`` state; results under ``case``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.launch.train import smoke_spec
+    from repro_torch.models import gnn as tg
+    from repro_torch.train import step as ts
+    base = get_arch(arch)
+    spec = smoke_spec(base, base.make_smoke_config())
+    cfg = ts.gnn_cell_config(arch, spec.make_smoke_config(),
+                             spec.shapes["smoke"])
+    step_fn, _, _ = ts.gnn_train_cell(arch, cfg, spec.shapes["smoke"],
+                                      device=torch.device("cpu"),
+                                      mesh=mesh, constrain=True)
+    state = start_state(data, f"gnn/{arch}", tg.GNNParams,
+                        shr.gnn_param_specs, mesh)
+    train_case(res, rank, case, spec, cfg, step_fn, state)
+
+
 def main(rank: int, world: int, store: str, job: str, out: str) -> None:
     torch.set_num_threads(1)
     from repro_torch.configs import get_arch
     from repro_torch.distributed import sharding as shr
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.train import smoke_spec
     from repro_torch.models import dien as td
     from repro_torch.models import gnn as tg
     from repro_torch.models import transformer as tt
@@ -163,18 +185,17 @@ def main(rank: int, world: int, store: str, job: str, out: str) -> None:
     res["moonshot_prefill/logits"] = step_fn(params, {"tokens": tokens}
                                              ).numpy()
 
-    # The GNN cells, rows constrained over the data axis.
+    # The GNN cells, rows constrained over the data axis; DimeNet again
+    # with its triplets in chunks.
     for arch in GNN_ARCHS:
-        base = get_arch(arch)
-        spec = smoke_spec(base, base.make_smoke_config())
-        cfg = ts.gnn_cell_config(arch, spec.make_smoke_config(),
-                                 spec.shapes["smoke"])
-        step_fn, _, _ = ts.gnn_train_cell(arch, cfg, spec.shapes["smoke"],
-                                          device=torch.device("cpu"),
-                                          mesh=mesh, constrain=True)
-        state = start_state(data, f"gnn/{arch}", tg.GNNParams,
-                            shr.gnn_param_specs, mesh)
-        train_case(res, rank, f"gnn/{arch}", spec, cfg, step_fn, state)
+        gnn_case(res, rank, data, mesh, arch, f"gnn/{arch}")
+    pick = tg._pick_chunks
+    tg._pick_chunks = lambda t, target: DIMENET_CHUNKS
+    try:
+        gnn_case(res, rank, data, mesh, "dimenet",
+                 f"gnn/dimenet@{DIMENET_CHUNKS}")
+    finally:
+        tg._pick_chunks = pick
 
     # DIEN's train cell, its tables' rows over the model axis.
     base = get_arch("dien")
