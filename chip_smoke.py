@@ -252,7 +252,9 @@ Phases, in order; any failure raises and the script exits non-zero:
         right after the build, on the host's CPU at the lowest priority
         beside the phases before), every one of the 80 cells ok, one
         ``{"dryrun": ...}`` line each with its per-card GB, its counted
-        TFLOP, collective GB (by kind) and temp GB a card for one step;
+        TFLOP, collective GB (by kind) and temp GB a card for one step,
+        each LM decode cell's TFLOP at or under the reference's, no GNN
+        cell over 80 GB a card;
      o. the sharded cells (``build_cell(..., mesh)``: state and inputs as
         DTensors placed by ``distributed.sharding``): a. on a world-1 NCCL
         ``("data", "model")`` mesh against the same cell with no mesh, the
@@ -262,19 +264,32 @@ Phases, in order; any failure raises and the script exits non-zero:
         rate, loss, grad norm and every updated master weight compared
         (1e-5 of scale; GAT and DIEN also 1e-5 absolute and relative), ms a
         step both ways, peak GB, DIEN's embed_bag launches on the mesh path
-        (> 0); moonshot's prefill_32k at batch 2 (reduced: the largest that
-        fits beside its 56.1 GB of weights), the mesh path through
-        ``moe_block_shard_map``, logits within 1e-5 of scale; b. eight
-        processes of this script (``--mesh-cells``), gloo on the host's
-        CPU, on the (2, 4) mesh beside one at world 1: the smoke train step
-        of qwen3-1.7b, moonshot (its three mesh fields set, capacity factor
-        8 so no token is dropped), minicpm-2b (a full train cell's batch
-        and sequence fields: 2 head blocks × 2 query blocks), GAT and DIEN,
-        every rank's loss and grad
-        norm and the gathered state within the float tolerances of the
-        world-1 run's; c. ``launch.train.main`` for gat-cora and DIEN
-        through its mesh cell (world-1 NCCL), 2 steps then 3, resuming at
-        2; d. ``launch.cost_analysis.analyze_cell`` on a's four cells at
+        (> 0); moonshot's prefill_32k at batch 2 and 12 of its 48 layers
+        (reduced: batch 2 is the largest that fits beside all 56.1 GB of
+        its weights; the layers for the time limit), the mesh path through
+        ``moe_block_shard_map``, logits within 1e-5 of scale; llama3.2-1b's
+        long_500k decode (batch 1, 524,288 cached positions, full width)
+        through the sharded decode step, LM_DECODE_STEPS + 2 steps from
+        the same seeded cache, logits within 1e-5 of scale and the caches
+        compared, ms a token both ways, the split it took (at world 1 a
+        batch of 1 fills the data axis, so the rows go over data and the
+        positions over model, decode_32k's split; b runs long_500k's);
+        b. eight processes of this script (``--mesh-cells``), gloo on the
+        host's CPU, on the (2, 4) mesh beside one at world 1: the smoke
+        train step of qwen3-1.7b, moonshot (its three mesh fields set,
+        capacity factor 8 so no token is dropped), minicpm-2b (a full
+        train cell's batch and sequence fields: 2 head blocks × 2 query
+        blocks), GAT and DIEN, every rank's loss and grad norm and the
+        gathered state within the float tolerances of the world-1 run's;
+        then the smoke decode step (MESH_CELL_RANK_DECODE) of llama3.2-1b
+        and minicpm-2b at batch 1 (the positions over data, the heads over
+        model; minicpm's 6 heads in 2 head blocks, each over 2 position
+        ranges) and moonshot at batch 1 and 4 (the MoE decode), 3 steps
+        from a seeded cache, every rank's logits within 1e-5 of scale of
+        the world-1 run's and moonshot's routing (experts, slots, drops,
+        capacity) bit-equal to it; c. ``launch.train.main`` for gat-cora
+        and DIEN through its mesh cell (world-1 NCCL), 2 steps then 3,
+        resuming at 2; d. ``launch.cost_analysis.analyze_cell`` on a's four cells at
         their cuts, on a fake world of one (a process without the card):
         the predicted peak (arguments + temp) within 25 % of the mesh
         step's measured peak (``torch.cuda.max_memory_allocated`` above
@@ -2995,13 +3010,19 @@ def lm_serve_cli(torch, dev, card, counted) -> dict:
 
 def reduced_spec(arch, shape_name, **changes):
     """``(spec, name)``: the arch with one cell, ``shape_name``'s shape with
-    ``changes`` (a reduced batch), under a name of its own (so
-    ``build_cell`` builds it on the card)."""
+    ``changes`` (a reduced batch; ``layers``, if given, cuts the config's
+    depth), under a name of its own (so ``build_cell`` builds it on the
+    card)."""
     from repro_torch.configs import get_arch
     base = get_arch(arch)
-    shape = dict(base.shapes[shape_name], **changes)
     name = shape_name + "".join(f"/{k}{v}" for k, v in changes.items())
-    return dataclasses.replace(base, shapes={name: shape}), name
+    layers = changes.pop("layers", None)
+    spec = dataclasses.replace(
+        base, shapes={name: dict(base.shapes[shape_name], **changes)})
+    if layers is not None:
+        cfg = dataclasses.replace(base.make_config(), n_layers=layers)
+        spec = dataclasses.replace(spec, make_config=lambda: cfg)
+    return spec, name
 
 
 def lm_decode_line(torch, dev, arch, shape_name, card, counted,
@@ -3387,6 +3408,20 @@ COMPRESS_SLICE = 1 << 26
 # priority, so the phases that run meanwhile keep the cores they use.
 DRYRUN_JOBS = 6
 DRYRUN_TIMEOUT_S = 1000
+# The reference's per-card GFLOP of the decode cells, from ``python -m
+# repro.launch.dryrun --arch A --shape S [--multi-pod]`` (``hlo_parsed``,
+# XLA's compile on a CPU, jax 0.4.37): (16x16, 2x16x16).
+DRYRUN_REF_GFLOP = {
+    "llama3.2-1b__decode_32k": (3.383230464, 1.691615232),
+    "llama3.2-1b__long_500k": (0.422903808, 0.28868608),
+    "qwen3-1.7b__decode_32k": (5.4788096, 2.7394048),
+    "qwen3-1.7b__long_500k": (0.6848512, 0.449970176),
+    "minicpm-2b__decode_32k": (8.76478464, 4.38239232),
+    "minicpm-2b__long_500k": (3.36052224, 1.8505728),
+    "moonshot-v1-16b-a3b__decode_32k": (11.005853696, 7.163871232),
+    "moonshot-v1-16b-a3b__long_500k": (2.47595008, 2.073296896),
+    "dbrx-132b__decode_32k": (59.944992768, 49.790582784),
+    "dbrx-132b__long_500k": (9.973334016, 8.966701056)}
 GNN_DRYRUN_ARCHS = ("gat-cora", "schnet", "dimenet", "meshgraphnet")
 
 
@@ -3800,7 +3835,8 @@ def mesh_dryrun(card, job: dict) -> list:
     ``start_cost_jobs``; no card: the fake process group of 256 or 512
     ranks), every cell ok, one line per cell with its per-card GB, and
     its analysis: TFLOP, collective GB by kind and temp GB a card for one
-    step, and the peak (arguments + temp)."""
+    step, and the peak (arguments + temp); each decode cell's TFLOP at or
+    under the reference's (DRYRUN_REF_GFLOP)."""
     rc, text, wall = wait_job(job, DRYRUN_TIMEOUT_S, "the dry run")
     check(rc == 0 and "all 80 cells OK" in text,
           f"the dry run failed ({rc}):\n{text[-3000:]}")
@@ -3827,6 +3863,13 @@ def mesh_dryrun(card, job: dict) -> list:
                       "peak_gb": (b["total"] + mem["temp_size_in_bytes"])
                       / 1e9,
                       "analyze_s": res["timings_s"]["analyze"]})
+        ref = DRYRUN_REF_GFLOP.get(f"{res['arch']}__{res['shape']}")
+        if ref is not None:
+            want = round(ref[res["mesh"] != "16x16"] * 1e9)
+            lines[-1]["ref_tflop_per_device"] = want / 1e12
+            check(c["flops"] <= want,
+                  f"dry run cell {path.stem}: {c['flops']:.6e} flops a "
+                  f"card against the reference's {want:.6e}")
     check(len(lines) == 80, f"{len(lines)} dry run cells, want 80")
     over = sorted(ln["dryrun"] for ln in lines if ln["peak_gb"] > 80)
     # SchNet's and DimeNet's ogb_products fit since the analysis leaves
@@ -3894,7 +3937,13 @@ def mesh_phase(torch, dev, card, counted, dryrun_job) -> tuple:
 MESH_CELL_TRAIN = (("llama3.2-1b", "train_4k", {"batch": 4}),
                    ("gat-cora", "minibatch_lg", {}),
                    ("dien", "train_batch", {}))
-MESH_CELL_PREFILL = ("moonshot-v1-16b-a3b", "prefill_32k", {"batch": 2})
+# moonshot's prefill at 12 of its 48 layers: a call at all 48 took 33 s
+# on the card, three calls a third of phase 5o.
+MESH_CELL_PREFILL = ("moonshot-v1-16b-a3b", "prefill_32k",
+                     {"batch": 2, "layers": 12})
+# Phase 5o a's decode line: llama3.2-1b's long_500k, unreduced, through
+# the sharded decode step against 5m b's no-mesh decode.
+MESH_CELL_DECODE = ("llama3.2-1b", "long_500k")
 MESH_CELL_START = {"lm": 1999, "gnn": 5000, "recsys": 250}
 MESH_CELL_TIMED = 2
 MESH_CELL_TOL = 1e-5
@@ -3915,6 +3964,18 @@ MESH_CELL_RANK_FIELDS = {
                                 moe_expert_axis="model"),
     "minicpm-2b": dict(act_batch_axes=("data",), act_seq_axis="model")}
 MESH_CELL_NO_DROP = 8.0
+# ... then the smoke decode step of each (arch, batch) on a cache of
+# MESH_CELL_DECODE_LEN positions, seeded normals up to ``len``
+# MESH_CELL_DECODE_FILLED (every rank's position block holds entries),
+# MESH_CELL_DECODE_STEPS steps: batch 1 takes long_500k's split on the
+# (2, 4) mesh (the positions over data, the heads over model), batch 4
+# decode_32k's.
+MESH_CELL_RANK_DECODE = (("llama3.2-1b", 1), ("minicpm-2b", 1),
+                         ("moonshot-v1-16b-a3b", 1),
+                         ("moonshot-v1-16b-a3b", 4))
+MESH_CELL_DECODE_LEN = 16
+MESH_CELL_DECODE_FILLED = 12
+MESH_CELL_DECODE_STEPS = 3
 # Phase 5o d: launch.cost_analysis on a's cells against what a measured:
 # the predicted peak memory of a step within COST_PEAK_TOL of the mesh
 # step's, the counted flops within COST_FLOP_TOL of the profiler's count
@@ -4147,6 +4208,112 @@ def mesh_cell_prefill(torch, dev, card, counted, mesh) -> tuple:
     return line, counts
 
 
+def cache_split(mesh, placements) -> dict:
+    """What each mesh dim splits of a [L, B, Hkv, S, Dh] cache placed by
+    ``placements``: ``rows``, ``positions`` or nothing (``replicated``;
+    the decode step's model ranks then split the heads)."""
+    what = {1: "rows", 3: "positions"}
+    return {n: what[p.dim] if p.is_shard() else "replicated"
+            for n, p in zip(mesh.mesh_dim_names, placements)}
+
+
+def mesh_cell_decode(torch, dev, card, counted, mesh) -> tuple:
+    """Phase 5o a: MESH_CELL_DECODE with no mesh and on the world-1
+    ``mesh`` (the sharded decode step: every product on the rank's
+    blocks), the same seed-0 weights, a cache of the same seeded normals
+    and ``len`` set so LM_DECODE_STEPS + 2 steps of the same tokens attend
+    to the whole cache: each step's logits within MESH_CELL_TOL of scale,
+    the K and V the steps wrote likewise, ms a token both ways (the first
+    step left out, the last run under torch's sync debug mode for its
+    host syncs), the split the mesh step took (``cache_split``: at world
+    1 the batch of 1 fills the data axis, so decode_32k's split; 5o b runs
+    long_500k's). ``(line, counts)``."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.step import build_cell
+    arch, shape_name = MESH_CELL_DECODE
+    spec, name = reduced_spec(arch, shape_name)
+    shape = spec.shapes[name]
+    cfg = spec.make_config()
+    b, s = shape["batch"], shape["seq"]
+    first = s - LM_DECODE_STEPS - 2
+
+    def seeded_cache(gen):
+        cache = tfm.init_kv_cache(cfg, b, s, device=dev)
+        for layer in (*cache["k"], *cache["v"]):
+            layer.normal_(generator=gen)
+        cache["len"] = first
+        return cache
+
+    out = {}
+    for way, m in (("plain", None), ("mesh", mesh)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step_fn, params, _ = build_cell(spec, name, m, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        batch = {"cache": seeded_cache(gen)}
+        toks = torch.randint(0, cfg.vocab, (LM_DECODE_STEPS + 2, b),
+                             generator=gen, device=dev, dtype=torch.int32)
+        logits, ms, total = [], [], {}
+        for i, tok in enumerate(toks):
+            batch["token"] = tok
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == len(toks) - 1:
+                ((lg, batch["cache"]), counts), syncs = host_syncs(
+                    torch, lambda: counted(lambda: step_fn(params, batch)))
+            else:
+                (lg, batch["cache"]), counts = counted(
+                    lambda: step_fn(params, batch))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(lg)
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+        cache = batch.pop("cache")
+        check(cache["len"] == s, f"{arch}/{name}: cache len {cache['len']}")
+        if m is not None:
+            split = cache_split(m, cache["k"].placements)
+        written = {k: (cache[k].to_local() if m is not None else cache[k])
+                   [:, :, :, first:].clone() for k in ("k", "v")}
+        out[way] = {"logits": logits, "written": written, "ms": ms[:-1],
+                    "counts": total, "host_syncs": syncs,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del step_fn, params, cache, toks, batch
+    errs, equal = [], True
+    for i, (got, want) in enumerate(zip(out["mesh"]["logits"],
+                                        out["plain"]["logits"])):
+        check(bool(torch.isfinite(want).all())
+              and want.shape == (b, cfg.vocab),
+              f"{arch}/{name}: logits {tuple(want.shape)}")
+        errs.append(scaled_err(torch, got, want, MESH_CELL_TOL,
+                               f"{arch}/{name}: mesh logits, step {i}"))
+        equal = equal and bool(torch.equal(got, want))
+    cache_errs = {k: scaled_err(torch, out["mesh"]["written"][k],
+                                out["plain"]["written"][k], MESH_CELL_TOL,
+                                f"{arch}/{name}: the mesh step's {k}")
+                  for k in ("k", "v")}
+    line = {"mesh_cell": f"{arch}/{shape_name}", "card": card,
+            "reduced": None, "mesh": "1x1 nccl", "kind": "decode",
+            "batch": b, "cache_len": s, "split": split, "steps": len(errs),
+            "bit_equal": equal, "logits_max_scaled_err": max(errs),
+            "cache_written_scaled_err": cache_errs,
+            "cache_written_bit_equal": all(
+                bool(torch.equal(out["mesh"]["written"][k],
+                                 out["plain"]["written"][k]))
+                for k in ("k", "v")),
+            "ms_per_token": {w: statistics.median(out[w]["ms"][1:])
+                             for w in out},
+            "first_ms": {w: out[w]["ms"][0] for w in out},
+            "host_syncs_per_step": {w: out[w]["host_syncs"] for w in out},
+            "peak_gb": {w: out[w]["peak_gb"] for w in out},
+            "launches": {k: v for k, v in out["mesh"]["counts"].items()
+                         if v}}
+    counts = out["mesh"]["counts"]
+    del out
+    torch.cuda.empty_cache()
+    return line, counts
+
+
 def mesh_rank_cell(torch, arch, mesh) -> dict:
     """One smoke train step of ``arch`` on ``mesh`` (CPU tensors) for
     phase 5o b: the seed-0 weights (GAT's attention vectors drawn from
@@ -4206,11 +4373,67 @@ def mesh_rank_cell(torch, arch, mesh) -> dict:
     return out
 
 
+def mesh_rank_decode(torch, arch, batch, mesh) -> dict:
+    """The smoke decode step of ``arch`` (float32) at ``batch`` on
+    ``mesh`` (CPU tensors) for phase 5o b: the seed-0 weights placed by
+    ``lm_param_specs``, a cache of seeded normals at ``len``
+    MESH_CELL_DECODE_FILLED, MESH_CELL_DECODE_STEPS steps of seeded
+    tokens; each step's logits, the cache's split (``cache_split``) and,
+    for an MoE, each routing call's gathered logits and results."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.step import build_cell
+    base = get_arch(arch)
+    cfg = dataclasses.replace(base.make_smoke_config(), dtype=torch.float32)
+    spec = dataclasses.replace(
+        base, shapes={"smoke": dict(kind="decode", batch=batch,
+                                    seq=MESH_CELL_DECODE_LEN)},
+        make_smoke_config=lambda: cfg)
+    step_fn, _, _ = build_cell(spec, "smoke", mesh, smoke=True, device="cpu")
+    _, params, _ = build_cell(spec, "smoke", smoke=True, device="cpu")
+    params = shr.place_tree(params, shr.flat_specs(
+        shr.lm_param_specs(cfg, mesh, fsdp=spec.fsdp)), mesh)
+    gen = torch.Generator().manual_seed(7)
+    cache = tfm.init_kv_cache(cfg, batch, MESH_CELL_DECODE_LEN,
+                              device="cpu")
+    for k in ("k", "v"):
+        cache[k].normal_(generator=gen)
+    cache["len"] = MESH_CELL_DECODE_FILLED
+    toks = torch.randint(0, cfg.vocab, (MESH_CELL_DECODE_STEPS, batch),
+                         generator=gen, dtype=torch.int32)
+    route, routes = tfm.route_logits, []
+
+    def recording(logits, c):
+        got = route(logits, c)
+        routes.append((logits.clone(), got))
+        return got
+    out = {}
+    tfm.route_logits = recording
+    try:
+        for i, tok in enumerate(toks):
+            logits, cache = step_fn(params, {"token": tok, "cache": cache})
+            out[f"{i}"] = logits.numpy()
+    finally:
+        tfm.route_logits = route
+    out["split"] = np.array(json.dumps(cache_split(mesh,
+                                                   cache["k"].placements)))
+    for i, (lg, (_g, top_e, pos, keep, cap)) in enumerate(routes):
+        out.update({f"route/{i}/logits": lg.numpy(),
+                    f"route/{i}/top_e": top_e.numpy(),
+                    f"route/{i}/pos": pos.numpy(),
+                    f"route/{i}/keep": keep.numpy(),
+                    f"route/{i}/cap": np.array(cap)})
+    return out
+
+
 def mesh_cells_rank_main(args) -> int:
     """One process of phase 5o b (CPU tensors, gloo, rendezvous through a
     FileStore): the smoke step of each of MESH_CELL_RANK_ARCHS on the (2,
-    world / 2) ``("data", "model")`` mesh, or at world 1 on (1, 1); writes
-    ``rank<R>.npz`` (every rank its loss and grad norm, rank 0 also the
+    world / 2) ``("data", "model")`` mesh, or at world 1 on (1, 1), then
+    each decode case of MESH_CELL_RANK_DECODE; writes ``rank<R>.npz``
+    (every rank its loss, grad norm and decode results, rank 0 also the
     gathered state)."""
     import numpy as np
     import torch
@@ -4231,6 +4454,10 @@ def mesh_cells_rank_main(args) -> int:
             for k, v in res.items():
                 if args.mesh_rank == 0 or k in ("loss", "grad_norm"):
                     out[f"{arch}/{k}"] = v
+        for arch, batch in MESH_CELL_RANK_DECODE:
+            res = mesh_rank_decode(torch, arch, batch, mesh)
+            out.update({f"decode/{arch}/{batch}/{k}": v
+                        for k, v in res.items()})
         np.savez(pathlib.Path(args.mesh_out) / f"rank{args.mesh_rank}.npz",
                  **out)
         dist.barrier()
@@ -4244,7 +4471,12 @@ def mesh_cell_ranks(torch, card) -> dict:
     mesh beside one at world 1, all on the host's CPU (no card: there is no
     JAX on this machine, so the world-1 run is the reference): every
     rank's loss and grad norm, and rank 0's gathered master weights, m and
-    v, within the float tolerances of the world-1 run's."""
+    v, within the float tolerances of the world-1 run's; every rank's
+    decode logits within MESH_CELL_TOL of scale of the world-1 run's,
+    batch 1 split as long_500k (the model dim holding no cache split) and
+    batch 4 as decode_32k, every rank's gathered router logits equal to
+    rank 0's, and the routing (experts, slots, drops, capacity) of every
+    layer and step bit-equal to the world-1 run's."""
     import numpy as np
 
     from repro_torch.configs import get_arch
@@ -4306,13 +4538,52 @@ def mesh_cell_ranks(torch, card) -> dict:
                     torch, g, w, MESH_CELL_TOL if lm or "master" in key
                     else MESH_CELL_SCALED_TOL["gnn"], f"{key} (8 ranks)"))
         arch_errs[arch] = worst
+    decode_errs, splits, route_calls = {}, {}, {}
+    for arch, batch in MESH_CELL_RANK_DECODE:
+        tag, cfg = f"decode/{arch}/{batch}", get_arch(arch).make_smoke_config()
+        calls = {k.split("/")[4] for k in want
+                 if k.startswith(f"{tag}/route/")}
+        check(len(calls) == (cfg.n_layers * MESH_CELL_DECODE_STEPS
+                             if cfg.is_moe else 0),
+              f"{tag}: {len(calls)} routing calls")
+        splits[f"{arch}/{batch}"] = split = json.loads(
+            str(runs[MESH_CELL_RANKS][0][f"{tag}/split"]))
+        check(split == ({"data": "positions", "model": "replicated"}
+                        if batch == 1 else
+                        {"data": "rows", "model": "positions"}),
+              f"{tag}: split {split} on the (2, 4) mesh")
+        worst = 0.0
+        for r, res in enumerate(runs[MESH_CELL_RANKS]):
+            for i in range(MESH_CELL_DECODE_STEPS):
+                w = torch.from_numpy(want[f"{tag}/{i}"])
+                check(w.shape == (batch, cfg.vocab)
+                      and bool(torch.isfinite(w).all()),
+                      f"{tag} step {i}: world-1 logits {tuple(w.shape)}")
+                worst = max(worst, scaled_err(
+                    torch, torch.from_numpy(res[f"{tag}/{i}"]), w,
+                    MESH_CELL_TOL, f"{tag} step {i} rank {r} (8 ranks)"))
+            for c in calls:
+                rt = f"{tag}/route/{c}"
+                check(np.array_equal(
+                    res[f"{rt}/logits"],
+                    runs[MESH_CELL_RANKS][0][f"{rt}/logits"]),
+                      f"{rt}: rank {r}'s router logits differ from rank 0's")
+                for name in ("top_e", "pos", "keep", "cap"):
+                    check(np.array_equal(res[f"{rt}/{name}"],
+                                         want[f"{rt}/{name}"]),
+                          f"{rt}: rank {r}'s {name} differs from world 1's")
+        decode_errs[f"{arch}/{batch}"] = worst
+        route_calls[f"{arch}/{batch}"] = len(calls)
     return {"mesh_cell_ranks": MESH_CELL_RANKS, "mesh": "2x4 gloo (CPU)",
             "torch": torch.__version__, "archs": list(MESH_CELL_RANK_ARCHS),
             "moonshot_capacity_factor": MESH_CELL_NO_DROP,
             "loss": {a: float(want[f"{a}/loss"])
                      for a in MESH_CELL_RANK_ARCHS},
-            "max_scaled_err_vs_world1": arch_errs, "seconds": wall,
-            "card": card}
+            "max_scaled_err_vs_world1": arch_errs,
+            "decode_split": splits,
+            "decode_max_scaled_err_vs_world1": decode_errs,
+            "decode_routing_calls_bit_equal": route_calls,
+            "seconds": wall, "card": card}
 
 
 def mesh_train_cli(torch, card, counted) -> tuple:
@@ -4491,9 +4762,13 @@ def mesh_cells_phase(torch, dev, card, counted, cost_job) -> tuple:
         line, counts = mesh_cell_prefill(torch, dev, card, counted, mesh)
         add(counts)
         lines.append(line)
+        decode_line, counts = mesh_cell_decode(torch, dev, card, counted,
+                                               mesh)
+        add(counts)
     finally:
         dist.destroy_process_group()
     cell_lines = list(lines)
+    lines.append(decode_line)
     lines.append(mesh_cell_ranks(torch, card))
     cli_lines, counts = mesh_train_cli(torch, card, counted)
     add(counts)

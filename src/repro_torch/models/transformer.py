@@ -64,7 +64,13 @@ parameters and the tokens are DTensors placed by
     ``moe_expert_axis`` set ``moe_block_shard_map`` on the blocks of the
     reference's ``shard_map`` specs. Without it the MoE routes the whole
     token table on every rank, as the reference's unsharded routing does,
-    and its expert products are DTensor ops on the constrained buckets.
+    and its expert products are DTensor ops on the constrained buckets;
+  * the decode step runs each layer on the rank's rows and weight blocks
+    as plain tensors with its collectives written out (``DecodeSplit``):
+    every product on the rank's share, the attention on its heads
+    (``HeadSplit`` where the positions lie over the data axes) and cache
+    block, the MoE's router, experts and dispatch on its share, routed
+    over the whole token table.
 ``set_lm_mesh`` keeps the mesh handle that turns on the expert-parallel
 path, as in the reference.
 """
@@ -487,11 +493,16 @@ def moe_route(x: torch.Tensor, router_w: torch.Tensor, cfg: LMConfig):
     the flattened [T·k, E] one-hot in (token, slot) order, which also
     decides the dropped ones (``keep = pos < cap``). ``cap``, each expert's
     bucket rows for the ``T`` tokens, is rounded up to a multiple of 8."""
-    t = x.shape[0]
+    return route_logits(x.float() @ router_w.float(), cfg)
+
+
+def route_logits(logits: torch.Tensor, cfg: LMConfig):
+    """``moe_route`` from the float32 router logits [T, E] of the whole
+    token table."""
+    t = logits.shape[0]
     e, k = cfg.n_experts, cfg.top_k
     cap = int(max(1, round(t * k / e * cfg.capacity_factor)))
     cap = -(-cap // 8) * 8
-    logits = x.float() @ router_w.float()
     gates = torch.softmax(logits, dim=-1)               # [T, E]
     top_g, top_e = torch.topk(gates, k, dim=-1)         # [T, k]
     top_g = top_g / torch.clamp_min(top_g.sum(-1, keepdim=True), 1e-9)
@@ -805,15 +816,6 @@ def _qkv(cfg: LMConfig, h, lp, positions):
         k = rms_norm(k, lp["k_norm"])
     return rope(q, positions, cfg.rope_theta), \
         rope(k, positions, cfg.rope_theta), v
-
-
-def _heads(cfg: LMConfig, h, w, n: int, pl):
-    """This rank's block [b, s, n_l, Dh] of the heads ``h @ w`` (DTensor h
-    [B, S, d]): the product placed at ``pl`` first (whole heads a rank),
-    then viewed as heads."""
-    b, s, _ = h.shape
-    t = (h @ w).redistribute(h.device_mesh, pl)
-    return shr.local(t.reshape(b, s, n, cfg.d_head), pl)
 
 
 # ---------------------------------------------------------------------------
@@ -1195,54 +1197,272 @@ def _decode_attention(cfg: LMConfig, h, lp, ck, cv, pos: int, positions,
     return (p.to(cv.dtype) @ cv).reshape(b, 1, -1)         # [B, 1, Hq·Dh]
 
 
-def _decode_attention_sharded(cfg: LMConfig, h, lp, ck, cv, pl, pos: int):
-    """``_decode_attention`` for DTensor h [B, 1, d] against this rank's
-    cache blocks ck, cv (``pl``: the layer cache's placements of [B, Hkv,
-    S, Dh], batch and positions split, heads whole). The queries are cut
-    as the cache's batch; the rank holding position ``pos`` writes the new
-    K and V; the softmax over positions split across ranks takes the
-    global max and sum (all-reduce over each dim that splits them) and
-    the weighted values are summed likewise. Returns a DTensor [B, 1,
-    Hq·Dh]."""
-    from torch.distributed.tensor import Replicate, Shard
-    mesh = h.device_mesh
-    q_pl = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in pl)
-    q = _heads(cfg, h, lp["wq"], cfg.n_heads, q_pl)
-    k = _heads(cfg, h, lp["wk"], cfg.n_kv_heads, q_pl)
-    v = _heads(cfg, h, lp["wv"], cfg.n_kv_heads, q_pl)
+# ---------------------------------------------------------------------------
+# Decode over a mesh: each rank's share of every product, written out
+# ---------------------------------------------------------------------------
+
+def _split_by(pl, dim: int) -> tuple:
+    """The mesh dims on which placements ``pl`` split tensor dim ``dim``,
+    outermost first."""
+    return tuple(i for i, p in enumerate(pl) if p.is_shard(dim))
+
+
+def _less_layer_dim(placements) -> tuple:
+    """The placements of one layer of a stacked [L, ...] DTensor (no rule
+    splits L)."""
+    from torch.distributed.tensor import Shard
+    return tuple(Shard(p.dim - 1) if p.is_shard() else p
+                 for p in placements)
+
+
+def _local_layers(cfg: LMConfig, params: LMParams) -> list[dict]:
+    """Each layer's ``{name: (block, placements)}``: the stacked DTensor
+    leaves' blocks unbound once."""
+    out = [{} for _ in range(cfg.n_layers)]
+    for name, leaf in params.layers.items():
+        pl = _less_layer_dim(leaf.placements)
+        for layer, block in zip(out, leaf.to_local().unbind(0)):
+            layer[name] = (block, pl)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeSplit:
+    """How a sharded decode step splits its work, read from the layer
+    cache's placements ``pl`` of [B, Hkv, S, Dh] (``lm_cache_specs``): the
+    mesh dims that split the batch (``rows``) and the positions
+    (``seq``), and the ``model`` dim (``mi``, size ``m``, this rank
+    ``r``). Every activation is this rank's rows [n, ...], whole along d,
+    and every weight this rank's block with its placements; the
+    collectives are written out (``torch.distributed`` on the mesh's
+    groups).
+      * With the positions over ``model`` (decode_32k: the batch over the
+        data axes) each rank scores every head of its rows against its
+        position block.
+      * Otherwise (long_500k: one request, the positions over the data
+        axes, the cache block replicated over ``model``) the model ranks
+        split the heads by ``HeadSplit``: rank r scores its head block
+        against those heads' kv heads in its cache block, and the n_q
+        ranks that share a head block take disjoint position ranges of
+        the block (q_block j the j-th of n_q)."""
+    mesh: Any
+    mi: int
+    m: int
+    r: int
+    rows: tuple
+    seq: tuple
+
+    @classmethod
+    def of(cls, mesh, pl) -> "DecodeSplit":
+        mi = _model_dim(mesh)
+        if mi is None:
+            raise ValueError("a sharded decode step needs a 'model' mesh "
+                             f"dim; the mesh has {mesh.mesh_dim_names}")
+        return cls(mesh=mesh, mi=mi, m=mesh.size(mi),
+                   r=mesh.get_local_rank(mi), rows=_split_by(pl, 0),
+                   seq=_split_by(pl, 2))
+
+    def rows_placements(self) -> tuple:
+        """Placements of a [B, ...] activation held as this rank's rows."""
+        from torch.distributed.tensor import Replicate, Shard
+        return tuple(Shard(0) if i in self.rows else Replicate()
+                     for i in range(self.mesh.ndim))
+
+    def gather(self, t: torch.Tensor, dims, dim: int) -> torch.Tensor:
+        """Block ``t`` whole along ``dim``, split over mesh ``dims``
+        (outermost first): gathered over the innermost first."""
+        for i in reversed(dims):
+            t = _gather_dim(t, self.mesh.get_group(i), dim)
+        return t
+
+    def reduce(self, t: torch.Tensor, dims) -> torch.Tensor:
+        """``t`` summed in place over each of mesh ``dims``."""
+        for i in dims:
+            if self.mesh.size(i) > 1:
+                dist.all_reduce(t, group=self.mesh.get_group(i))
+        return t
+
+    def in_block(self, x, w) -> torch.Tensor:
+        """x [n, k] (this rank's rows) times w [k, c] (``(block,
+        placements)``, c over ``model``): this rank's column block [n,
+        c/m]. With the rows split over the data axes w's k is gathered
+        where it is stored split (FSDP); with the rows whole each rank
+        contracts over the block of k it stores, and the partial sums are
+        all-reduced."""
+        t, pl = w
+        if self.rows:
+            return x @ self.gather(t, _split_by(pl, 0), 0)
+        k0 = shr.block_offset(self.mesh, pl, 0, t.shape[0])
+        return self.reduce(x[:, k0:k0 + t.shape[0]] @ t, _split_by(pl, 0))
+
+    def out_block(self, a, w) -> torch.Tensor:
+        """a [n, c/m] (this rank's column block) times w [c, d] (c over
+        ``model`` as a's columns): the sum over the model ranks as this
+        rank's rows [n, d]. With the rows split w's d is gathered where it
+        is split; with the rows whole each rank multiplies its stored
+        block, and the columns are gathered after the sum."""
+        t, pl = w
+        if self.rows:
+            return self.reduce(a @ self.gather(t, _split_by(pl, 1), 1),
+                               (self.mi,))
+        return self.gather(self.reduce(a @ t, (self.mi,)), _split_by(pl, 1),
+                           1)
+
+    def heads(self, cfg: LMConfig, s_l: int) -> tuple:
+        """``(HeadSplit, first position, positions)``: this rank's heads
+        and its range of the cache block's ``s_l`` positions."""
+        if self.mi in self.seq:
+            return HeadSplit(n_q=1, head_block=0, q_block=0,
+                             heads=cfg.n_heads, kv0=0,
+                             n_kv=cfg.n_kv_heads), 0, s_l
+        hs = HeadSplit.of(cfg, self.m, self.r)
+        if s_l % hs.n_q:
+            raise ValueError(f"a cache block of {s_l} positions does not "
+                             f"split into {hs.n_q} position ranges")
+        sub = s_l // hs.n_q
+        return hs, hs.q_block * sub, sub
+
+
+def _decode_attention_sharded(cfg: LMConfig, sp: DecodeSplit, x, lp, ck,
+                              cv, pl, pos: int) -> torch.Tensor:
+    """One layer's decode attention on a mesh, through wo: x [n, d] this
+    rank's normed rows, ck, cv its cache blocks [n, Hkv, s_l, Dh] (``pl``
+    their placements). Returns [n, d], the output product summed over the
+    model ranks.
+      * q, k and v: each rank multiplies its column block of wq, wk and wv
+        (``in_block``) and the blocks are gathered whole: every model rank
+        holds the cache block, and the one holding position ``pos`` writes
+        the new K and V of every kv head;
+      * each rank scores its heads against their kv heads in its position
+        range (``DecodeSplit``), reading only those heads' bytes;
+      * the softmax's max and sum and the weighted values are combined
+        over the dims that split the positions and over ``model`` (each
+        rank's heads in a whole-heads buffer, zero or -1e30 elsewhere);
+      * the whole attention output's block of rows of wo, as stored,
+        gives a partial sum over ``model`` (``out_block``)."""
+    n, dh, hq = x.shape[0], cfg.d_head, cfg.n_heads
+
+    def heads(w, count):
+        return sp.gather(sp.in_block(x, w), (sp.mi,), 1).reshape(n, count,
+                                                                 dh)
+
+    q, k, v = heads(lp["wq"], hq), heads(lp["wk"], cfg.n_kv_heads), \
+        heads(lp["wv"], cfg.n_kv_heads)
     if cfg.qk_norm:
-        q = rms_norm(q, shr.local(lp["q_norm"], _replicate(mesh)))
-        k = rms_norm(k, shr.local(lp["k_norm"], _replicate(mesh)))
-    positions = torch.full((q.shape[0], 1), pos, dtype=torch.int64,
-                           device=q.device)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+        q = rms_norm(q, lp["q_norm"][0])
+        k = rms_norm(k, lp["k_norm"][0])
+    positions = torch.full((n, 1), pos, dtype=torch.int64, device=x.device)
+    q = rope(q[:, None], positions, cfg.rope_theta)[:, 0]
+    k = rope(k[:, None], positions, cfg.rope_theta)[:, 0]
     s_l = ck.shape[2]
-    s0 = shr.block_offset(mesh, pl, 2, s_l)
+    s0 = shr.block_offset(sp.mesh, pl, 2, s_l)
     if s0 <= pos < s0 + s_l:
-        ck[:, :, pos - s0] = k[:, 0]
-        cv[:, :, pos - s0] = v[:, 0]
-    groups = [mesh.get_group(i) for i, p in enumerate(pl) if p.is_shard(2)]
-    rep = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(q.shape[0], cfg.n_kv_heads, rep, cfg.d_head)
-    s = (qg @ ck.transpose(-1, -2)).float() * cfg.d_head ** -0.5
-    visible = s0 + torch.arange(s_l, device=s.device) <= pos
-    s = torch.where(visible, s, -1e30)
-    if groups:
-        m = s.amax(-1, keepdim=True)
-        for g in groups:
-            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=g)
-        e = torch.exp(s - m)
-        den = e.sum(-1, keepdim=True)
-        for g in groups:
-            dist.all_reduce(den, group=g)
-        attn = ((e / den).to(cv.dtype) @ cv).float()
-        for g in groups:
-            dist.all_reduce(attn, group=g)
-        attn = attn.to(cv.dtype)
+        ck[:, :, pos - s0] = k
+        cv[:, :, pos - s0] = v
+    hs, p0, p_n = sp.heads(cfg, s_l)
+    h0 = hs.head_block * hs.heads
+    qg = q[:, h0:h0 + hs.heads].reshape(n, hs.n_kv, hs.heads // hs.n_kv, dh)
+    kb = ck[:, hs.kv0:hs.kv0 + hs.n_kv, p0:p0 + p_n]
+    vb = cv[:, hs.kv0:hs.kv0 + hs.n_kv, p0:p0 + p_n]
+    s = (qg @ kb.transpose(-1, -2)).float() * dh ** -0.5
+    visible = s0 + p0 + torch.arange(p_n, device=s.device) <= pos
+    s = torch.where(visible, s, -1e30)              # [n, n_kv, rep_l, p_n]
+    groups = [sp.mesh.get_group(i)
+              for i in sorted(set(sp.seq) | {sp.mi})
+              if sp.mesh.size(i) > 1]
+    if not groups:
+        attn = (torch.softmax(s, dim=-1).to(cv.dtype) @ vb).reshape(n, -1)
     else:
-        attn = torch.softmax(s, dim=-1).to(cv.dtype) @ cv
-    return shr.from_local(attn.reshape(q.shape[0], 1, -1), mesh, q_pl)
+        mine = slice(h0, h0 + hs.heads)
+        shape = s.shape[:-1] + (1,)
+
+        def combined(t, fill, op):
+            """Each rank's heads of t in a whole-heads buffer, reduced."""
+            full = t.new_full((n, hq) + t.shape[3:], fill)
+            full[:, mine] = t.reshape((n, hs.heads) + t.shape[3:])
+            for g in groups:
+                dist.all_reduce(full, op=op, group=g)
+            return full
+
+        m = combined(s.amax(-1), -1e30, dist.ReduceOp.MAX)[:, mine]
+        e = torch.exp(s - m.reshape(shape))
+        den = combined(e.sum(-1), 0.0, dist.ReduceOp.SUM)[:, mine]
+        o = ((e / den.reshape(shape)).to(cv.dtype) @ vb).float()
+        attn = combined(o, 0.0, dist.ReduceOp.SUM).to(cv.dtype).reshape(n, -1)
+    rows = attn.shape[1] // sp.m
+    return sp.out_block(attn[:, sp.r * rows:(sp.r + 1) * rows], lp["wo"])
+
+
+def _mlp_decode_sharded(cfg: LMConfig, sp: DecodeSplit, x, lp):
+    """The dense MLP of this rank's rows x [n, d]: its column block of
+    ``w_gate`` and ``w_up`` and row block of ``w_down`` (``in_block``,
+    ``out_block``); [n, d] summed over the model ranks."""
+    g = F.silu(sp.in_block(x, lp["w_gate"]).float()).to(x.dtype)
+    return sp.out_block(g * sp.in_block(x, lp["w_up"]), lp["w_down"])
+
+
+def _moe_decode_sharded(cfg: LMConfig, sp: DecodeSplit, x, lp):
+    """The MoE of this rank's rows x [n, d] on a mesh, routed as
+    ``moe_block`` routes the whole token table (capacity, positions and
+    drops over all T tokens):
+      * each rank multiplies its rows by its model block of the router's
+        expert columns, and the float32 logits are gathered whole, so
+        every rank routes the same [T, E] (``route_logits``); the table
+        [T, d] is gathered over the dims that split the rows;
+      * rank r dispatches to its experts only ([r·E/m, (r+1)·E/m), as the
+        expert weights are stored), the columns of d its ``w_gate`` and
+        ``w_up`` blocks hold; their partial sums are all-reduced over the
+        dims that split d, and ``w_down``'s block gives its columns of d;
+      * the combine of its experts' slots is a partial sum over ``model``,
+        summed, gathered along d and cut to this rank's rows."""
+    e_l = cfg.n_experts // sp.m
+    if e_l * sp.m != cfg.n_experts:
+        raise ValueError(f"{cfg.n_experts} experts on a model axis of {sp.m}")
+    router = lp["router"][0][:, sp.r * e_l:(sp.r + 1) * e_l]
+    logits = sp.gather(sp.gather(x.float() @ router.float(), (sp.mi,), 1),
+                       sp.rows, 0)
+    table = sp.gather(x, sp.rows, 0)
+    top_g, top_e, pos, keep, cap = route_logits(logits, cfg)
+    local_e = top_e - sp.r * e_l
+    keep = keep & (local_e >= 0) & (local_e < e_l)
+    rows = torch.where(keep, local_e * cap + pos, e_l * cap)
+    (wg, gate_pl), (wu, _), (wd, down_pl) = (
+        lp[k] for k in ("w_gate", "w_up", "w_down"))
+    k0 = shr.block_offset(sp.mesh, gate_pl, 1, wg.shape[1])
+    b3 = _dispatch(table[:, k0:k0 + wg.shape[1]], rows, e_l, cap)
+    g, u = sp.reduce(torch.stack([torch.bmm(b3, wg), torch.bmm(b3, wu)]),
+                     _split_by(gate_pl, 1))
+    y = torch.bmm(F.silu(g.float()).to(x.dtype) * u, wd)
+    out = _combine(y.reshape(e_l * cap, wd.shape[2]), rows, keep, top_g,
+                   y.new_empty((table.shape[0], wd.shape[2])))
+    out = sp.gather(sp.reduce(out, (sp.mi,)), _split_by(down_pl, 2), 1)
+    r0 = shr.block_offset(sp.mesh, sp.rows_placements(), 0, x.shape[0])
+    return out[r0:r0 + x.shape[0]]
+
+
+def _decode_step_sharded(cfg: LMConfig, params: LMParams, token, cache):
+    """``decode_step`` on a mesh: the parameters, token and cache DTensors
+    placed by the sharding rules. Every layer runs on this rank's rows
+    and blocks as plain tensors (``DecodeSplit``): each product on this
+    rank's blocks of its weights, so every product's work is split over
+    the whole mesh where the rows are split, and over the model ranks (as
+    the weights' storage splits it) where they are not. Returns the
+    logits whole on every rank."""
+    pos = cache["len"]
+    pl = _less_layer_dim(cache["k"].placements)
+    sp = DecodeSplit.of(cache["k"].device_mesh, pl)
+    x = _embed(cfg, params, token, sp.rows_placements()).to_local()
+    mlp = _moe_decode_sharded if cfg.is_moe else _mlp_decode_sharded
+    for lp, ck, cv in zip(_local_layers(cfg, params),
+                          cache["k"].to_local().unbind(0),
+                          cache["v"].to_local().unbind(0)):
+        x = x + _decode_attention_sharded(
+            cfg, sp, rms_norm(x, lp["ln_attn"][0]), lp, ck, cv, pl, pos)
+        x = x + mlp(cfg, sp, rms_norm(x, lp["ln_mlp"][0]), lp)
+    x = rms_norm(x, params["ln_out"].to_local())
+    unemb = _unembed(cfg, params)
+    logits = sp.in_block(x, (unemb.to_local(), unemb.placements))
+    return sp.gather(sp.gather(logits, (sp.mi,), 1), sp.rows, 0)
 
 
 def decode_step(cfg: LMConfig, params: LMParams, token: torch.Tensor,
@@ -1255,41 +1475,29 @@ def decode_step(cfg: LMConfig, params: LMParams, token: torch.Tensor,
     returned. Attention runs against the whole static cache length, masked
     to positions ``<= len``. Nothing here reads the card from the host.
     On a mesh (DTensor parameters, token and cache, placed by
-    ``lm_cache_specs``) each rank attends over its cache block
-    (``_decode_attention_sharded``), no activation is constrained, as in
-    the reference, and the logits come back whole on every rank.
+    ``lm_cache_specs``) each rank runs its share of every product
+    (``_decode_step_sharded``) and the logits come back whole on every
+    rank.
     """
     b = token.shape[0]
     pos = cache["len"]
     s_max = cache["k"].shape[3]
     if not 0 <= pos < s_max:
         raise IndexError(f"decode at position {pos} of a {s_max}-long cache")
-    x = _embed(cfg, params, token)[:, None, :]             # [B, 1, d]
-    layers = _unstack(params)
     if shr.is_dtensor(cache["k"]):
-        from torch.distributed.tensor import Shard
-        pl = tuple(Shard(p.dim - 1) if p.is_shard() else p
-                   for p in cache["k"].placements)
-
-        def attend(h, lp, ck, cv):
-            return _decode_attention_sharded(cfg, h, lp, ck, cv, pl, pos)
-        caches = zip(cache["k"].to_local().unbind(0),
-                     cache["v"].to_local().unbind(0))
+        logits = _decode_step_sharded(cfg, params, token, cache)
     else:
+        x = _embed(cfg, params, token)[:, None, :]         # [B, 1, d]
         positions = torch.full((b, 1), pos, dtype=torch.int64,
                                device=x.device)
         visible = torch.arange(s_max, device=x.device) <= pos
-
-        def attend(h, lp, ck, cv):
-            return _decode_attention(cfg, h, lp, ck, cv, pos, positions,
-                                     visible)
-        caches = zip(cache["k"].unbind(0), cache["v"].unbind(0))
-    for lp, (ck, cv) in zip(layers, caches):
-        x = x + (attend(rms_norm(x, lp["ln_attn"]), lp, ck, cv) @ lp["wo"])
-        x = x + _mlp(cfg, rms_norm(x, lp["ln_mlp"]), lp)
-    x = rms_norm(x, params["ln_out"])
-    logits = x[:, 0] @ _unembed(cfg, params)
-    if shr.is_dtensor(logits):
-        logits = logits.full_tensor()
+        for lp, ck, cv in zip(_unstack(params), cache["k"].unbind(0),
+                              cache["v"].unbind(0)):
+            attn = _decode_attention(cfg, rms_norm(x, lp["ln_attn"]), lp,
+                                     ck, cv, pos, positions, visible)
+            x = x + (attn @ lp["wo"])
+            x = x + _mlp(cfg, rms_norm(x, lp["ln_mlp"]), lp)
+        x = rms_norm(x, params["ln_out"])
+        logits = x[:, 0] @ _unembed(cfg, params)
     cache["len"] = pos + 1
     return logits[:, :cfg.vocab].float(), cache

@@ -12,7 +12,7 @@ boundary (all exact).
 Against ``repro``: the smoke configs at the smoke shapes of
 ``tests/test_torch_mesh_cells.py`` (LMs batch 4 × 64 positions, the
 GNNs' 64 nodes and 256 edges, DIEN 16 rows; qwen3's decode at batch 4
-against a 16-position cache). The reference is compiled in one
+and 1 against a 16-position cache). The reference is compiled in one
 subprocess with 256 host devices on a (1, 1) and a (2, 4) ``("data",
 "model")`` mesh (and the production cases below on its (16, 16)) and
 read by ``hlo_analysis.analyze``; the port runs ``analyze_cell`` on a
@@ -54,10 +54,15 @@ On the production (16, 16) mesh, full widths cut to two layers, the
 port's ``train_4k`` step for llama3.2-1b (GQA, one kv head to two model
 ranks) and minicpm-2b (36 heads on 16: four head blocks over four query
 blocks) counts at or under the reference's, compiled at the same cut.
-The decode step (no activation constraint, as in the reference) leaves
-the residual a partial sum over the model axis after the first
-attention's output product: gate and up in every layer, q, k, v after the
-first, and the unembedding run on the rank's rows. SchNet at smoke (rows
+The decode step runs every product on the rank's rows and its block of
+the weight: with the batch over ``data`` (batch 4) each term / 8, the
+reference's split; with one request (batch 1, the positions over
+``data``) the products / 4 (the row whole, the weights' model blocks)
+and the attention / 8 (the heads over ``model``, the positions over
+``data``), at or under the reference's. On the (16, 16) mesh at two
+layers every long_500k cell and the MoE LMs' decode_32k count at or under
+the reference's flops, with its arguments and at or under its temp.
+SchNet at smoke (rows
 not constrained) gets its aggregates whole on every card from each
 scatter: three node products an interaction (w_out's two and its replay)
 run whole, and w_out's two gradient products an interaction on a
@@ -95,6 +100,8 @@ LMS = ("llama3.2-1b", "qwen3-1.7b", "minicpm-2b", "moonshot-v1-16b-a3b",
 CASES = {**{f"{a}/train": (a, LM_TRAIN) for a in LMS},
          "qwen3-1.7b/decode": ("qwen3-1.7b",
                                dict(kind="decode", batch=4, seq=16)),
+         "qwen3-1.7b/decode1": ("qwen3-1.7b",
+                                dict(kind="decode", batch=1, seq=16)),
          "gat-cora/train": ("gat-cora", GNN_TRAIN),
          "schnet/train": ("schnet", GNN_TRAIN),
          "dien/train": ("dien", dict(kind="train", batch=16)),
@@ -105,6 +112,11 @@ EVEN_REFERENCE = ("llama3.2-1b", "qwen3-1.7b")
 #: PRODUCTION_LAYERS layers.
 PRODUCTION = ("llama3.2-1b", "minicpm-2b")
 PRODUCTION_LAYERS = 2
+#: The decode cells on the (16, 16) mesh at the same cut: long_500k (one
+#: request, the positions over ``data``) of every LM, and the MoE LMs'
+#: decode_32k (the batch over ``data``, the positions over ``model``).
+PRODUCTION_DECODE = tuple((a, "long_500k") for a in LMS) + (
+    ("moonshot-v1-16b-a3b", "decode_32k"), ("dbrx-132b", "decode_32k"))
 
 _JAX_SCRIPT = r"""
 import os, sys, json
@@ -118,9 +130,9 @@ from repro.launch.hlo_analysis import analyze
 from repro.launch.mesh import make_production_mesh
 from repro.train.step import build_cell
 
-cases, production, layers, out = (json.loads(sys.argv[1]),
-                                  json.loads(sys.argv[2]), int(sys.argv[3]),
-                                  sys.argv[4])
+cases, production, decode, layers, out = (
+    json.loads(sys.argv[1]), json.loads(sys.argv[2]),
+    json.loads(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
 res = {}
 for mesh_name, dims in (("1x1", (1, 1)), ("2x4", (2, 4))):
     devs = np.array(jax.devices()[:dims[0] * dims[1]]).reshape(dims)
@@ -134,14 +146,17 @@ for mesh_name, dims in (("1x1", (1, 1)), ("2x4", (2, 4))):
         res[f"{label}@{mesh_name}/temp"] = \
             compiled.memory_analysis().temp_size_in_bytes
 mesh = make_production_mesh()
-for arch in production:
+for arch, shape in [(a, "train_4k") for a in production] + decode:
     base = get_arch(arch)
     cfg = dataclasses.replace(base.make_config(), n_layers=layers)
     spec = dataclasses.replace(base, make_config=lambda cfg=cfg: cfg)
-    step_fn, state, inputs = build_cell(spec, "train_4k", mesh)
+    step_fn, state, inputs = build_cell(spec, shape, mesh)
     with getattr(jax, "set_mesh", lambda m: m)(mesh):
         compiled = jax.jit(step_fn).lower(state, inputs).compile()
-    res[f"{arch}/train_4k@16x16"] = analyze(compiled.as_text()).flops
+    res[f"{arch}/{shape}@16x16"] = analyze(compiled.as_text()).flops
+    mem = compiled.memory_analysis()
+    res[f"{arch}/{shape}@16x16/temp"] = mem.temp_size_in_bytes
+    res[f"{arch}/{shape}@16x16/args"] = mem.argument_size_in_bytes
 with open(out, "w") as f:
     json.dump(res, f)
 """
@@ -157,14 +172,17 @@ def reference(tmp_path_factory):
                JAX_PLATFORMS="cpu")
     proc = subprocess.Popen(
         [sys.executable, "-c", _JAX_SCRIPT, json.dumps(CASES),
-         json.dumps(PRODUCTION), str(PRODUCTION_LAYERS),
-         str(tmp / "ref.json")], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+         json.dumps(PRODUCTION), json.dumps(PRODUCTION_DECODE),
+         str(PRODUCTION_LAYERS), str(tmp / "ref.json")], env=env, cwd=ROOT,
+        stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
     for label in CASES:          # the port's side while the reference runs
         for mesh_name in DIMS:
             port_flops(label, mesh_name)
     for arch in PRODUCTION:
         port_production(arch)
+    for arch, shape in PRODUCTION_DECODE:
+        port_production(arch, shape)
     _, err = proc.communicate(timeout=900)
     assert proc.returncode == 0, err[-3000:]
     return json.loads((tmp / "ref.json").read_text())
@@ -187,16 +205,20 @@ def port_flops(label: str, mesh_name: str) -> float:
 
 
 @functools.cache
-def port_production(arch: str) -> float:
-    """The port's per-card flops of ``arch``'s ``train_4k`` step on the
-    production (16, 16) mesh (a fake world of 256) at full width, cut to
+def port_production_cell(arch: str, shape: str = "train_4k") -> dict:
+    """The port's analysis of ``arch``'s ``shape`` step on the production
+    (16, 16) mesh (a fake world of 256) at full width, cut to
     PRODUCTION_LAYERS layers."""
     base = get_arch(arch)
     cfg = dataclasses.replace(base.make_config(), n_layers=PRODUCTION_LAYERS)
     spec = dataclasses.replace(base, make_config=lambda: cfg)
     with fake_world(256):
         mesh = make_production_mesh(device_type="cpu")
-        return ca.analyze_cell(spec, "train_4k", mesh)["cost"].flops
+        return ca.analyze_cell(spec, shape, mesh)
+
+
+def port_production(arch: str, shape: str = "train_4k") -> float:
+    return port_production_cell(arch, shape)["cost"].flops
 
 
 def near(got: float, want: float) -> bool:
@@ -467,19 +489,68 @@ def test_production_mesh_train_flops(reference, arch):
     assert port_production(arch) <= want, (port_production(arch), want)
 
 
+def decode_terms(label) -> dict:
+    """The products of one decode step of an LM case on one card, by
+    name."""
+    cfg, b, s = _lm(label)
+    d, L, dh = cfg.d_model, cfg.n_layers, cfg.d_head
+    return {"q, k, v": L * 2 * b * d * (cfg.n_heads + 2 * cfg.n_kv_heads)
+            * dh,
+            "wo": L * 2 * b * cfg.n_heads * dh * d,
+            "attention": L * 2 * (2 * b * cfg.n_heads * dh * s),
+            "mlp": L * 3 * (2 * b * d * cfg.d_ff),
+            "unembed": 2 * b * d * cfg.vocab_padded}
+
+
 def test_decode_flops(reference):
+    """Batch 4 on (2, 4): the batch over ``data`` (two rows a rank), the
+    positions over ``model`` (4 of 16 a rank). Every product runs on the
+    rank's rows and its column (or row) block of the weight, and the
+    attention on its rows and positions: each term / 8, the reference's
+    split."""
     label = "qwen3-1.7b/decode"
     one = reference[f"{label}@1x1"]
+    terms = decode_terms(label)
     assert near(port_flops(label, "1x1"), one)
-    cfg, b, _s = _lm(label)
-    d, L = cfg.d_model, cfg.n_layers
-    partial = (L * 2 * (2 * b * d * cfg.d_ff)
-               + (L - 1) * 2 * b * d * (cfg.n_heads + 2 * cfg.n_kv_heads)
-               * cfg.d_head
-               + 2 * b * d * cfg.vocab_padded)
+    assert near(sum(terms.values()), one)
     split = reference[f"{label}@2x4"]
     assert split == one / 8
-    assert near(port_flops(label, "2x4"), split + partial * (1 / 2 - 1 / 8))
+    assert near(port_flops(label, "2x4"),
+                sum(t / 8 for t in terms.values()))
+
+
+def test_decode_flops_one_request(reference):
+    """Batch 1 on (2, 4): the positions over ``data`` (8 of 16 a rank),
+    the 4 heads over ``model`` (one a rank, against its kv head in the
+    rank's block). The products run on the rank's column (or row) block,
+    the one row whole (/ 4), the attention on its head and positions
+    (/ 8); at or under the reference's count."""
+    label = "qwen3-1.7b/decode1"
+    one = reference[f"{label}@1x1"]
+    terms = decode_terms(label)
+    assert near(port_flops(label, "1x1"), one)
+    assert near(sum(terms.values()), one)
+    want = sum(t / (8 if name == "attention" else 4)
+               for name, t in terms.items())
+    got = port_flops(label, "2x4")
+    assert near(got, want)
+    assert got <= reference[f"{label}@2x4"]
+
+
+@pytest.mark.parametrize("arch,shape", PRODUCTION_DECODE)
+def test_production_mesh_decode_flops(reference, arch, shape):
+    """Per card on the (16, 16) mesh: the decode step's flops at or under
+    the reference's (long_500k: the heads over ``model`` against each
+    rank's cache block; the MoE's router and experts on the rank's
+    share), its arguments the reference's (less its int32 ``len``) and
+    its temp at or under the reference's."""
+    key = f"{arch}/{shape}@16x16"
+    got = port_production_cell(arch, shape)
+    assert got["cost"].flops <= reference[key], (got["cost"].flops,
+                                                 reference[key])
+    mem = got["memory_analysis"]
+    assert mem["argument_size_in_bytes"] == reference[f"{key}/args"] - 4
+    assert mem["temp_size_in_bytes"] <= reference[f"{key}/temp"]
 
 
 def test_schnet_flops(reference):

@@ -36,9 +36,16 @@ first synthetic batch, which both packages draw bit-equal:
   * DIEN's smoke train cell with its tables' rows split over ``model``
     (the ``embed_bag`` kernel's plain version on the rank's rows), from
     step 250;
-  * qwen3's decode cell, three steps from an empty cache, its batch over
-    ``data`` and positions over ``model`` (batch 4), or its positions over
-    ``data`` (batch 1), against the reference's ``decode_step``.
+  * the decode cells of qwen3, llama3.2-1b (GQA), moonshot (MoE) and
+    minicpm-2b, three steps from an empty cache and from a cache of
+    random K and V at ``len`` 12 (every rank's positions then hold
+    visible entries), the batch over ``data``
+    and positions over ``model`` (batch 4), or the positions over
+    ``data`` and the heads over ``model`` (batch 1; minicpm's 6 heads on
+    4 ranks are 2 head blocks, each over 2 position ranges of the rank's
+    cache block), against the reference's ``decode_step``; moonshot's
+    routing of every layer and step, from the logits every rank gathered,
+    bit-equal to the reference's routing lines on those logits.
 Every rank's loss and grad norm must be the same; rank 0 gathers the new
 parameters, m and v whole.
 
@@ -95,8 +102,9 @@ from test_torch_lm_cells import moments
 from test_torch_transformer import (assert_close, flat_reference_tree,
                                     reference_params, scaled_err)
 from test_torch_transformer import one_torch_thread  # noqa: F401 (autouse)
-from torch_mesh_ranks import (DECODE_LEN, DECODE_STEPS, DIMENET_CHUNKS,
-                              FIELDS, GNN_ARCHS, LM_SHAPE, PREFILL_FIELDS)
+from torch_mesh_ranks import (DECODE_CASES, DECODE_FILLED, DECODE_LEN,
+                              DECODE_STEPS, DIMENET_CHUNKS, FIELDS,
+                              GNN_ARCHS, LM_SHAPE, PREFILL_FIELDS)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 WORLD = 8
@@ -156,9 +164,22 @@ def prefill_tokens() -> np.ndarray:
         0, 256, (LM_SHAPE["batch"], LM_SHAPE["seq"])).astype(np.int32)
 
 
+def decode_cache(case: str) -> dict:
+    """Seeded normal K and V [L, 4, Hkv, DECODE_LEN, Dh] (the port's
+    layout) for ``case``'s filled-cache decode."""
+    cfg = jax_get_arch(FIELDS[case][0]).make_smoke_config()
+    rng = np.random.default_rng(6)
+    shape = (cfg.n_layers, 4, cfg.n_kv_heads, DECODE_LEN, cfg.d_head)
+    return {k: rng.standard_normal(shape).astype(np.float32)
+            for k in ("k", "v")}
+
+
 def job() -> dict:
     out = {"prefill/tokens": prefill_tokens(),
            "decode/tokens": decode_tokens()}
+    for case in DECODE_CASES:
+        out.update({f"decode/{case}/{k}": a
+                    for k, a in decode_cache(case).items()})
     for case, (arch, _) in FIELDS.items():
         p, m, v = lm_start(arch)
         out.update({f"{case}/p/{k}": a for k, a in p.items()})
@@ -289,10 +310,15 @@ def reference_prefill() -> np.ndarray:
 
 
 @functools.cache
-def reference_decode(batch: int) -> list:
-    jc = jax_lm_config("qwen3-1.7b")
-    params = _tree(lm_start("qwen3-1.7b")[0])
+def reference_decode(case: str, batch: int, start: str) -> list:
+    arch = FIELDS[case][0]
+    jc = jax_lm_config(arch)
+    params = _tree(lm_start(arch)[0])
     cache = jt.init_kv_cache(jc, batch, DECODE_LEN)
+    if start == "filled":
+        cache = {k: jnp.asarray(a[:, :batch].transpose(0, 1, 3, 2, 4))
+                 for k, a in decode_cache(case).items()}
+        cache["len"] = jnp.int32(DECODE_FILLED)
     step = jax.jit(functools.partial(jt.decode_step, jc))
     out = []
     for tok in decode_tokens()[:, :batch]:
@@ -449,14 +475,71 @@ def test_dien_train_step_eight_ranks(ranks):
     _hold_cell(ranks, "dien")
 
 
+def _hold_decode(ranks, case: str, batch: int) -> None:
+    for start, first in (("empty", 0), ("filled", DECODE_FILLED)):
+        want = reference_decode(case, batch, start)
+        tag = f"decode/{case}/{batch}/{start}"
+        for r, res in enumerate(ranks):
+            assert int(res[f"{tag}/len"]) == first + DECODE_STEPS
+            for i, w in enumerate(want):
+                assert_close(res[f"{tag}/{i}"], w, LM_TOL,
+                             f"{tag} step {i} rank {r}")
+
+
 @pytest.mark.parametrize("batch", (4, 1))
 def test_decode_eight_ranks(ranks, batch):
-    want = reference_decode(batch)
-    for r, res in enumerate(ranks):
-        assert int(res[f"decode/{batch}/len"]) == DECODE_STEPS
-        for i, w in enumerate(want):
-            assert_close(res[f"decode/{batch}/{i}"], w, LM_TOL,
-                         f"decode batch {batch} step {i} rank {r}")
+    _hold_decode(ranks, "qwen3", batch)
+
+
+@pytest.mark.parametrize("batch", (4, 1))
+@pytest.mark.parametrize("case", [c for c in DECODE_CASES if c != "qwen3"])
+def test_decode_eight_ranks_split(ranks, case, batch):
+    """llama (two query heads a model rank on one kv head at batch 1),
+    moonshot (each model rank's two experts) and minicpm (head blocks over
+    position ranges at batch 1)."""
+    _hold_decode(ranks, case, batch)
+
+
+def reference_route(logits, cfg):
+    """The reference's routing lines (``_moe_block_flat``) on float32
+    logits [T, E]: ``(top_e, pos, keep, cap)``."""
+    t, e, k = logits.shape[0], cfg.n_experts, cfg.top_k
+    cap = int(max(1, round(t * k / e * cfg.capacity_factor)))
+    cap = -(-cap // 8) * 8
+    _top_g, top_e = jax.lax.top_k(jax.nn.softmax(logits, axis=-1), k)
+    flat = jax.nn.one_hot(top_e, e, dtype=jnp.int32).reshape(t * k, e)
+    pos = jnp.sum(flat * (jnp.cumsum(flat, axis=0) - flat),
+                  axis=-1).reshape(t, k)
+    return top_e, pos, pos < cap, cap
+
+
+def _hold_routes(ranks, jc, batch: int, tag: str) -> None:
+    calls = {k[len(tag) + 1:].split("/")[0] for k in ranks[0]
+             if k.startswith(tag + "/")}
+    assert len(calls) == jc.n_layers * DECODE_STEPS
+    for i in sorted(calls, key=int):
+        logits = ranks[0][f"{tag}/{i}/logits"]
+        assert logits.shape == (batch, jc.n_experts)
+        top_e, pos, keep, cap = reference_route(jnp.asarray(logits), jc)
+        for r, res in enumerate(ranks):
+            assert np.array_equal(res[f"{tag}/{i}/logits"], logits), (r, i)
+            assert int(res[f"{tag}/{i}/cap"]) == cap
+            for name, want in (("top_e", top_e), ("pos", pos),
+                               ("keep", keep)):
+                assert np.array_equal(res[f"{tag}/{i}/{name}"],
+                                      np.asarray(want)), (r, i, name)
+
+
+@pytest.mark.parametrize("batch", (4, 1))
+def test_moe_decode_routing_eight_ranks(ranks, batch):
+    """moonshot's decode routing, every layer of every step: each rank
+    gathers the same logits [T, E] of the whole token table and routes
+    them bit-equal to the reference's lines (capacity, positions and drops
+    over all T tokens)."""
+    jc = jax_lm_config(FIELDS["moonshot"][0])
+    for start in ("empty", "filled"):
+        _hold_routes(ranks, jc, batch, f"decode/moonshot/{batch}/{start}"
+                     "/route")
 
 
 # ---------------------------------------------------------------------------
@@ -511,6 +594,34 @@ def test_world_one_mesh_cell_equals_no_mesh(world_one, arch):
     for k, w in wp.items():
         torch.testing.assert_close(gp[k], w, rtol=1e-6, atol=1e-6,
                                    msg=k)
+
+
+@pytest.mark.parametrize("arch", ("qwen3-1.7b", "moonshot-v1-16b-a3b"))
+def test_world_one_decode_equals_no_mesh(world_one, arch):
+    """At one rank the sharded decode step (each product on the rank's
+    blocks, the softmax unsplit) gives the no-mesh step's logits and
+    cache bit for bit, three steps from an empty cache."""
+    base = get_arch(arch)
+    cfg = dataclasses.replace(base.make_smoke_config(), dtype=torch.float32)
+    spec = dataclasses.replace(base, shapes={"smoke": dict(
+        kind="decode", batch=2, seq=DECODE_LEN)},
+        make_smoke_config=lambda: cfg)
+    toks = torch.from_numpy(decode_tokens()[:, :2])
+    out = []
+    for mesh in (None, world_one):
+        step_fn, params, _ = build_cell(spec, "smoke", mesh, smoke=True,
+                                        device="cpu")
+        cache = tt.init_kv_cache(cfg, 2, DECODE_LEN, device="cpu")
+        logits = []
+        for tok in toks:
+            lg, cache = step_fn(params, {"token": tok, "cache": cache})
+            logits.append(lg)
+        out.append((logits, {k: shr.replicated(cache[k]) for k in "kv"}))
+    (want, want_cache), (got, got_cache) = out
+    for w, g in zip(want, got):
+        assert torch.equal(g, w)
+    for k in "kv":
+        assert torch.equal(got_cache[k], want_cache[k])
 
 
 HELPERS = {

@@ -27,9 +27,17 @@ new parameters, m and v gathered whole (rank 0):
     triplets in ``DIMENET_CHUNKS`` chunks (``_pick_chunks`` patched), from
     ``gnn/dimenet``'s starting state;
   * ``dien``: DIEN's smoke train cell, tables row-split over ``model``;
-  * ``decode/<batch>``: qwen3's decode cell, three steps from an empty
-    cache of 16 positions (batch 4: batch over ``data``, positions over
-    ``model``; batch 1: positions over ``data``), the logits of each.
+  * ``decode/<case>/<batch>/<start>``: the decode cell of qwen3, llama,
+    moonshot and minicpm (DECODE_CASES) on their train cases' weights,
+    three steps on a cache of 16 positions (batch 4: batch over ``data``,
+    positions over ``model``; batch 1: positions over ``data``, the heads
+    over ``model``; minicpm's 6 heads on 4 ranks in 2 head blocks, each
+    over 2 position ranges), from an empty cache (``empty``) and from the
+    job's ``decode/<case>/k``, ``v`` at ``len`` DECODE_FILLED
+    (``filled``: every rank's positions hold visible entries), the logits
+    of each; moonshot's routing of every layer and step
+    (``decode/moonshot/<batch>/<start>/route/<i>/``: the gathered logits
+    and ``route_logits``'s results).
 """
 import dataclasses
 import sys
@@ -51,6 +59,8 @@ GNN_ARCHS = ("gat-cora", "schnet", "dimenet", "meshgraphnet")
 DIMENET_CHUNKS = 2
 DECODE_LEN = 16
 DECODE_STEPS = 3
+DECODE_CASES = ("qwen3", "llama", "moonshot", "minicpm")
+DECODE_FILLED = 12
 
 
 def lm_spec(arch: str, shape: dict, **fields):
@@ -208,23 +218,53 @@ def main(rank: int, world: int, store: str, job: str, out: str) -> None:
     train_case(res, rank, "dien", spec, spec.make_smoke_config(), step_fn,
                state)
 
-    # qwen3's decode cell from an empty cache.
-    for batch in (4, 1):
-        spec, cfg = lm_spec("qwen3-1.7b", dict(kind="decode", batch=batch,
-                                               seq=DECODE_LEN))
-        step_fn, params, _ = ts.build_cell(spec, "smoke", mesh, smoke=True,
-                                           device="cpu")
-        params = shr.place_tree(
-            tt.LMParams.from_named(named_arrays(data, "qwen3/p/")),
-            shr.flat_specs(shr.lm_param_specs(cfg, mesh, fsdp=spec.fsdp)),
-            mesh)
-        cache = tt.init_kv_cache(cfg, batch, DECODE_LEN, device="cpu")
-        toks = torch.from_numpy(data["decode/tokens"][:, :batch])
-        for i in range(DECODE_STEPS):
-            logits, cache = step_fn(params, {"token": toks[i],
-                                             "cache": cache})
-            res[f"decode/{batch}/{i}"] = logits.numpy()
-        res[f"decode/{batch}/len"] = np.array(cache["len"])
+    # The decode cells from an empty and a filled cache; moonshot's
+    # routing recorded.
+    route = tt.route_logits
+    for case in DECODE_CASES:
+        arch = FIELDS[case][0]
+        for batch in (4, 1):
+            spec, cfg = lm_spec(arch, dict(kind="decode", batch=batch,
+                                           seq=DECODE_LEN))
+            step_fn, _, _ = ts.build_cell(spec, "smoke", mesh, smoke=True,
+                                          device="cpu")
+            params = shr.place_tree(
+                tt.LMParams.from_named(named_arrays(data, f"{case}/p/")),
+                shr.flat_specs(shr.lm_param_specs(cfg, mesh,
+                                                  fsdp=spec.fsdp)), mesh)
+            toks = torch.from_numpy(data["decode/tokens"][:, :batch])
+            for start in ("empty", "filled"):
+                cache = tt.init_kv_cache(cfg, batch, DECODE_LEN,
+                                         device="cpu")
+                if start == "filled":
+                    for k in ("k", "v"):
+                        cache[k] = torch.from_numpy(np.ascontiguousarray(
+                            data[f"decode/{case}/{k}"][:, :batch]))
+                    cache["len"] = DECODE_FILLED
+                tag = f"decode/{case}/{batch}/{start}"
+                routes = []
+
+                def recording(logits, cfg):
+                    out = route(logits, cfg)
+                    routes.append((logits.clone(), out))
+                    return out
+                tt.route_logits = recording
+                try:
+                    for i in range(DECODE_STEPS):
+                        logits, cache = step_fn(params, {"token": toks[i],
+                                                         "cache": cache})
+                        res[f"{tag}/{i}"] = logits.numpy()
+                finally:
+                    tt.route_logits = route
+                res[f"{tag}/len"] = np.array(cache["len"])
+                for i, (lg, (_g, top_e, pos, keep, cap)) in enumerate(
+                        routes):
+                    rt = f"{tag}/route/{i}"
+                    res[f"{rt}/logits"], res[f"{rt}/top_e"] = lg.numpy(), \
+                        top_e.numpy()
+                    res[f"{rt}/pos"], res[f"{rt}/keep"] = pos.numpy(), \
+                        keep.numpy()
+                    res[f"{rt}/cap"] = np.array(cap)
 
     np.savez(f"{out}/rank{rank}.npz", **res)
     dist.barrier()
