@@ -254,7 +254,10 @@ Phases, in order; any failure raises and the script exits non-zero:
         ``{"dryrun": ...}`` line each with its per-card GB, its counted
         TFLOP, collective GB (by kind) and temp GB a card for one step,
         each LM decode cell's TFLOP at or under the reference's, no GNN
-        cell over 80 GB a card;
+        cell over 80 GB a card, each GNN cell's collective GB at or under
+        DRYRUN_REF_COLL_GB's (the reference's for the minibatch_lg cells
+        of GAT, SchNet and MeshGraphNet) and on 2x16x16 at or under its
+        own on 16x16;
      o. the sharded cells (``build_cell(..., mesh)``: state and inputs as
         DTensors placed by ``distributed.sharding``): a. on a world-1 NCCL
         ``("data", "model")`` mesh against the same cell with no mesh, the
@@ -279,8 +282,11 @@ Phases, in order; any failure raises and the script exits non-zero:
         train step of qwen3-1.7b, moonshot (its three mesh fields set,
         capacity factor 8 so no token is dropped), minicpm-2b (a full
         train cell's batch and sequence fields: 2 head blocks × 2 query
-        blocks), GAT and DIEN, every rank's loss and grad norm and the
-        gathered state within the float tolerances of the world-1 run's;
+        blocks), GAT, SchNet, DimeNet (its triplets in 2 chunks),
+        MeshGraphNet and DIEN, and on the 8 ranks each GNN again with
+        every gather and scatter by blocks, every rank's loss and grad
+        norm and the gathered state within the float tolerances of the
+        world-1 run's;
         then the smoke decode step (MESH_CELL_RANK_DECODE) of llama3.2-1b
         and minicpm-2b at batch 1 (the positions over data, the heads over
         model; minicpm's 6 heads in 2 head blocks, each over 2 position
@@ -3423,6 +3429,29 @@ DRYRUN_REF_GFLOP = {
     "dbrx-132b__decode_32k": (59.944992768, 49.790582784),
     "dbrx-132b__long_500k": (9.973334016, 8.966701056)}
 GNN_DRYRUN_ARCHS = ("gat-cora", "schnet", "dimenet", "meshgraphnet")
+# Each GNN cell's collective GB a card may not exceed: (16x16, 2x16x16).
+# The minibatch_lg cells of GAT, SchNet and MeshGraphNet take the
+# reference's figure (``python -m repro.launch.dryrun``, ``hlo_parsed``,
+# jax 0.9.0 on a CPU), the other cells the port's before its gathers and
+# scatters went by blocks (its dry run under torch 2.13, rounded up at the
+# fourth digit), so that no cell's count rises.
+DRYRUN_REF_COLL_GB = {
+    "gat-cora__full_graph_sm": (0.004245, 0.00818),
+    "gat-cora__minibatch_lg": (0.0853, 0.0723),
+    "gat-cora__molecule": (0.005471, 0.01051),
+    "gat-cora__ogb_products": (3.479, 6.678),
+    "schnet__full_graph_sm": (0.007128, 0.0137),
+    "schnet__minibatch_lg": (0.0997, 0.0748),
+    "schnet__molecule": (0.009872, 0.01896),
+    "schnet__ogb_products": (6.001, 11.5),
+    "dimenet__full_graph_sm": (0.1115, 0.2137),
+    "dimenet__minibatch_lg": (1.859, 3.557),
+    "dimenet__molecule": (0.08946, 0.1717),
+    "dimenet__ogb_products": (608.7, 1166.0),
+    "meshgraphnet__full_graph_sm": (0.09794, 0.1966),
+    "meshgraphnet__minibatch_lg": (1.482, 1.113),
+    "meshgraphnet__molecule": (0.1344, 0.2696),
+    "meshgraphnet__ogb_products": (81.14, 162.9)}
 
 
 def wall_ms(torch, fn) -> tuple:
@@ -3836,7 +3865,9 @@ def mesh_dryrun(card, job: dict) -> list:
     ranks), every cell ok, one line per cell with its per-card GB, and
     its analysis: TFLOP, collective GB by kind and temp GB a card for one
     step, and the peak (arguments + temp); each decode cell's TFLOP at or
-    under the reference's (DRYRUN_REF_GFLOP)."""
+    under the reference's (DRYRUN_REF_GFLOP); each GNN cell's collective
+    GB at or under DRYRUN_REF_COLL_GB's, and on 2x16x16 at or under its
+    own on 16x16."""
     rc, text, wall = wait_job(job, DRYRUN_TIMEOUT_S, "the dry run")
     check(rc == 0 and "all 80 cells OK" in text,
           f"the dry run failed ({rc}):\n{text[-3000:]}")
@@ -3870,7 +3901,19 @@ def mesh_dryrun(card, job: dict) -> list:
             check(c["flops"] <= want,
                   f"dry run cell {path.stem}: {c['flops']:.6e} flops a "
                   f"card against the reference's {want:.6e}")
+        ref = DRYRUN_REF_COLL_GB.get(f"{res['arch']}__{res['shape']}")
+        if ref is not None:
+            want = ref[res["mesh"] != "16x16"]
+            lines[-1]["ref_coll_gb_per_device"] = want
+            check(c["collective_bytes"] <= want * 1e9,
+                  f"dry run cell {path.stem}: {c['collective_bytes']:.6e} "
+                  f"collective bytes a card against {want} GB")
     check(len(lines) == 80, f"{len(lines)} dry run cells, want 80")
+    coll = {ln["dryrun"]: ln["coll_gb_per_device"] for ln in lines}
+    for cell in DRYRUN_REF_COLL_GB:
+        one, two = coll[f"{cell}__16x16"], coll[f"{cell}__2x16x16"]
+        check(two <= one, f"dry run cell {cell}: {two} collective GB a "
+              f"card on 2x16x16 against {one} on 16x16")
     over = sorted(ln["dryrun"] for ln in lines if ln["peak_gb"] > 80)
     # SchNet's and DimeNet's ogb_products fit since the analysis leaves
     # out DTensor's sharding propagation and DimeNet's collectives run
@@ -3957,7 +4000,16 @@ MESH_CELL_SCALED_TOL = {"lm": 1e-5, "gnn": 1e-4, "recsys": 1e-4}
 MESH_CELL_RANKS = 8
 MESH_CELL_RANK_TIMEOUT_S = 300
 MESH_CELL_RANK_ARCHS = ("qwen3-1.7b", "moonshot-v1-16b-a3b", "minicpm-2b",
-                        "gat-cora", "dien")
+                        "gat-cora", "schnet", "dimenet", "meshgraphnet",
+                        "dien")
+# The four GNNs: DimeNet with its triplets in MESH_CELL_DIMENET_CHUNKS
+# chunks (``_pick_chunks`` patched; the smoke shape's 1,024 triplets make
+# one), so that its mesh path gathers and reduces once a block over
+# several; on the 8 ranks each GNN again with every gather and scatter by
+# blocks (``_blocks_cheaper`` patched: the smoke shapes take the whole
+# table), under ``<arch>#blocks``, against the same world-1 run.
+MESH_CELL_DIMENET_CHUNKS = 2
+MESH_CELL_GNNS = ("gat-cora", "schnet", "dimenet", "meshgraphnet")
 MESH_CELL_RANK_FIELDS = {
     "moonshot-v1-16b-a3b": dict(act_batch_axes=("data",),
                                 act_seq_axis="model",
@@ -4314,7 +4366,7 @@ def mesh_cell_decode(torch, dev, card, counted, mesh) -> tuple:
     return line, counts
 
 
-def mesh_rank_cell(torch, arch, mesh) -> dict:
+def mesh_rank_cell(torch, arch, mesh, blocks: bool = False) -> dict:
     """One smoke train step of ``arch`` on ``mesh`` (CPU tensors) for
     phase 5o b: the seed-0 weights (GAT's attention vectors drawn from
     N(0, 0.5^2), away from the zero init whose gradients are rounding
@@ -4322,7 +4374,22 @@ def mesh_rank_cell(torch, arch, mesh) -> dict:
     2e-6): from zero moments an element whose gradient lies at the noise
     floor takes a step of full size and random sign), the step at
     MESH_CELL_START, placed by the cell's rules; the loss, grad norm and,
-    gathered whole, the new master weights, m and v."""
+    gathered whole, the new master weights, m and v. DimeNet's triplets
+    run in MESH_CELL_DIMENET_CHUNKS chunks; with ``blocks`` every gather
+    and scatter goes by blocks."""
+    from repro_torch.models import gnn
+    pick, cheaper = gnn._pick_chunks, gnn._blocks_cheaper
+    if arch == "dimenet":
+        gnn._pick_chunks = lambda t, target: MESH_CELL_DIMENET_CHUNKS
+    if blocks:
+        gnn._blocks_cheaper = lambda sp, n, k: True
+    try:
+        return _mesh_rank_cell(torch, arch, mesh)
+    finally:
+        gnn._pick_chunks, gnn._blocks_cheaper = pick, cheaper
+
+
+def _mesh_rank_cell(torch, arch, mesh) -> dict:
     import numpy as np
     from repro_torch.configs import get_arch
     from repro_torch.distributed import sharding as shr
@@ -4449,11 +4516,14 @@ def mesh_cells_rank_main(args) -> int:
         mesh = make_host_mesh(2 if world > 1 else 1, max(world // 2, 1),
                               device_type="cpu")
         out = {}
-        for arch in MESH_CELL_RANK_ARCHS:
-            res = mesh_rank_cell(torch, arch, mesh)
+        cases = [(a, a, False) for a in MESH_CELL_RANK_ARCHS]
+        if world > 1:
+            cases += [(f"{a}#blocks", a, True) for a in MESH_CELL_GNNS]
+        for case, arch, blocks in cases:
+            res = mesh_rank_cell(torch, arch, mesh, blocks)
             for k, v in res.items():
                 if args.mesh_rank == 0 or k in ("loss", "grad_norm"):
-                    out[f"{arch}/{k}"] = v
+                    out[f"{case}/{k}"] = v
         for arch, batch in MESH_CELL_RANK_DECODE:
             res = mesh_rank_decode(torch, arch, batch, mesh)
             out.update({f"decode/{arch}/{batch}/{k}": v
@@ -4516,28 +4586,31 @@ def mesh_cell_ranks(torch, card) -> dict:
                        for r in range(world)]
     want = runs[1][0]
     arch_errs = {}
-    for arch in MESH_CELL_RANK_ARCHS:
+    cases = [(a, a) for a in MESH_CELL_RANK_ARCHS] + [
+        (f"{a}#blocks", a) for a in MESH_CELL_GNNS]
+    for case, arch in cases:
         lm = get_arch(arch).family == "lm"
         for k in ("loss", "grad_norm"):
             w = float(want[f"{arch}/{k}"])
             for r, res in enumerate(runs[MESH_CELL_RANKS]):
-                g = float(res[f"{arch}/{k}"])
+                g = float(res[f"{case}/{k}"])
                 check(abs(g - w) <= MESH_CELL_TOL * abs(w),
-                      f"{arch} {k}: rank {r} {g} vs world 1 {w}")
+                      f"{case} {k}: rank {r} {g} vs world 1 {w}")
         worst = 0.0
         got = runs[MESH_CELL_RANKS][0]
         for key in want:
             if not key.startswith(f"{arch}/") or key.endswith(
                     ("/loss", "/grad_norm")):
                 continue
-            g, w = torch.from_numpy(got[key]), torch.from_numpy(want[key])
+            mine = case + key[len(arch):]
+            g, w = torch.from_numpy(got[mine]), torch.from_numpy(want[key])
             if not lm:
-                allclose_err(torch, g, w, MESH_CELL_TOL, f"{key} (8 ranks)")
+                allclose_err(torch, g, w, MESH_CELL_TOL, f"{mine} (8 ranks)")
             if float(w.abs().max()) > 0:
                 worst = max(worst, scaled_err(
                     torch, g, w, MESH_CELL_TOL if lm or "master" in key
-                    else MESH_CELL_SCALED_TOL["gnn"], f"{key} (8 ranks)"))
-        arch_errs[arch] = worst
+                    else MESH_CELL_SCALED_TOL["gnn"], f"{mine} (8 ranks)"))
+        arch_errs[case] = worst
     decode_errs, splits, route_calls = {}, {}, {}
     for arch, batch in MESH_CELL_RANK_DECODE:
         tag, cfg = f"decode/{arch}/{batch}", get_arch(arch).make_smoke_config()
@@ -4576,6 +4649,8 @@ def mesh_cell_ranks(torch, card) -> dict:
         route_calls[f"{arch}/{batch}"] = len(calls)
     return {"mesh_cell_ranks": MESH_CELL_RANKS, "mesh": "2x4 gloo (CPU)",
             "torch": torch.__version__, "archs": list(MESH_CELL_RANK_ARCHS),
+            "gnn_by_blocks": list(MESH_CELL_GNNS),
+            "dimenet_triplet_chunks": MESH_CELL_DIMENET_CHUNKS,
             "moonshot_capacity_factor": MESH_CELL_NO_DROP,
             "loss": {a: float(want[f"{a}/loss"])
                      for a in MESH_CELL_RANK_ARCHS},

@@ -45,6 +45,7 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 
 class P(tuple):
@@ -256,6 +257,81 @@ def block_offset(mesh, placements, dim: int, local_size: int) -> int:
 def sharded_dims(placements) -> tuple:
     """The mesh dims on which a placement splits a tensor."""
     return tuple(i for i, p in enumerate(placements) if p.is_shard())
+
+
+#: Each mesh's groups over several of its dims, made once a mesh.
+_GROUPS = WeakIdKeyDictionary()
+
+
+def group_over(mesh, dims: tuple):
+    """The process group over mesh dims ``dims`` (indices in mesh order)
+    that holds this rank: one dim's own group, or for several dims one
+    group over all of them (``("pod", "data")`` is one collective, not one
+    per dim), its ranks in the order of ``flat_coordinate``; None when the
+    dims hold one rank. The groups of several dims are made the first time
+    any is asked for, every rank calling ``dist.new_group`` for each in the
+    same order; their ranks come from the mesh's own dim groups (a mesh
+    lays its ranks out with one stride a dim)."""
+    size = math.prod(mesh.size(i) for i in dims)
+    if size == 1:
+        return None
+    if len(dims) == 1:
+        return mesh.get_group(dims[0])
+    made = _GROUPS.setdefault(mesh, {})
+    if dims not in made:
+        import itertools
+
+        import torch.distributed as dist
+        me = dist.get_rank()
+        stride = []
+        for i in range(mesh.ndim):
+            ranks = (dist.get_process_group_ranks(mesh.get_group(i))
+                     if mesh.size(i) > 1 else [me])
+            stride.append(ranks[1] - ranks[0] if len(ranks) > 1 else 0)
+        base = me - sum(mesh.get_local_rank(i) * stride[i]
+                        for i in range(mesh.ndim))
+        rest = [i for i in range(mesh.ndim) if i not in dims]
+        for fixed in itertools.product(*(range(mesh.size(i)) for i in rest)):
+            at = base + sum(c * stride[i] for c, i in zip(fixed, rest))
+            row = [at + sum(c * stride[i] for c, i in zip(coord, dims))
+                   for coord in itertools.product(
+                       *(range(mesh.size(i)) for i in dims))]
+            if row != sorted(row):
+                raise ValueError(f"mesh dims {dims} do not hold their ranks "
+                                 f"in order: {row}")
+            group = dist.new_group(row)
+            if me in row:
+                made[dims] = group
+    return made[dims]
+
+
+def reduced(g, placements: tuple):
+    """DTensor ``g`` (a gradient: its block is reduced in place) placed as
+    ``placements``, its partial sums over several mesh dims that
+    ``placements`` replicates reduced in one all-reduce over those dims
+    together (``group_over``), where DTensor runs one per dim."""
+    from torch.distributed.tensor import Replicate
+    mesh = g.device_mesh
+    dims = tuple(i for i, p in enumerate(g.placements)
+                 if p.is_partial("sum") and placements[i].is_replicate())
+    group = group_over(mesh, dims) if len(dims) > 1 else None
+    if group is not None:
+        import torch.distributed as dist
+        t = g.to_local()
+        dist.all_reduce(t, group=group)
+        g = from_local(t, mesh, tuple(Replicate() if i in dims else p
+                                      for i, p in enumerate(g.placements)))
+    return g if tuple(g.placements) == tuple(placements) else g.redistribute(
+        mesh, placements)
+
+
+def flat_coordinate(mesh, dims: tuple) -> int:
+    """This rank's coordinate over mesh dims ``dims`` flattened, the
+    outermost first (its block's number, as ``block_offset`` counts)."""
+    idx = 0
+    for i in dims:
+        idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+    return idx
 
 
 def data_axes(mesh) -> tuple[str, ...]:

@@ -23,18 +23,18 @@ edges.
 
 Over a device mesh (a sharded cell of ``train.step.build_cell``) the
 graph's tensors are DTensors split over the data axes by rows (nodes,
-edges, triplets) and the parameters are replicated. The dense steps are
-DTensor ops. A gather ``x[index]`` (``_rows``) takes the replicated ``x``
-and this rank's block of the index; a scatter into nodes (``scatter_sum``,
-the softmax's max) adds this rank's rows into all of them and the partial
-results are summed over the ranks (the max reduced), then placed back on
-the rows by ``_constrain_rows`` at the reference's sites when
-``set_gnn_data_axes`` is set, else replicated. DimeNet's triplet chunks
-gather and scatter on this rank's tensors, with one gather of the edge
-states and one reduction of the aggregate a block (``_mesh_triplets``).
-The softmax's
-max passes its gradient (zero in exact arithmetic: a softmax does not
-depend on the shift it subtracts) to each rank's own largest score.
+edges, triplets), the same on each rank of ``model``, and the parameters
+are replicated. The dense steps are DTensor ops; the gathers
+(``_gather_rows``) and scatters (``scatter_sum``, the softmax's max) run
+explicit collectives on each rank's blocks, whole or by blocks as the
+shapes make cheaper (see "Gathers and scatters over a mesh" below), and
+the gathers that read their tables at one point share each collective. A
+scatter's result stays on the rows by blocks; whole, it is placed back on
+the rows when ``set_gnn_data_axes`` is set, else replicated. DimeNet's
+triplet chunks gather the edge states and reduce the aggregate once a
+block (``_mesh_triplets``). The softmax's max passes its gradient (zero
+in exact arithmetic: a softmax does not depend on the shift it subtracts)
+to each rank's own largest score.
 
 Ties: ``jnp.maximum`` and ``jnp.clip`` pass half the gradient to each side
 of a tie and ``torch.clamp`` passes all of it to the input, so a clip of a
@@ -47,11 +47,14 @@ from __future__ import annotations
 import contextvars
 import dataclasses
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.graph import resolve_device
 from repro_torch.distributed import sharding as shr
@@ -103,29 +106,6 @@ def _constrain_rows(x: torch.Tensor) -> torch.Tensor:
     return x.redistribute(mesh, shr.NamedSharding(mesh, spec).placements)
 
 
-def _row_placements(index, ndim: int) -> tuple:
-    """The placements of a tensor of ``ndim`` dims whose rows are
-    ``index``'s: its split of dim 0, replicated elsewhere."""
-    from torch.distributed.tensor import Replicate, Shard
-    return tuple(Shard(0) if p.is_shard(0) else Replicate()
-                 for p in index.placements)
-
-
-def _summed(out: torch.Tensor, index, reduce: str = "sum"):
-    """This rank's scatter ``out`` (of its rows of ``index``) as the sum
-    (or max) over the ranks that split the rows: constrained to the rows,
-    or replicated."""
-    from torch.distributed.tensor import Partial, Replicate
-    mesh = index.device_mesh
-    split = shr.sharded_dims(index.placements)
-    out = shr.from_local(out, mesh, tuple(
-        Partial(reduce) if i in split else Replicate()
-        for i in range(mesh.ndim)))
-    if _GNN_DATA_AXES.get() and reduce == "sum":
-        return _constrain_rows(out)
-    return out.redistribute(mesh, (Replicate(),) * mesh.ndim)
-
-
 def _index_add(n: int, index: torch.Tensor,
                values: torch.Tensor) -> torch.Tensor:
     """``zeros(n, ...).index_add(0, index, values)`` (every index in
@@ -134,17 +114,29 @@ def _index_add(n: int, index: torch.Tensor,
                                                                values)
 
 
+def _scatter_local(values: torch.Tensor, index: torch.Tensor, n: int,
+                   reduce: str = "sum") -> torch.Tensor:
+    """The sum (or max, -1e30 where no row lands) of ``values`` rows into
+    ``n`` rows by ``index``; an index ≥ n (padding) goes to a drop row
+    that is cut off, as ``mode="drop"``."""
+    idx = torch.where(index < n, index, n).long()
+    if reduce == "sum":
+        out = values.new_zeros((n + 1,) + values.shape[1:])
+        return out.index_add(0, idx, values)[:n]
+    out = torch.full((n + 1,) + values.shape[1:], -1e30, dtype=values.dtype,
+                     device=values.device)
+    return out.scatter_reduce(0, _expand_rows(idx, values), values,
+                              "amax")[:n]
+
+
 def scatter_sum(values: torch.Tensor, index: torch.Tensor,
                 n: int) -> torch.Tensor:
     """Σ of ``values`` rows into ``n`` rows by ``index``; an index ≥ n
-    (padding) goes to a drop row that is cut off, as ``mode="drop"``."""
+    (padding) goes to a drop row that is cut off, as ``mode="drop"``. On
+    a mesh, ``_mesh_scatter``."""
     if shr.is_dtensor(index):
-        vl = shr.local(values, _row_placements(index, values.dim()))
-        return _summed(scatter_sum(vl, shr.local(index, index.placements), n),
-                       index)
-    idx = torch.where(index < n, index, n).long()
-    out = values.new_zeros((n + 1,) + values.shape[1:])
-    return out.index_add(0, idx, values)[:n]
+        return _mesh_scatter(values, index, n, "sum")
+    return _scatter_local(values, index, n)
 
 
 def _clip_index(index: torch.Tensor, n: int) -> torch.Tensor:
@@ -157,14 +149,435 @@ def _rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     ``index_add`` (one atomic add a row), where ``x[index]``'s sorts the
     index and walks each repeated row in one warp, which serializes a hub
     (rmat's thousands of edges out of one node) or a padding row. On a
-    mesh: the replicated ``x`` at this rank's block of the index (``x``'s
-    gradient is a partial sum over the ranks that split the index)."""
-    if not shr.is_dtensor(index):
-        return x.index_select(0, index)
-    xl = _whole(x, shr.sharded_dims(index.placements))
-    out = xl.index_select(0, shr.local(index, index.placements))
-    return shr.from_local(out, index.device_mesh,
-                          _row_placements(index, out.dim()))
+    mesh, ``_gather_rows``."""
+    return _gather_rows((x, index))[0]
+
+
+# ---------------------------------------------------------------------------
+# Gathers and scatters over a mesh
+# ---------------------------------------------------------------------------
+#
+# A graph's index (``src``, ``dst``, the triplets' edge ids) has its rows
+# split over the data axes D (n_d blocks) and the same on every rank of
+# the other mesh dims M (``model``: m ranks). A table split over D as the
+# index's rows is read and written in one of two layouts, chosen per call
+# from the shapes (``_by_blocks``):
+#   * whole: the table all-gathered over D and each rank's own index rows
+#     taken from it, the gradients added into one whole table and
+#     reduce-scattered over D once; a scatter adds the rank's rows into a
+#     whole table, reduce-scattered over D (all-reduced when the rows are
+#     not constrained).
+#   * by blocks, the decomposition of the reference's partitioner (its
+#     HLO: edge blocks over ``model``, node blocks over D): each D rank's
+#     index rows are cut into m pieces (the last padded), and rank
+#     (dc, mc) takes piece mc of every D rank's rows (int32 gathered over
+#     D, ``_block_plan``). A gather takes rows from the rank's own node
+#     block only
+#     (zeros elsewhere); one reduce-scatter over D leaves each rank its
+#     own piece summed and one all-gather over M assembles its D rank's
+#     rows, the layout ``_constrain_rows`` places (the reference
+#     all-reduces over D, then permutes: the same sum, landing where its
+#     permute takes it). A scatter takes the pieces' values (an all-gather
+#     over D), adds them into the rank's node block, and one all-reduce
+#     over M sums the block. Each side's backward is the other's forward;
+#     the gathers of one call share each collective.
+# Each collective runs over one group: several data axes (``("pod",
+# "data")``) are flattened into one (``sharding.group_over``).
+
+@dataclasses.dataclass(frozen=True)
+class _Split:
+    """How an index's rows lie on its mesh: split over mesh dims ``d``
+    (``n_d`` blocks, this rank's ``dc``), the same on each rank of the
+    others (``m`` ranks, this rank's ``mc``), with the group over each
+    (None for one rank)."""
+    mesh: object
+    d: tuple
+    n_d: int
+    m: int
+    dc: int
+    mc: int
+    d_group: object
+    m_group: object
+
+    def rows(self) -> tuple:
+        """The placements of a tensor whose rows are split as the
+        index's."""
+        from torch.distributed.tensor import Replicate, Shard
+        return tuple(Shard(0) if i in self.d else Replicate()
+                     for i in range(self.mesh.ndim))
+
+
+def _split_of(index) -> _Split:
+    mesh = index.device_mesh
+    d = shr.sharded_dims(index.placements)
+    rest = tuple(i for i in range(mesh.ndim) if i not in d)
+    return _Split(mesh, d, math.prod(mesh.size(i) for i in d),
+                  math.prod(mesh.size(i) for i in rest),
+                  shr.flat_coordinate(mesh, d),
+                  shr.flat_coordinate(mesh, rest),
+                  shr.group_over(mesh, d), shr.group_over(mesh, rest))
+
+
+def _piece(sp: _Split, k_loc: int) -> int:
+    """The rows of one of the m pieces of a D rank's k_loc index rows (the
+    last padded)."""
+    return -(-k_loc // sp.m)
+
+
+def _blocks_cheaper(sp: _Split, n: int, k: int) -> bool:
+    """Whether k index rows (over all D ranks) against a table of n rows
+    move fewer rows a card by blocks than whole, counted as the dry run
+    counts them (each collective's operand) over a gather and its gradient
+    (a scatter and its gradient move the same). With pieces of q rows: by
+    blocks n_d·q reduce-scattered over D, q all-gathered over M and again
+    over D, n/n_d all-reduced over M; whole, n/n_d all-gathered over D and
+    n reduce-scattered."""
+    return _piece(sp, k // sp.n_d) * (sp.n_d + 2) < n
+
+
+def _by_blocks(sp: _Split, n: int, k: int) -> bool:
+    """Whether a gather from (or a scatter into) a table of n rows by k
+    index rows goes by blocks: more than one rank, and cheaper
+    (``_blocks_cheaper``)."""
+    return (sp.n_d * sp.m > 1 and n % sp.n_d == 0
+            and _blocks_cheaper(sp, n, k))
+
+
+def _all_gather(t: torch.Tensor, group, n: int) -> torch.Tensor:
+    """[q, ...] → [n·q, ...]: the group's blocks in rank order."""
+    if group is None:
+        return t
+    out = t.new_empty((n * t.shape[0],) + t.shape[1:])
+    dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+    return out
+
+
+def _reduce_scatter(t: torch.Tensor, group, n: int) -> torch.Tensor:
+    """[n·q, ...] summed over the group, rank r keeping block r."""
+    if group is None:
+        return t
+    out = t.new_empty((t.shape[0] // n,) + t.shape[1:])
+    dist.reduce_scatter_tensor(out, t.contiguous(), group=group)
+    return out
+
+
+def _all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``t`` summed (or its max taken) over the group, in place."""
+    if group is not None:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=group)
+    return t
+
+
+def _expand_rows(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-row ``mask`` [k] broadcast to ``like`` [k, ...]."""
+    return mask.view((-1,) + (1,) * (like.dim() - 1)).expand_as(like)
+
+
+class _Plan(NamedTuple):
+    """A rank's rows of a gather or scatter by blocks (``_block_plan``)."""
+    lidx: torch.Tensor      # [n_d·q] int32: each row's row in the block
+    ok: torch.Tensor        # [n_d·q] whether the node block holds it
+    k_loc: int              # the D rank's index rows (m·q less padding)
+
+
+def _block_plan(sp: _Split, il: torch.Tensor, n: int) -> _Plan:
+    """This rank's rows of a gather or scatter by blocks against a table of
+    n rows, from ``il``, its D rank's index rows: piece ``mc`` of every D
+    rank's rows (padded with n to m equal pieces; an all-gather over D),
+    each with its row in this rank's node block and whether the block
+    holds it (an index ≥ n is held by none). A row not held points at a
+    row spread over the block, so that no one row takes their adds."""
+    k_loc = il.shape[0]
+    pad = sp.m * _piece(sp, k_loc) - k_loc
+    if pad:
+        il = torch.cat([il, il.new_full((pad,), n)])
+    piece = il.reshape(sp.m, -1)[sp.mc].to(torch.int32)
+    b = _all_gather(piece, sp.d_group, sp.n_d).long()
+    n_loc = n // sp.n_d
+    local = b - sp.dc * n_loc
+    ok = (local >= 0) & (local < n_loc)
+    spread = torch.remainder(torch.arange(b.shape[0], device=b.device),
+                             n_loc)
+    return _Plan(torch.where(ok, local, spread).int(), ok, k_loc)
+
+
+def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """``t`` with zero rows after it up to ``rows``."""
+    if t.shape[0] == rows:
+        return t
+    return torch.cat([t, t.new_zeros((rows - t.shape[0],) + t.shape[1:])])
+
+
+#: Each index DTensor's ``_Split`` and rows on this rank (a view), made
+#: once and dropped with it. Block plans are not kept here: a batch's own
+#: index (``g.dst``) outlives the step's graph, and a plan lives as long
+#: as the graph that saves it.
+_SPLITS = WeakIdKeyDictionary()
+
+
+def _index_split(index) -> tuple:
+    """(``_Split``, this rank's rows) of an index DTensor."""
+    got = _SPLITS.get(index)
+    if got is None:
+        got = (_split_of(index), shr.local(index, index.placements))
+        _SPLITS[index] = got
+    return got
+
+
+def _pack(ts, lead: int) -> torch.Tensor:
+    """Tensors whose rows split into ``lead`` equal runs as one [lead, Σ]
+    buffer: run r of each, one after the other."""
+    if len(ts) == 1:
+        return ts[0].reshape(lead, -1)
+    return torch.cat([t.reshape(lead, -1) for t in ts], 1)
+
+
+def _unpack(buf: torch.Tensor, lead: int, shapes) -> list:
+    """``_pack``'s inverse: a tensor of each of ``shapes`` from ``buf``."""
+    sizes = [math.prod(s) // lead for s in shapes]
+    return [p.reshape(s) for p, s in
+            zip(buf.reshape(lead, -1).split(sizes, 1), shapes)]
+
+
+def _columns(widths) -> list:
+    """The first column of each of tables of ``widths`` side by side."""
+    return [sum(widths[:j]) for j in range(len(widths))]
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """``tables[j][index]`` by blocks for each ``(j, plan)`` of ``pairs``
+    (the tables [n_loc, w_j] of one dtype): the rows the rank's
+    node block holds, zeros elsewhere; one reduce-scatter over D, one
+    all-gather over M. Backward: one all-gather over D of the pieces'
+    gradients, each added into its table's node block, one all-reduce over
+    M of all the tables side by side."""
+
+    @staticmethod
+    def forward(ctx, sp, pairs, *tables):
+        ctx.sp, ctx.n_loc = sp, tables[0].shape[0]
+        ctx.widths = [t.shape[1] for t in tables]
+        ctx.which = [(j, plan.k_loc) for j, plan in pairs]
+        ctx.save_for_backward(*(t for _j, plan in pairs
+                                for t in (plan.lidx, plan.ok)))
+        parts = []
+        for j, plan in pairs:
+            part = tables[j].index_select(0, plan.lidx)
+            parts.append(part.masked_fill_(_expand_rows(~plan.ok, part), 0))
+        mine = _reduce_scatter(_pack(parts, sp.n_d), sp.d_group, sp.n_d)
+        every = _all_gather(mine, sp.m_group, sp.m)            # [m, Σ]
+        return tuple(o[:plan.k_loc] for o, (_j, plan) in zip(_unpack(
+            every, sp.m, [(sp.m * plan.lidx.shape[0] // sp.n_d,
+                           ctx.widths[j]) for j, plan in pairs]), pairs))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        sp, widths = ctx.sp, ctx.widths
+        saved = ctx.saved_tensors
+        pairs = [(j, _Plan(saved[2 * i], saved[2 * i + 1], k_loc))
+                 for i, (j, k_loc) in enumerate(ctx.which)]
+        mine = torch.cat([
+            _pad_rows(g, sp.m * plan.lidx.shape[0] // sp.n_d).reshape(
+                sp.m, -1)[sp.mc] for g, (_j, plan) in zip(grads, pairs)])
+        every = _all_gather(mine[None], sp.d_group, sp.n_d)    # [n_d, Σ]
+        parts = _unpack(every, sp.n_d, [(plan.lidx.shape[0], widths[j])
+                                        for j, plan in pairs])
+        cols = _columns(widths)
+        buf = every.new_zeros((ctx.n_loc, sum(widths)))
+        for part, (j, plan) in zip(parts, pairs):
+            buf[:, cols[j]:cols[j] + widths[j]].index_add_(
+                0, plan.lidx,
+                part.masked_fill_(_expand_rows(~plan.ok, part), 0))
+        _all_reduce(buf, sp.m_group)
+        return (None, None,
+                *(buf[:, a:a + w] for a, w in zip(cols, widths)))
+
+
+class _GatherWhole(torch.autograd.Function):
+    """``tables[j][index]`` whole for each ``(j, index)`` of ``pairs``
+    (the tables [n_loc, w_j] of one dtype, side by side): one all-gather
+    over D, each rank's own index rows taken from it. Backward: every
+    gradient added into one whole table (each table's columns),
+    reduce-scattered over D once."""
+
+    @staticmethod
+    def forward(ctx, sp, pairs, *tables):
+        ctx.sp, ctx.which = sp, [j for j, _idx in pairs]
+        ctx.widths = [t.shape[1] for t in tables]
+        ctx.save_for_backward(*(idx for _j, idx in pairs))
+        side = tables[0] if len(tables) == 1 else torch.cat(tables, 1)
+        whole = _all_gather(side, sp.d_group, sp.n_d)
+        cols = _columns(ctx.widths)
+        ctx.n = whole.shape[0]
+        return tuple(whole[:, cols[j]:cols[j] + ctx.widths[j]].index_select(
+            0, idx) for j, idx in pairs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        sp, widths = ctx.sp, ctx.widths
+        cols = _columns(widths)
+        buf = grads[0].new_zeros((ctx.n, sum(widths)))
+        for g, j, idx in zip(grads, ctx.which, ctx.saved_tensors):
+            buf[:, cols[j]:cols[j] + widths[j]].index_add_(0, idx, g)
+        mine = _reduce_scatter(buf, sp.d_group, sp.n_d)
+        return (None, None,
+                *(mine[:, a:a + w] for a, w in zip(cols, widths)))
+
+
+def _take(sp: _Split, items) -> list:
+    """The rank's rows ``x[index]`` [k_loc, ...] of each ``(x, il, plan)``
+    of ``items``: ``x`` a DTensor table, ``il`` the rank's index rows,
+    ``plan`` its block plan (``_block_plan``) or None to go whole. A table
+    replicated on the mesh is read on the rank (its gradient summed over
+    D); any other is placed as the index's rows. The tables that go one
+    way share one collective a side (by dtype and rows). At one rank each
+    pair is read on its own, as with no mesh, so the step is the no-mesh
+    step bit for bit."""
+    out = [None] * len(items)
+    calls: dict = {}
+    for i, (x, il, plan) in enumerate(items):
+        if all(p.is_replicate() for p in x.placements):
+            out[i] = _replicated(x, sp).index_select(0, il)
+            continue
+        if sp.n_d * sp.m == 1:     # each read on its own, as with no mesh
+            out[i] = shr.local(x, sp.rows()).index_select(0, il)
+            continue
+        key = (plan is not None, x.dtype, x.shape[0])
+        tables, pairs, slots = calls.setdefault(key, ([], [], []))
+        if not any(t is x for t in tables):
+            tables.append(x)
+        j = next(j for j, t in enumerate(tables) if t is x)
+        pairs.append((j, plan if plan is not None else il))
+        slots.append(i)
+    for (blocks, _dtype, _n), (tables, pairs, slots) in calls.items():
+        local = [shr.local(x, sp.rows()) for x in tables]
+        flat = [t.reshape(t.shape[0], -1) for t in local]
+        got = (_GatherBlocks if blocks else _GatherWhole).apply(sp, pairs,
+                                                                *flat)
+        for i, g, (j, _p) in zip(slots, got, pairs):
+            out[i] = g.reshape((-1,) + local[j].shape[1:])
+    return out
+
+
+def _gather_rows(*pairs) -> list:
+    """``x[index]`` for each ``(x, index)`` of ``pairs``, tables read at the
+    same point. Plain tensors: ``index_select``. On a mesh (every index a
+    DTensor split over the same data axes D) each goes whole or by blocks
+    (``_by_blocks`` on its table's and index's rows; a table replicated on
+    the mesh is read on the rank), and the pairs that go one way share
+    their collectives: one a side for all of them."""
+    if not shr.is_dtensor(pairs[0][1]):
+        return [x.index_select(0, index) for x, index in pairs]
+    items = []
+    for x, index in pairs:
+        sp, il = _index_split(index)
+        n, k = x.shape[0], index.shape[0]
+        blocks = _by_blocks(sp, n, k) and not all(p.is_replicate()
+                                                  for p in x.placements)
+        items.append((x, il, _block_plan(sp, il, n) if blocks else None))
+    out = _take(sp, items)
+    return [shr.from_local(o, sp.mesh, sp.rows()) for o in out]
+
+
+class _ToBlocks(torch.autograd.Function):
+    """Rows split as an index's [k_loc, ...] → the rank's rows of a scatter
+    by blocks [n_d·k_loc/m, ...]: piece ``mc`` of every D rank's rows, one
+    all-gather over D. Backward: one reduce-scatter over D of their
+    gradients, one all-gather over M."""
+
+    @staticmethod
+    def forward(ctx, sp, t):
+        ctx.sp, ctx.shape = sp, t.shape
+        piece = _pad_rows(t, sp.m * _piece(sp, t.shape[0])).reshape(
+            sp.m, -1)[sp.mc]
+        return _all_gather(piece[None], sp.d_group, sp.n_d).reshape(
+            (-1,) + t.shape[1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        sp = ctx.sp
+        mine = _reduce_scatter(g.reshape(sp.n_d, -1), sp.d_group, sp.n_d)
+        every = _all_gather(mine, sp.m_group, sp.m)
+        return None, every.reshape((-1,) + ctx.shape[1:])[:ctx.shape[0]]
+
+
+class _Reduce(torch.autograd.Function):
+    """Each rank's partial rows summed (``op`` "sum") or their max taken
+    over ``group``. The result feeds the same computation on every rank of
+    the group, so the gradient passes through (a max's to each rank's own
+    largest entries)."""
+
+    @staticmethod
+    def forward(ctx, t, group, op):
+        return _all_reduce(t.clone(), group, op)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Each rank's partial table [n, ...] summed over ``group``, rank r
+    keeping its rows' block r; the backward all-gathers the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, group, n):
+        ctx.group, ctx.n = group, n
+        return _reduce_scatter(t, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.n), None, None
+
+
+def _reduce_whole(sp: _Split, out: torch.Tensor, reduce: str):
+    """A whole-table scatter's partial result ``out`` [n, ...] on each rank
+    as a DTensor: a sum reduce-scattered onto the rows over D when the rows
+    are constrained (and n splits evenly), else all-reduced over D,
+    replicated."""
+    from torch.distributed.tensor import Replicate
+    if (reduce == "sum" and _GNN_DATA_AXES.get()
+            and out.shape[0] % sp.n_d == 0):
+        if sp.d_group is not None:
+            out = _ReduceScatter.apply(out, sp.d_group, sp.n_d)
+        return shr.from_local(out, sp.mesh, sp.rows())
+    if sp.d_group is not None:
+        out = _Reduce.apply(out, sp.d_group, reduce)
+    return shr.from_local(out, sp.mesh, (Replicate(),) * sp.mesh.ndim)
+
+
+def _scatter_blocks(sp: _Split, values: torch.Tensor, plan: tuple, n: int,
+                    reduce: str):
+    """A scatter by blocks of the rank's rows ``values`` (split as the
+    index's) into a table of n rows split over D: the pieces' values
+    (``_ToBlocks``) added (or their max taken, -1e30 where none lands)
+    into the rank's node block, one all-reduce over M. A DTensor placed as
+    the index's rows."""
+    lidx, ok, _k = plan
+    vb = _ToBlocks.apply(sp, values)
+    shape = (n // sp.n_d,) + vb.shape[1:]
+    if reduce == "sum":
+        out = vb.new_zeros(shape).index_add(
+            0, lidx, torch.where(_expand_rows(ok, vb), vb, 0))
+    else:
+        out = torch.full(shape, -1e30, dtype=vb.dtype, device=vb.device
+                         ).scatter_reduce(
+            0, _expand_rows(lidx.long(), vb),
+            torch.where(_expand_rows(ok, vb), vb, -1e30), "amax")
+    if sp.m_group is not None:
+        out = _Reduce.apply(out, sp.m_group, reduce)
+    return shr.from_local(out, sp.mesh, sp.rows())
+
+
+def _mesh_scatter(values: torch.Tensor, index, n: int, reduce: str):
+    """``scatter_sum`` (or ``_segment_max``) on a mesh: by blocks or whole
+    (``_by_blocks``), the whole table's result as ``_reduce_whole`` places
+    it."""
+    sp, il = _index_split(index)
+    vl = shr.local(values, sp.rows())
+    if _by_blocks(sp, n, index.shape[0]):
+        return _scatter_blocks(sp, vl, _block_plan(sp, il, n), n, reduce)
+    return _reduce_whole(sp, _scatter_local(vl, il, n, reduce), reduce)
 
 
 def _max(x: torch.Tensor, floor: float) -> torch.Tensor:
@@ -181,14 +594,8 @@ def _segment_max(scores: torch.Tensor, index: torch.Tensor, n: int):
     """The per-node max of ``scores`` [E, H] over ``index`` (an index ≥ n
     dropped), -1e30 where a node has no edge: [n, H]."""
     if shr.is_dtensor(index):
-        sl = shr.local(scores, _row_placements(index, scores.dim()))
-        return _summed(_segment_max(sl, shr.local(index, index.placements),
-                                    n), index, "max")
-    idx = torch.where(index < n, index, n).long()
-    mx = torch.full((n + 1,) + scores.shape[1:], -1e30, dtype=scores.dtype,
-                    device=scores.device)
-    return mx.scatter_reduce(0, idx[:, None].expand_as(scores), scores,
-                             "amax")[:n]
+        return _mesh_scatter(scores, index, n, "max")
+    return _scatter_local(scores, index, n, "max")
 
 
 def segment_softmax(scores: torch.Tensor, index: torch.Tensor, n: int):
@@ -444,8 +851,8 @@ def gat_forward(cfg: GATConfig, params: GNNParams,
         h = _constrain_rows(torch.einsum("nf,fhd->nhd", x, lp["w"]))
         e_src = torch.sum(h * lp["a_src"], -1)                # [N, H]
         e_dst = torch.sum(h * lp["a_dst"], -1)
-        scores = _leaky_relu(_rows(e_src, src_safe)
-                             + _rows(e_dst, dst_safe))          # [E, H]
+        scores = _leaky_relu(torch.add(*_gather_rows(
+            (e_src, src_safe), (e_dst, dst_safe))))           # [E, H]
         alpha = segment_softmax(scores, g.dst, n)             # [E, H]
         msg = _constrain_rows(_rows(h, src_safe) * alpha[..., None])
         agg = scatter_sum(torch.where(dst_ok, msg, 0), g.dst, n)
@@ -495,8 +902,8 @@ def schnet_forward(cfg: SchNetConfig, params: GNNParams,
     h = _atom_embed(params, g.node_feat)
     src_safe = _clip_index(g.src, n)
     dst_safe = _clip_index(g.dst, n)
-    d_ij = _norm(_rows(g.positions, dst_safe) - _rows(g.positions, src_safe)
-                 + 1e-9)
+    d_ij = _norm(torch.sub(*_gather_rows((g.positions, dst_safe),
+                                         (g.positions, src_safe))) + 1e-9)
     dst_ok = (g.dst < n)[:, None]
 
     # The RBF expansion (E × n_rbf: 74 GB float32 at ogb_products) is
@@ -571,7 +978,8 @@ def dimenet_forward(cfg: DimeNetConfig, params: GNNParams,
     n = g.n_nodes
     src_safe = _clip_index(g.src, n)
     dst_safe = _clip_index(g.dst, n)
-    vec = _rows(g.positions, dst_safe) - _rows(g.positions, src_safe)
+    vec = torch.sub(*_gather_rows((g.positions, dst_safe),
+                                  (g.positions, src_safe)))
     d_ij = _norm(vec + 1e-9)
 
     # Radial basis: sin(kπ d / c) / d  (Bessel j0 harmonics).
@@ -584,7 +992,7 @@ def dimenet_forward(cfg: DimeNetConfig, params: GNNParams,
     rbf_d = _mlp(params["rbf_proj"], rbf)
     m = _constrain_rows(_mlp(
         params["edge_init"],
-        torch.cat([_rows(h, src_safe), _rows(h, dst_safe), rbf_d], -1),
+        torch.cat([*_gather_rows((h, src_safe), (h, dst_safe)), rbf_d], -1),
         act=_silu, final_act=True))                         # [E, d]
     return _dimenet_blocks(cfg, params, g, m, rbf, vec, n)
 
@@ -707,86 +1115,81 @@ def _plain_triplets(cfg, g, vec, rbf, e, d, t, n_chunks):
     return aggregate
 
 
-class _GatherRows(torch.autograd.Function):
-    """``x.index_select(0, index)`` whose backward adds the gradient into
-    one zero table in place (``index_select``'s adds it into a copy of
-    the zeros: two [E, d] tables where one will do)."""
+class _SummedGrad(torch.autograd.Function):
+    """A table replicated on the mesh that each rank reads for its own
+    share of the work: the forward passes it through, the backward sums
+    its gradient over ``group`` (one all-reduce, over the data axes
+    together)."""
 
     @staticmethod
-    def forward(ctx, x, index):
-        ctx.save_for_backward(index)
-        ctx.x_shape = x.shape
-        return x.index_select(0, index)
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
 
     @staticmethod
-    def backward(ctx, grad):
-        index, = ctx.saved_tensors
-        return grad.new_zeros(ctx.x_shape).index_add_(0, index, grad), None
+    def backward(ctx, g):
+        return _all_reduce(g.clone(), ctx.group), None
 
 
-def _whole(x, split: tuple):
-    """A DTensor whole on this rank (an all-gather; its gradient comes
-    back as the ranks' partial sums over ``split``, reduced once); a
-    plain tensor as it is."""
-    if not shr.is_dtensor(x):
-        return x
+def _replicated(x, sp: _Split) -> torch.Tensor:
+    """DTensor ``x``, replicated on the mesh, whole on this rank; its
+    gradient is summed over D (``_SummedGrad``)."""
     from torch.distributed.tensor import Replicate
-    return shr.local(x, (Replicate(),) * x.device_mesh.ndim, partial=split)
+    t = shr.local(x, (Replicate(),) * sp.mesh.ndim)
+    return t if sp.d_group is None else _SummedGrad.apply(t, sp.d_group)
 
 
-def _chunk_norm(x: torch.Tensor, mesh, split: tuple) -> torch.Tensor:
-    """``matrix_norm(x, ord=-1)`` of a chunk whose rows are split over the
-    mesh dims ``split``, from this rank's rows ``x``: the column sums of
-    |x| summed over those ranks, the least of them."""
-    cols = torch.linalg.vector_norm(x, 1, dim=0)
-    if split:
-        from torch.distributed.tensor import Partial, Replicate
-        cols = shr.from_local(cols, mesh, tuple(
-            Partial() if i in split else Replicate()
-            for i in range(mesh.ndim)))
-        cols = cols.redistribute(mesh, (Replicate(),) * mesh.ndim).to_local()
-    return cols.amin()
+def _chunk_norm(x: torch.Tensor, sp: _Split) -> torch.Tensor:
+    """``matrix_norm(x, ord=-1)`` of a chunk whose rows are split over D,
+    from this rank's rows ``x`` (no gradient): the column sums of |x|
+    summed over D, the least of them."""
+    return _all_reduce(torch.linalg.vector_norm(x, 1, dim=0), sp.d_group
+                       ).amin()
 
 
 def _mesh_triplets(cfg, g, vec, rbf, e, n_chunks):
     """The block's triplet aggregate on a mesh: ``aggregate(m_kj, bp)``
-    with the triplet ids' rows split over the data axes.
+    with the triplet ids' rows split over the data axes D.
 
-    Every collective runs once a block, not once a chunk: ``m_kj`` is
-    gathered whole and the rows of all the rank's triplets taken from it
-    at once (its gradient is added into one [E, d] table and
-    reduce-scattered once); the chunks scatter into one [E, d] accumulator
-    of this rank's partial sums, reduce-scattered once onto the rows; the
-    block's weights are taken whole once (their gradients all-reduced
-    once). Edge directions and radial bases are gathered once a step (no
-    gradient). The chunk's angle keeps the reference's norm of the whole
-    chunk: a sum over the ranks of 3 column sums. The gathered ``m_kj`` is
-    freed once its rows are taken: the block holds the rank's rows (T / n_d
-    of them) and one [E, d] table at a time, forward and backward."""
+    Every collective runs once a block, not once a chunk, whole or by
+    blocks as ``_by_blocks`` picks from (E, T): the rows of all the rank's
+    triplets are gathered from ``m_kj`` at once (``_take``), and the
+    chunks' messages reduced once: whole, each chunk adds into one [E, d]
+    accumulator of the rank's partial sums, reduce-scattered once onto the
+    rows; by blocks, the chunks' messages [T / n_d, d] are scattered into
+    the rank's node block (``_scatter_blocks``). The block's weights are
+    taken whole once (their gradients all-reduced once). Edge directions
+    and radial bases are gathered once a step (no gradient). The chunk's
+    angle keeps the reference's norm of the whole chunk: a sum over D of 3
+    column sums."""
     ti_all = _chunk_rows(g.trip_in, n_chunks)        # [n_chunks, tc]
     to_all = _chunk_rows(g.trip_out, n_chunks)
-    mesh, pl = ti_all.device_mesh, ti_all.placements
+    pl = ti_all.placements
     if any(p.is_shard(0) for p in pl):
         raise ValueError(f"triplet chunks split across chunks: {pl}")
-    split = shr.sharded_dims(pl)
+    sp = _split_of(ti_all)
     ti_raw, to_raw = shr.local(ti_all, pl), shr.local(to_all, pl)
     tc = ti_raw.shape[1]
-    ti, to = _clip_index(ti_raw, e), _clip_index(to_raw, e)
+    # int32 ids: the closure holds them for the step.
+    ti, to = _clip_index(ti_raw, e).int(), _clip_index(to_raw, e).int()
     valid = (ti_raw < e) & (to_raw < e)
-    start = shr.block_offset(mesh, pl, 1, tc)
+    start = shr.block_offset(sp.mesh, pl, 1, tc)
     spread = torch.remainder(torch.arange(start, start + tc,
-                                          device=ti.device), e)
+                                          device=ti.device,
+                                          dtype=torch.int32), e)
     ti_m = torch.where(valid, ti, spread)
     to_m = torch.where(valid, to, spread)
-    vec_w, rbf_w = _whole(vec, split), _whole(rbf, split)
+    blocks = _by_blocks(sp, e, sp.n_d * ti_m.numel())
+    vec_w = _all_gather(shr.local(vec, sp.rows()), sp.d_group, sp.n_d)
+    rbf_w = _all_gather(shr.local(rbf, sp.rows()), sp.d_group, sp.n_d)
     sph_k = torch.arange(cfg.n_spherical, device=ti.device)
 
     def chunk_msg(rows, w_sbf, wr, i):
         v_in = -vec_w.index_select(0, ti[i])               # j→k direction
         v_out = vec_w.index_select(0, to[i])
         cos_a = torch.sum(v_in * v_out, -1) / _max(
-            _chunk_norm(v_in + 1e-9, mesh, split)
-            * _chunk_norm(v_out + 1e-9, mesh, split), 1e-9)
+            _chunk_norm(v_in + 1e-9, sp) * _chunk_norm(v_out + 1e-9, sp),
+            1e-9)
         angles = torch.arccos(_clip(cos_a, -1.0, 1.0))
         sph = torch.cos(angles[:, None] * sph_k)
         sbf = (sph[:, :, None] * rbf_w.index_select(0, ti[i]).float()[
@@ -797,17 +1200,23 @@ def _mesh_triplets(cfg, g, vec, rbf, e, n_chunks):
 
     def aggregate(m_kj, bp):
         d = m_kj.shape[1]
-        mkj = _whole(m_kj, split)                         # [E, d]
-        rows = _GatherRows.apply(mkj, ti_m.reshape(-1)).view(n_chunks, tc, d)
-        del mkj
-        w_sbf = _whole(bp["w_sbf"], split)
-        bilinear = _whole(bp["bilinear"], split)
-        wr = bilinear.transpose(0, 1).reshape(-1, d)      # [(b, d), d]
+        plan = _block_plan(sp, ti_m.reshape(-1), e) if blocks else None
+        rows, = _take(sp, [(m_kj, ti_m.reshape(-1), plan)])
+        rows = rows.view(n_chunks, tc, d)
+        w_sbf = _replicated(bp["w_sbf"], sp)
+        wr = _replicated(bp["bilinear"], sp).transpose(0, 1).reshape(-1, d)
+        if blocks:
+            msgs = rows.new_empty(rows.shape)
+            for i, rows_i in enumerate(rows.unbind(0)):
+                msgs[i] = _remat(chunk_msg, rows_i, w_sbf, wr, i)
+            return _scatter_blocks(sp, msgs.view(-1, d),
+                                   _block_plan(sp, to_m.reshape(-1), e), e,
+                                   "sum")
         acc = rows.new_zeros((e, d))
         for i, rows_i in enumerate(rows.unbind(0)):
             acc.index_add_(0, to_m[i], _remat(chunk_msg, rows_i, w_sbf, wr,
                                               i))
-        return _summed(acc, ti_all)
+        return _reduce_whole(sp, acc, "sum")
 
     return aggregate
 
@@ -864,9 +1273,10 @@ def mgn_forward(cfg: MGNConfig, params: GNNParams,
     dst_safe = _clip_index(g.dst, n)
     h = _mlp(params["enc_node"], g.node_feat.to(cfg.dtype))
     if g.positions is not None:
-        rel = _rows(g.positions, dst_safe) - _rows(g.positions, src_safe)
-        dist = _norm(rel + 1e-9, keepdim=True)
-        ef = torch.cat([rel, dist], -1).to(cfg.dtype)
+        rel = torch.sub(*_gather_rows((g.positions, dst_safe),
+                                      (g.positions, src_safe)))
+        ef = torch.cat([rel, _norm(rel + 1e-9, keepdim=True)], -1).to(
+            cfg.dtype)
     else:
         ef = _const(torch.zeros((g.src.shape[0], cfg.d_in_edge),
                                 dtype=cfg.dtype, device=h.device), h)
@@ -874,7 +1284,8 @@ def mgn_forward(cfg: MGNConfig, params: GNNParams,
     dst_ok = (g.dst < n)[:, None]
 
     def one_layer(h, he, edge_mlp, node_mlp):
-        e_in = torch.cat([he, _rows(h, src_safe), _rows(h, dst_safe)], -1)
+        e_in = torch.cat([he, *_gather_rows((h, src_safe), (h, dst_safe))],
+                         -1)
         he = _constrain_rows(he + _ln(_mlp(edge_mlp, e_in)))
         agg = scatter_sum(torch.where(dst_ok, he, 0), g.dst, n)
         n_in = torch.cat([h, agg], -1)

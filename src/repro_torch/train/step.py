@@ -116,18 +116,21 @@ def _place_batch(batch: dict, specs: dict) -> dict:
     return out
 
 
-def _adamw_step(state: dict, loss_fn, lr_fn, compute_dtype, params_cls):
+def _adamw_step(state: dict, loss_fn, lr_fn, compute_dtype, params_cls,
+                place_grad=None):
     """One AdamW step of ``state = {"params", "opt"}`` on ``loss_fn(params)``
     at ``lr_fn(step)`` (the schedule at the state's step before the
     update): (new state, loss, grad norm, lr). On a mesh each gradient is
-    placed as its parameter before the update."""
+    placed as its parameter before the update (``place_grad(g,
+    placements)`` where given, else DTensor's ``redistribute``)."""
     params = state["params"]
     names, leaves = zip(*params.named_parameters())
     loss = shr.replicated(loss_fn(params))
     grads = {}
     for n, g, p in zip(names, torch.autograd.grad(loss, leaves), leaves):
         if shr.is_dtensor(g) and g.placements != p.placements:
-            g = g.redistribute(p.device_mesh, p.placements)
+            g = (place_grad(g, p.placements) if place_grad is not None
+                 else g.redistribute(p.device_mesh, p.placements))
         grads[n] = g
     lr = lr_fn(state["opt"]["step"])
     new_params, new_opt, gn = adamw_update(grads, state["opt"], lr,
@@ -442,7 +445,7 @@ def gnn_train_cell(arch_id: str, cfg, shape: dict, *, device,
                                       batch_in["labels"]),
             lambda step: cosine_schedule(step, peak_lr=peak_lr, warmup=100,
                                          total=10_000),
-            cfg.dtype, gnn.GNNParams)
+            cfg.dtype, gnn.GNNParams, place_grad=shr.reduced)
         return new_state, {"loss": loss, "grad_norm": gn}
 
     params = gnn_make_init(arch_id)(cfg, generator=_seeded(device),

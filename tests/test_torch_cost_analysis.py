@@ -67,10 +67,20 @@ not constrained) gets its aggregates whole on every card from each
 scatter: three node products an interaction (w_out's two and its replay)
 run whole, and w_out's two gradient products an interaction on a
 gradient split over both axes (÷ n).
+
+Collectives: the reference's ``hlo_parsed.collective_bytes`` is recorded
+beside its flops. The four GNN smoke cells on (2, 4) take the whole layout
+of ``models/gnn.py``'s gathers and scatters, whose collectives are pinned
+to the byte in closed form (``gnn_whole``), as is MeshGraphNet's by blocks
+(``mgn_blocks``, ``_blocks_cheaper`` patched); each step's collectives are
+at or under the reference's. MeshGraphNet's and GAT's ``minibatch_lg``
+cells on the (16, 16) mesh at full config (by blocks) count at or under
+the reference's collective bytes a card.
 """
 import dataclasses
 import functools
 import json
+from collections import defaultdict
 import os
 import pathlib
 import subprocess
@@ -104,6 +114,8 @@ CASES = {**{f"{a}/train": (a, LM_TRAIN) for a in LMS},
                                 dict(kind="decode", batch=1, seq=16)),
          "gat-cora/train": ("gat-cora", GNN_TRAIN),
          "schnet/train": ("schnet", GNN_TRAIN),
+         "meshgraphnet/train": ("meshgraphnet", GNN_TRAIN),
+         "dimenet/train": ("dimenet", GNN_TRAIN),
          "dien/train": ("dien", dict(kind="train", batch=16)),
          "dien/serve": ("dien", dict(kind="serve", batch=16))}
 #: The reference's (2, 4) count is its (1, 1) count / 8 for these.
@@ -117,6 +129,11 @@ PRODUCTION_LAYERS = 2
 #: decode_32k (the batch over ``data``, the positions over ``model``).
 PRODUCTION_DECODE = tuple((a, "long_500k") for a in LMS) + (
     ("moonshot-v1-16b-a3b", "decode_32k"), ("dbrx-132b", "decode_32k"))
+#: GNN cells on the (16, 16) mesh at their full configs (no cut), whose
+#: collectives the port holds to the reference's.
+PRODUCTION_GNN = (("meshgraphnet", "minibatch_lg"),
+                  ("gat-cora", "minibatch_lg"))
+GNNS = ("gat-cora", "schnet", "dimenet", "meshgraphnet")
 
 _JAX_SCRIPT = r"""
 import os, sys, json
@@ -130,9 +147,10 @@ from repro.launch.hlo_analysis import analyze
 from repro.launch.mesh import make_production_mesh
 from repro.train.step import build_cell
 
-cases, production, decode, layers, out = (
+cases, production, decode, layers, gnn, out = (
     json.loads(sys.argv[1]), json.loads(sys.argv[2]),
-    json.loads(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
+    json.loads(sys.argv[3]), int(sys.argv[4]), json.loads(sys.argv[5]),
+    sys.argv[6])
 res = {}
 for mesh_name, dims in (("1x1", (1, 1)), ("2x4", (2, 4))):
     devs = np.array(jax.devices()[:dims[0] * dims[1]]).reshape(dims)
@@ -142,10 +160,18 @@ for mesh_name, dims in (("1x1", (1, 1)), ("2x4", (2, 4))):
         step_fn, state, inputs = build_cell(spec, "smoke", mesh, smoke=True)
         with getattr(jax, "set_mesh", lambda m: m)(mesh):
             compiled = jax.jit(step_fn).lower(state, inputs).compile()
-        res[f"{label}@{mesh_name}"] = analyze(compiled.as_text()).flops
+        cost = analyze(compiled.as_text())
+        res[f"{label}@{mesh_name}"] = cost.flops
+        res[f"{label}@{mesh_name}/coll"] = cost.collective_bytes
         res[f"{label}@{mesh_name}/temp"] = \
             compiled.memory_analysis().temp_size_in_bytes
 mesh = make_production_mesh()
+for arch, shape in gnn:
+    step_fn, state, inputs = build_cell(get_arch(arch), shape, mesh)
+    with getattr(jax, "set_mesh", lambda m: m)(mesh):
+        compiled = jax.jit(step_fn).lower(state, inputs).compile()
+    res[f"{arch}/{shape}@16x16/coll"] = analyze(
+        compiled.as_text()).collective_bytes
 for arch, shape in [(a, "train_4k") for a in production] + decode:
     base = get_arch(arch)
     cfg = dataclasses.replace(base.make_config(), n_layers=layers)
@@ -165,15 +191,17 @@ with open(out, "w") as f:
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     """{"<case>@<mesh>": the reference's per-card flops, and under
-    "<case>@<mesh>/temp" its temp bytes}, compiled in a subprocess started
-    first; the port's analyses run meanwhile."""
+    "<case>@<mesh>/temp" its temp bytes and "<case>@<mesh>/coll" its
+    collective bytes (``hlo_parsed.collective_bytes``)}, compiled in a
+    subprocess started first; the port's analyses run meanwhile."""
     tmp = tmp_path_factory.mktemp("hlo")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
                JAX_PLATFORMS="cpu")
     proc = subprocess.Popen(
         [sys.executable, "-c", _JAX_SCRIPT, json.dumps(CASES),
          json.dumps(PRODUCTION), json.dumps(PRODUCTION_DECODE),
-         str(PRODUCTION_LAYERS), str(tmp / "ref.json")], env=env, cwd=ROOT,
+         str(PRODUCTION_LAYERS), json.dumps(PRODUCTION_GNN),
+         str(tmp / "ref.json")], env=env, cwd=ROOT,
         stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
     for label in CASES:          # the port's side while the reference runs
@@ -183,6 +211,11 @@ def reference(tmp_path_factory):
         port_production(arch)
     for arch, shape in PRODUCTION_DECODE:
         port_production(arch, shape)
+    for arch, shape in PRODUCTION_GNN:
+        port_gnn_production_cell(arch, shape)
+    for arch in GNNS:
+        gnn_collectives(arch)
+    gnn_collectives("meshgraphnet", blocks=True)
     _, err = proc.communicate(timeout=900)
     assert proc.returncode == 0, err[-3000:]
     return json.loads((tmp / "ref.json").read_text())
@@ -219,6 +252,49 @@ def port_production_cell(arch: str, shape: str = "train_4k") -> dict:
 
 def port_production(arch: str, shape: str = "train_4k") -> float:
     return port_production_cell(arch, shape)["cost"].flops
+
+
+@functools.cache
+def port_gnn_production_cell(arch: str, shape: str) -> dict:
+    """The port's analysis of a GNN cell on the (16, 16) mesh at its full
+    config."""
+    with fake_world(256):
+        mesh = make_production_mesh(device_type="cpu")
+        return ca.analyze_cell(get_arch(arch), shape, mesh)
+
+
+@functools.cache
+def gnn_collectives(arch: str, blocks: bool = False) -> tuple:
+    """(the collective bytes by kind that ``models/gnn.py``'s gathers and
+    scatters issue, the step's collective bytes) of ``arch``'s smoke train
+    step on the (2, 4) mesh; with ``blocks`` every gather and scatter by
+    blocks (``_blocks_cheaper`` patched)."""
+    from repro_torch.models import gnn as tg
+    kinds = {"_all_gather": "all-gather", "_reduce_scatter": "reduce-scatter",
+             "_all_reduce": "all-reduce"}
+    own = defaultdict(float)
+    saved = {name: getattr(tg, name) for name in (*kinds, "_blocks_cheaper")}
+
+    def recorded(name):
+        def run(t, group, *args):
+            if group is not None:
+                own[kinds[name]] += ca.tensor_bytes(t)
+            return saved[name](t, group, *args)
+        return run
+    for name in kinds:
+        setattr(tg, name, recorded(name))
+    if blocks:
+        tg._blocks_cheaper = lambda sp, n, k: True
+    try:
+        spec = dataclasses.replace(get_arch(arch), shapes={"smoke": GNN_TRAIN})
+        with fake_world(8):
+            mesh = DeviceMesh("cpu", torch.arange(8).reshape(DIMS["2x4"]),
+                              mesh_dim_names=("data", "model"))
+            cost = ca.analyze_cell(spec, "smoke", mesh, smoke=True)["cost"]
+    finally:
+        for name, fn in saved.items():
+            setattr(tg, name, fn)
+    return dict(own), cost.collective_bytes
 
 
 def near(got: float, want: float) -> bool:
@@ -405,8 +481,8 @@ def test_embed_bag_counts_as_its_kernel():
 # Against the reference
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("label", ["gat-cora/train", "dien/train",
-                                   "dien/serve"])
+@pytest.mark.parametrize("label", ["gat-cora/train", "meshgraphnet/train",
+                                   "dien/train", "dien/serve"])
 def test_per_card_flops_match_reference(reference, label):
     for mesh_name in DIMS:
         want = reference[f"{label}@{mesh_name}"]
@@ -591,3 +667,123 @@ def test_memory_analysis_keys():
         assert res["alias_size_in_bytes"] == 0     # AdamW returns new state
         assert 0 < res["output_size_in_bytes"] <= res["argument_size_in_bytes"]
         assert res["temp_size_in_bytes"] >= res["output_size_in_bytes"]
+
+
+# ---------------------------------------------------------------------------
+# The GNN cells' collectives
+# ---------------------------------------------------------------------------
+
+def gnn_whole(arch: str, n_d: int = 2) -> dict:
+    """The bytes by kind of ``models/gnn.py``'s collectives in ``arch``'s
+    smoke train step on a mesh with a data axis of ``n_d``, every gather
+    and scatter whole and the rows not constrained (smoke): a gather from a
+    table split over data all-gathers its N / n_d rows a rank (the gathers
+    of one call share it) and reduce-scatters its whole gradient table; a
+    gather from a replicated table all-reduces its gradient; a scatter
+    all-reduces its whole table. Checkpointed code runs forward twice
+    (the replay); the first layer reads the node features' split rows, a
+    later one the replicated aggregate.
+      * GAT (L = 2 layers, H heads): layer 1 gathers [e_src | e_dst] and h
+        ([N, 2H] and [N, H·D]) from split tables; the maxes and
+        denominators ([N, H]) and the aggregate are scattered a layer; the
+        softmax's two gathers and layer 2's three read replicated tables;
+      * SchNet (I interactions): the positions (3 wide, no gradient) once,
+        each interaction's x[src] and its scatter forward twice, the atom
+        embedding's gradient [n_atom_types, d], the per-graph sum;
+      * DimeNet (B blocks, T = 4E triplets): the positions, h[src] and
+        h[dst] (one table), the edge directions and radial bases once a
+        step (no gradient); each block's m_kj gathered and its aggregate
+        [E, d] scattered forward twice, its two chunk norms (3 column sums)
+        in the forward, the block's replay and the chunk's, and its two
+        weights' gradients; the per-node and per-graph energies;
+      * MeshGraphNet (L layers): the positions once, each layer's h[src]
+        and h[dst] (one table) and its scatter forward twice."""
+    cfg = get_arch(arch).make_smoke_config()
+    n, e, graphs = (GNN_TRAIN[k] for k in ("n_nodes", "n_edges", "n_graphs"))
+    rows, edges = n // n_d, e // n_d
+    if arch == "gat-cora":
+        h, w1 = cfg.n_heads, cfg.n_heads * cfg.d_hidden
+        wl = cfg.n_heads * cfg.n_classes
+        ag, rs = rows * (2 * h + w1), n * (2 * h + w1)
+        ar = n * ((4 * h + w1) + (4 * h + wl) + (2 * h + wl))
+    elif arch == "schnet":
+        d, i = cfg.d_hidden, cfg.n_interactions
+        ag, rs = rows * (3 + 2 * i * d), i * n * d
+        ar = 2 * i * n * d + cfg.n_atom_types * d + graphs
+    elif arch == "dimenet":
+        d, b = cfg.d_hidden, cfg.n_blocks
+        sbf = cfg.n_spherical * cfg.n_radial
+        ag = (rows * (3 + d) + edges * (3 + cfg.n_radial)
+              + 2 * b * edges * d)
+        rs = n * d + b * e * d
+        ar = (2 * b * e * d + 3 * 2 * 3 * b
+              + b * (sbf * cfg.n_bilinear + d * cfg.n_bilinear * d)
+              + n + graphs + cfg.n_atom_types * d)
+    else:
+        d, layers = cfg.d_hidden, cfg.n_layers
+        ag, rs, ar = rows * (3 + 2 * layers * d), layers * n * d, \
+            2 * layers * n * d
+    return {"all-gather": 4 * ag, "reduce-scatter": 4 * rs,
+            "all-reduce": 4 * ar}
+
+
+def mgn_blocks(n_d: int = 2, m: int = 4) -> dict:
+    """The bytes by kind of ``models/gnn.py``'s collectives in
+    MeshGraphNet's smoke step on an (n_d, m) mesh, every gather and scatter
+    by blocks: each data rank's E / n_d index rows cut into m pieces of q
+    rows, each rank's node block N / n_d rows.
+      * a gather of tables w wide (the positions [3 | 3], no gradient;
+        h[src] and h[dst], [d | d]): each index's piece all-gathered over
+        data (q int32), the pieces' rows [n_d·q, w] reduce-scattered over
+        data and the rank's [q, w] all-gathered over model; its gradient
+        [q, w] all-gathered over data and the node block [N / n_d, d]
+        all-reduced over model;
+      * a scatter (d wide): its index's piece and the values' [q, d]
+        all-gathered over data, the node block all-reduced over model; its
+        gradient [n_d·q, d] reduce-scattered over data and [q, d]
+        all-gathered over model.
+    Each layer runs forward twice (its replay)."""
+    cfg = get_arch("meshgraphnet").make_smoke_config()
+    d, layers = cfg.d_hidden, cfg.n_layers
+    n, e = GNN_TRAIN["n_nodes"], GNN_TRAIN["n_edges"]
+    q = -(-(e // n_d) // m)
+    ag = 2 * q + 6 * q + layers * (2 * (3 * q + 3 * q * d) + 3 * q * d)
+    rs = n_d * q * 6 + layers * (2 * n_d * q * 2 * d + n_d * q * d)
+    ar = 3 * layers * (n // n_d) * d
+    return {"all-gather": 4 * ag, "reduce-scatter": 4 * rs,
+            "all-reduce": 4 * ar}
+
+
+@pytest.mark.parametrize("arch", GNNS)
+def test_gnn_smoke_collectives(reference, arch):
+    """The GNN smoke cells on the (2, 4) mesh take the whole layout (at 64
+    nodes and 256 edges the whole table moves fewer rows than the blocks,
+    ``gnn._blocks_cheaper``): ``models/gnn.py``'s collectives are
+    ``gnn_whole``'s to the byte, and the step's collectives (with
+    DTensor's: the parameters' gradients, the loss) at or under the
+    reference's. At one rank nothing is exchanged."""
+    own, total = gnn_collectives(arch)
+    assert own == gnn_whole(arch)
+    assert total <= reference[f"{arch}/train@2x4/coll"], total
+    assert port_cell(f"{arch}/train", "1x1")["cost"].collective_bytes == 0
+    assert reference[f"{arch}/train@1x1/coll"] == 0
+
+
+def test_mgn_blocks_collectives(reference):
+    """MeshGraphNet's smoke step on the (2, 4) mesh with every gather and
+    scatter by blocks: ``models/gnn.py``'s collectives are ``mgn_blocks``'
+    to the byte, and the step's at or under the reference's (which splits
+    its gathers and scatters the same way)."""
+    own, total = gnn_collectives("meshgraphnet", blocks=True)
+    assert own == mgn_blocks()
+    assert total <= reference["meshgraphnet/train@2x4/coll"], total
+
+
+@pytest.mark.parametrize("arch,shape", PRODUCTION_GNN)
+def test_production_gnn_collectives(reference, arch, shape):
+    """MeshGraphNet's and GAT's ``minibatch_lg`` cells on the (16, 16) mesh
+    at their full configs: the port's collective bytes a card (its gathers
+    and scatters by blocks) at or under the reference's."""
+    got = port_gnn_production_cell(arch, shape)["cost"]
+    want = reference[f"{arch}/{shape}@16x16/coll"]
+    assert 0 < got.collective_bytes <= want, (got.collective_bytes, want)

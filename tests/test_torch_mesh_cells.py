@@ -32,7 +32,14 @@ first synthetic batch, which both packages draw bit-equal:
     attention vectors (``test_torch_gnn._train_params``), from step 5000;
     and DimeNet's again with its triplets in two chunks, ``_pick_chunks``
     patched on both sides (the port sums the chunks' scatters on each
-    rank before one reduction a block, the reference reduces each chunk);
+    rank before one reduction a block, the reference reduces each chunk).
+    The smoke shapes take the whole layout of ``gnn._gather_rows`` and
+    the scatters; each cell runs again with every gather and scatter by
+    blocks (``_blocks_cheaper`` patched), and MeshGraphNet also by blocks
+    on a (4, 2) mesh and whole on an (8, 1) one, each held to its
+    architecture's reference step; the gathers and scatters alone, on an
+    index whose pieces are padded, against the same sums on whole
+    tensors;
   * DIEN's smoke train cell with its tables' rows split over ``model``
     (the ``embed_bag`` kernel's plain version on the rank's rows), from
     step 250;
@@ -50,7 +57,8 @@ Every rank's loss and grad norm must be the same; rank 0 gathers the new
 parameters, m and v whole.
 
 In this process, at one rank (a world-1 gloo group): each family's mesh
-cell equals its no-mesh cell, and the placement helpers hold their
+cell equals its no-mesh cell (SchNet's and MeshGraphNet's bit for bit),
+and the placement helpers hold their
 contracts (a constraint handed a plain tensor raises; on ``meta`` the
 state comes back as ``Sharded`` pairs).
 
@@ -104,7 +112,8 @@ from test_torch_transformer import (assert_close, flat_reference_tree,
 from test_torch_transformer import one_torch_thread  # noqa: F401 (autouse)
 from torch_mesh_ranks import (DECODE_CASES, DECODE_FILLED, DECODE_LEN,
                               DECODE_STEPS, DIMENET_CHUNKS, FIELDS,
-                              GNN_ARCHS, LM_SHAPE, PREFILL_FIELDS)
+                              GNN_ARCHS, GNN_LAYOUTS, LM_SHAPE, PRIM_NODES,
+                              PREFILL_FIELDS, prim_inputs)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 WORLD = 8
@@ -436,8 +445,8 @@ def _close_to_scale(got, want, rtol, what, floor=0.0):
     assert err <= rtol * scale + floor, f"{what}: {err:.3e} vs {scale:.3e}"
 
 
-def _hold_cell(ranks, case):
-    loss, gn, want, params0 = reference_cell_step(case)
+def _hold_cell(ranks, case, reference=None):
+    loss, gn, want, params0 = reference_cell_step(reference or case)
     np.testing.assert_allclose(_same_on_every_rank(ranks, f"{case}/loss"),
                                loss, **TOL)
     np.testing.assert_allclose(_same_on_every_rank(ranks, f"{case}/gn"),
@@ -469,6 +478,49 @@ def test_dimenet_chunked_train_step_eight_ranks(ranks):
     chunks' scatters summed on the rank first; the step stays within the
     GNN tolerances of the reference, which reduces each chunk."""
     _hold_cell(ranks, f"gnn/dimenet@{DIMENET_CHUNKS}")
+
+
+@pytest.mark.parametrize("case", list(GNN_LAYOUTS))
+def test_gnn_layouts_train_step_eight_ranks(ranks, case):
+    """The GNN cells with every gather and scatter by blocks on the (2, 4)
+    mesh (n_d < m: each data rank's rows cut into 4 pieces), DimeNet's
+    also in two triplet chunks, and MeshGraphNet by blocks on a (4, 2)
+    mesh (n_d > m) and whole on an (8, 1) one: each within the GNN
+    tolerances of its architecture's reference step."""
+    _hold_cell(ranks, case, case.split("#")[0])
+
+
+@pytest.mark.parametrize("layout", ("blocks", "whole"))
+def test_gather_scatter_eight_ranks(ranks, layout):
+    """``gnn._gather_rows`` (two tables read in one call), ``scatter_sum``
+    and ``_segment_max`` on the (2, 4) mesh, rows constrained over
+    ``data``, by blocks and whole, against the same sums on whole tensors:
+    24 nodes, 36 edges (each data rank's 18 rows in 4 pieces of 5, the
+    last padded), three indices past the table (dropped by a scatter).
+    The gathers are bit-equal (a row is summed with zeros only), the
+    scatters and gradients within 1e-6 (sums in other orders)."""
+    inp = {k: torch.from_numpy(a) for k, a in prim_inputs().items()}
+    n = PRIM_NODES
+    x, y, v = (inp[k].double().requires_grad_() for k in ("x", "y", "v"))
+    src, dst = inp["src"].long(), inp["dst"].long()
+    keep = dst < n
+    gx, gy = x[src], y[dst.clamp(max=n - 1)]
+    total = torch.zeros(n, 3, dtype=v.dtype).index_add(0, dst[keep],
+                                                       v[keep])
+    top = torch.full((n, 3), -1e30, dtype=v.dtype).scatter_reduce(
+        0, dst[keep][:, None].expand(-1, 3), v[keep], "amax")
+    dx, dy = torch.autograd.grad((gx * inp["wx"]).sum()
+                                 + (gy * inp["wy"]).sum(), [x, y])
+    dv, = torch.autograd.grad((total * inp["wn"]).sum(), [v])
+    for r, res in enumerate(ranks):
+        got = {k: res[f"prim/{layout}/{k}"] for k in
+               ("gx", "gy", "sum", "max", "dx", "dy", "dv")}
+        for k, w in (("gx", gx), ("gy", gy), ("max", top)):
+            assert np.array_equal(got[k], w.detach().float().numpy()), (r, k)
+        for k, w in (("sum", total), ("dx", dx), ("dy", dy), ("dv", dv)):
+            np.testing.assert_allclose(got[k], w.detach().numpy(),
+                                       rtol=1e-6, atol=1e-6,
+                                       err_msg=f"rank {r} {k}")
 
 
 def test_dien_train_step_eight_ranks(ranks):
@@ -568,14 +620,16 @@ def _one_step(spec, cfg, mesh):
                      state["params"].named_parameters()}
 
 
-WORLD_ONE = ("qwen3-1.7b", "moonshot-v1-16b-a3b", "schnet", "dien")
+WORLD_ONE = ("qwen3-1.7b", "moonshot-v1-16b-a3b", "schnet", "meshgraphnet",
+             "dien")
 
 
 @pytest.mark.parametrize("arch", WORLD_ONE)
 def test_world_one_mesh_cell_equals_no_mesh(world_one, arch):
     """At one rank every block is the whole tensor: the mesh cell's step
     gives the no-mesh cell's loss, grad norm and parameters (moonshot with
-    its three mesh fields set, the expert-parallel path)."""
+    its three mesh fields set, the expert-parallel path); a GNN's bit for
+    bit (each gather read on its own, as with no mesh)."""
     base = get_arch(arch)
     cfg = base.make_smoke_config()
     if base.family == "lm":
@@ -594,6 +648,10 @@ def test_world_one_mesh_cell_equals_no_mesh(world_one, arch):
     for k, w in wp.items():
         torch.testing.assert_close(gp[k], w, rtol=1e-6, atol=1e-6,
                                    msg=k)
+    if base.family == "gnn":
+        assert all(torch.equal(got[k], want[k]) for k in ("loss",
+                                                          "grad_norm"))
+        assert all(torch.equal(gp[k], w) for k, w in wp.items())
 
 
 @pytest.mark.parametrize("arch", ("qwen3-1.7b", "moonshot-v1-16b-a3b"))
@@ -732,7 +790,23 @@ def test_dimenet_collectives_once_a_block(monkeypatch):
     triplet ids' (gathered whole once a step to be cut into chunks: two
     int32 tables, T / 4 entries a rank). Each further chunk adds only the
     all-reduces of its angle's two norms (3 column sums each), at most
-    three times a block (the forward, the block's replay, the chunk's)."""
+    three times a block (the forward, the block's replay, the chunk's).
+    At the smoke shapes the gathers and scatters go whole."""
+    _dimenet_once_a_block(monkeypatch)
+
+
+def test_dimenet_collectives_once_a_block_by_blocks(monkeypatch):
+    """As ``test_dimenet_collectives_once_a_block`` with the edge states'
+    gather and the aggregate's scatter by blocks (``_blocks_cheaper``
+    patched): the reduce-scatters (the gather's and the scatter's
+    gradient) and the all-reduces over ``model`` still run once a block,
+    and the index pieces' all-gathers cover the rank's triplets of all the
+    chunks at once."""
+    monkeypatch.setattr(tg, "_blocks_cheaper", lambda sp, n, k: True)
+    _dimenet_once_a_block(monkeypatch)
+
+
+def _dimenet_once_a_block(monkeypatch):
     from torch.distributed.device_mesh import DeviceMesh
 
     from repro_torch.launch.cost_analysis import analyze_cell

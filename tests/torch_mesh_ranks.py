@@ -25,7 +25,15 @@ new parameters, m and v gathered whole (rank 0):
   * ``gnn/<arch>``: the four GNN smoke train cells with their rows
     constrained over ``data``; ``gnn/dimenet@2`` DimeNet's again with its
     triplets in ``DIMENET_CHUNKS`` chunks (``_pick_chunks`` patched), from
-    ``gnn/dimenet``'s starting state;
+    ``gnn/dimenet``'s starting state; the cases of ``GNN_LAYOUTS`` from
+    their architecture's state: each cell again with every gather and
+    scatter by blocks (``_blocks_cheaper`` patched; the smoke shapes make
+    the whole table cheaper), and MeshGraphNet on a (4, 2) mesh by blocks
+    and on an (8, 1) mesh whole;
+  * ``prim/<layout>/``: ``gnn._gather_rows``, ``scatter_sum`` and
+    ``_segment_max`` on ``prim_inputs()`` (24 nodes, 36 edges: pieces of
+    5 rows, the last padded), rows constrained over ``data``, by blocks
+    and whole: the results and the gradients of a weighted sum, whole;
   * ``dien``: DIEN's smoke train cell, tables row-split over ``model``;
   * ``decode/<case>/<batch>/<start>``: the decode cell of qwen3, llama,
     moonshot and minicpm (DECODE_CASES) on their train cases' weights,
@@ -57,6 +65,19 @@ FIELDS = {"qwen3": ("qwen3-1.7b", {}),
 PREFILL_FIELDS = dict(act_batch_axes=("data",), moe_expert_axis="model")
 GNN_ARCHS = ("gat-cora", "schnet", "dimenet", "meshgraphnet")
 DIMENET_CHUNKS = 2
+#: Further GNN cases: name → (arch, mesh (data, model), triplet chunks or
+#: None, every gather and scatter by blocks). Each is held to its
+#: architecture's reference step (the name before ``#``).
+GNN_LAYOUTS = {
+    **{f"gnn/{a}#blocks": (a, (2, 4), None, True) for a in GNN_ARCHS},
+    f"gnn/dimenet@{DIMENET_CHUNKS}#blocks": ("dimenet", (2, 4),
+                                              DIMENET_CHUNKS, True),
+    "gnn/meshgraphnet#4x2": ("meshgraphnet", (4, 2), None, True),
+    "gnn/meshgraphnet#8x1": ("meshgraphnet", (8, 1), None, False),
+}
+#: ``prim_inputs``' graph: 36 edges over 2 data ranks are 18 a rank, cut
+#: into 4 pieces of 5 rows (the last padded by 2).
+PRIM_NODES, PRIM_EDGES = 24, 36
 DECODE_LEN = 16
 DECODE_STEPS = 3
 DECODE_CASES = ("qwen3", "llama", "moonshot", "minicpm")
@@ -120,9 +141,12 @@ def train_case(res, rank, case, spec, cfg, step_fn, state):
     res[f"{case}/step"] = np.array(int(state["opt"]["step"]))
 
 
-def gnn_case(res, rank, data, mesh, arch: str, case: str) -> None:
+def gnn_case(res, rank, data, mesh, arch: str, case: str, *,
+             chunks: int | None = None, blocks: bool = False) -> None:
     """``arch``'s smoke train cell, rows constrained over ``data``, from
-    the job's ``gnn/<arch>`` state; results under ``case``."""
+    the job's ``gnn/<arch>`` state; results under ``case``. With
+    ``chunks`` DimeNet's triplets run in that many chunks; with ``blocks``
+    every gather and scatter goes by blocks."""
     from repro_torch.configs import get_arch
     from repro_torch.distributed import sharding as shr
     from repro_torch.launch.train import smoke_spec
@@ -137,7 +161,68 @@ def gnn_case(res, rank, data, mesh, arch: str, case: str) -> None:
                                       mesh=mesh, constrain=True)
     state = start_state(data, f"gnn/{arch}", tg.GNNParams,
                         shr.gnn_param_specs, mesh)
-    train_case(res, rank, case, spec, cfg, step_fn, state)
+    pick, cheaper = tg._pick_chunks, tg._blocks_cheaper
+    if chunks is not None:
+        tg._pick_chunks = lambda t, target: chunks
+    if blocks:
+        tg._blocks_cheaper = lambda sp, n, k: True
+    try:
+        train_case(res, rank, case, spec, cfg, step_fn, state)
+    finally:
+        tg._pick_chunks, tg._blocks_cheaper = pick, cheaper
+
+
+def prim_inputs() -> dict:
+    """Seeded tables, index rows (some ≥ PRIM_NODES: dropped by a
+    scatter) and weights for the ``prim`` cases."""
+    rng = np.random.default_rng(7)
+    n, e = PRIM_NODES, PRIM_EDGES
+    dst = rng.integers(0, n, e)
+    dst[[5, 17, 30]] = n + 3
+    f32 = np.float32
+    return {"x": rng.standard_normal((n, 3)).astype(f32),
+            "y": rng.standard_normal((n, 2)).astype(f32),
+            "src": rng.integers(0, n, e).astype(np.int32),
+            "dst": dst.astype(np.int32),
+            "v": rng.standard_normal((e, 3)).astype(f32),
+            "wx": rng.standard_normal((e, 3)).astype(f32),
+            "wy": rng.standard_normal((e, 2)).astype(f32),
+            "wn": rng.standard_normal((n, 3)).astype(f32)}
+
+
+def prim_case(res, mesh, layout: str) -> None:
+    """The ``prim/<layout>/`` results: ``x[src]`` and ``y[min(dst, n -
+    1)]`` in one ``_gather_rows`` call, ``scatter_sum(v, dst, n)`` and
+    ``_segment_max(v, dst, n)``, with the gradients of ``Σ wx·x[src] +
+    Σ wy·y[dst]`` (x, y) and ``Σ wn·scatter_sum`` (v); whole."""
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.models import gnn as tg
+    inp = {k: torch.from_numpy(a) for k, a in prim_inputs().items()}
+    n = PRIM_NODES
+
+    def rows(t):
+        spec = shr.P("data", *([None] * (t.dim() - 1)))
+        return shr.place(t, shr.NamedSharding(mesh, spec))
+    x, y, v = (rows(inp[k].requires_grad_()) for k in ("x", "y", "v"))
+    src, dst = rows(inp["src"].long()), rows(inp["dst"])
+    cheaper = tg._blocks_cheaper
+    tg._blocks_cheaper = lambda sp, n_, k: layout == "blocks"
+    tg.set_gnn_data_axes(("data",))
+    try:
+        gx, gy = tg._gather_rows((x, src), (y, tg._clip_index(dst, n)))
+        total = tg.scatter_sum(v, dst, n)
+        top = tg._segment_max(v, dst, n)
+        loss = shr.replicated((gx * rows(inp["wx"])).sum()
+                              + (gy * rows(inp["wy"])).sum())
+        dx, dy = torch.autograd.grad(loss, [x, y])
+        dv, = torch.autograd.grad(shr.replicated(
+            (total * rows(inp["wn"])).sum()), [v])
+    finally:
+        tg._blocks_cheaper = cheaper
+        tg.set_gnn_data_axes(())
+    for name, t in (("gx", gx), ("gy", gy), ("sum", total), ("max", top),
+                    ("dx", dx), ("dy", dy), ("dv", dv)):
+        res[f"prim/{layout}/{name}"] = whole(t)
 
 
 def main(rank: int, world: int, store: str, job: str, out: str) -> None:
@@ -146,7 +231,6 @@ def main(rank: int, world: int, store: str, job: str, out: str) -> None:
     from repro_torch.distributed import sharding as shr
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import dien as td
-    from repro_torch.models import gnn as tg
     from repro_torch.models import transformer as tt
     from repro_torch.train import step as ts
 
@@ -196,16 +280,20 @@ def main(rank: int, world: int, store: str, job: str, out: str) -> None:
                                              ).numpy()
 
     # The GNN cells, rows constrained over the data axis; DimeNet again
-    # with its triplets in chunks.
+    # with its triplets in chunks; the cells by blocks and on other meshes;
+    # the gathers and scatters alone, by blocks and whole.
     for arch in GNN_ARCHS:
         gnn_case(res, rank, data, mesh, arch, f"gnn/{arch}")
-    pick = tg._pick_chunks
-    tg._pick_chunks = lambda t, target: DIMENET_CHUNKS
-    try:
-        gnn_case(res, rank, data, mesh, "dimenet",
-                 f"gnn/dimenet@{DIMENET_CHUNKS}")
-    finally:
-        tg._pick_chunks = pick
+    gnn_case(res, rank, data, mesh, "dimenet",
+             f"gnn/dimenet@{DIMENET_CHUNKS}", chunks=DIMENET_CHUNKS)
+    meshes = {(2, world // 2): mesh}
+    for case, (arch, dims, chunks, blocks) in GNN_LAYOUTS.items():
+        if dims not in meshes:
+            meshes[dims] = make_host_mesh(*dims, device_type="cpu")
+        gnn_case(res, rank, data, meshes[dims], arch, case, chunks=chunks,
+                 blocks=blocks)
+    for layout in ("blocks", "whole"):
+        prim_case(res, mesh, layout)
 
     # DIEN's train cell, its tables' rows over the model axis.
     base = get_arch("dien")
