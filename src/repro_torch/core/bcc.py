@@ -35,6 +35,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.compress import (_table_levels, segment_reduce,
                                        segment_reduce_scoped)
 from repro_torch.core.connectivity import connected_components
@@ -84,6 +85,7 @@ class BCCResult:
     method: str = "gconn_euler"
 
 
+@obs.spanned("bcc.core")
 def bcc_from_tour(graph: Graph, parent: torch.Tensor, tn: TourNumbering, *,
                   tree_mask: torch.Tensor | None = None,
                   scope: torch.Tensor | None = None,
@@ -260,13 +262,15 @@ def bcc_from_parent(graph: Graph, parent: torch.Tensor, *,
     Returns:
       dict with the ``BCCResult`` fields except ``rst_steps`` and ``method``.
     """
-    tn = tour_numbering(parent, use_kernel=use_kernel, lanes=lanes)
+    with obs.span("bcc.numbering"):
+        tn = tour_numbering(parent, use_kernel=use_kernel, lanes=lanes)
     out = bcc_from_tour(graph, parent, tn, use_kernel=use_kernel,
                         lanes=lanes)
     out.pop("rep")
     return dict(pre=tn.pre, size=tn.size, **out)
 
 
+@obs.spanned("bcc")
 def biconnectivity(graph: Graph, root=0, *, rst_flavor: str = "gconn_euler",
                    use_kernel: bool | None = None,
                    device: str | torch.device | None = None,

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.graph import Graph
 from repro_torch.kernels import kernel_wanted
 from repro_torch.kernels.frontier_relax.ops import bfs_level, bfs_level_buffer
@@ -46,6 +47,8 @@ def bfs_rst(graph: Graph, root, *, max_levels: int | None = None,
       dist:   int32[n] hop distance (INF32 = unreachable).
       levels: int, loop bodies run minus one (= the tree's depth when the
         loop ran to convergence).
+
+    The level loop is the ``bfs.levels`` span (``obs``).
     """
     n = graph.n_nodes
     src, dst = graph.src, graph.dst
@@ -70,10 +73,11 @@ def bfs_rst(graph: Graph, root, *, max_levels: int | None = None,
     bound = (n if lanes is None else n // lanes) if max_levels is None \
         else max_levels
     level, changed = 0, True
-    while changed and level < bound:
-        changed = bfs_level(dist, parent, cand, src, dst, level,
-                            consts=consts, use_kernel=use_kernel)
-        level += 1
+    with obs.span("bfs.levels"):
+        while changed and level < bound:
+            changed = bfs_level(dist, parent, cand, src, dst, level,
+                                consts=consts, use_kernel=use_kernel)
+            level += 1
     if lanes is not None:
         reached = torch.where(dist < INF32, dist, 0).view(lanes, -1)
         return parent, dist, torch.amax(reached, 1)

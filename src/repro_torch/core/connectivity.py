@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.compress import compress_full
 from repro_torch.core.graph import Graph
 from repro_torch.kernels.hook_edges.ops import hook_edges
@@ -35,6 +36,7 @@ def pointer_jump_full(p: torch.Tensor, *,
     return compress_full(p, use_kernel=use_kernel)
 
 
+@obs.spanned("connectivity")
 def connected_components(graph: Graph, *, max_rounds: int | None = None,
                          use_kernel: bool | None = None,
                          alternate_hooking: bool = False,

@@ -29,6 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.compress import NO_SUCC, roots_of, wyllie_rank
 from repro_torch.core.graph import resolve_device
 
@@ -102,6 +103,7 @@ def _tour_successors(n: int, fu: torch.Tensor, fv: torch.Tensor,
     return succ[:m2], dvalid
 
 
+@obs.spanned("euler.root")
 def euler_tour_root(n_nodes: int, fu: torch.Tensor, fv: torch.Tensor,
                     valid: torch.Tensor, comp_root: torch.Tensor, *,
                     use_kernel: bool | None = None,

@@ -13,6 +13,7 @@ from typing import Literal
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.bfs import bfs_rst
 from repro_torch.core.compress import rank_to_root
 from repro_torch.core.connectivity import connected_components
@@ -36,6 +37,7 @@ class RSTResult:
     rank_syncs: int | None = None           # gconn: list-ranking checks
 
 
+@obs.spanned("rst.forest")
 def forest_edges(graph: Graph, forest_mask: torch.Tensor):
     """Compact the marked half-edges into n-1 fixed slots.
 
@@ -89,6 +91,7 @@ def gconn_euler_rst(graph: Graph, root, *, use_kernel: bool | None = None,
                      compress_syncs=compress_syncs, rank_syncs=rank_syncs)
 
 
+@obs.spanned("rst")
 def rooted_spanning_tree(graph: Graph, root, method: Method = "gconn_euler",
                          *, use_kernel: bool | None = None,
                          device: str | torch.device | None = None,

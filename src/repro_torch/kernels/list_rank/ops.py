@@ -10,7 +10,9 @@ in one cooperative launch. ``list_rank_double_stepwise`` and
 (one launch per doubling step; one thread an element taking the steps),
 kept only as yardsticks: ``chip_smoke.py`` and the card tests call them,
 no function of the package does. Each wrapper's ``.launches`` counts its
-kernel's launches.
+kernel's launches; each launch of ``list_rank_double_k`` is also the span
+``kernel.list_rank_double`` (``obs``), with its ``entries`` and
+``passes``.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import ctypes
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build, check_int32_cuda, kernel_wanted
 from repro_torch.kernels.hops import c_schedule, hop_schedule
 from repro_torch.kernels.list_rank.ref import (NO_SUCC, list_rank_double_ref,
@@ -79,7 +82,8 @@ def list_rank_double_k(succ: torch.Tensor, dist: torch.Tensor, *,
     if n > _MAX_ENTRIES:
         raise ValueError(f"list_rank_double_k: {n} entries, the kernel "
                          f"indexes at most {_MAX_ENTRIES}")
-    s, d, open_ = _launch_double(succ, dist, n_steps)
+    with obs.span("kernel.list_rank_double", entries=n, passes=n_steps):
+        s, d, open_ = _launch_double(succ, dist, n_steps)
     list_rank_double_k.launches += 1
     return _with_open(s, d, return_open, open_)
 

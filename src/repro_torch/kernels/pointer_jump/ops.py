@@ -10,7 +10,9 @@ one cooperative launch. ``pointer_jump_double_stepwise`` and
 kernels (one launch per doubling step; one thread an entry following the
 table), kept only as yardsticks: ``chip_smoke.py`` and the card tests call
 them, no function of the package does. Each wrapper's ``.launches`` counts
-its kernel's launches.
+its kernel's launches; each launch of ``pointer_jump_double_k`` is also
+the span ``kernel.pointer_jump_double`` (``obs``), with its ``entries``
+and ``passes``.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import ctypes
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build, check_int32_cuda, kernel_wanted
 from repro_torch.kernels.hops import c_schedule, hop_schedule
 from repro_torch.kernels.pointer_jump.ref import (pointer_jump_double_ref,
@@ -65,7 +68,8 @@ def pointer_jump_double_k(p: torch.Tensor, *, n_jumps: int = 5,
     if n > _MAX_ENTRIES:
         raise ValueError(f"pointer_jump_double_k: {n} entries, the kernel "
                          f"indexes at most {_MAX_ENTRIES}")
-    out, changed = _launch_double(p, n_jumps)
+    with obs.span("kernel.pointer_jump_double", entries=n, passes=n_jumps):
+        out, changed = _launch_double(p, n_jumps)
     pointer_jump_double_k.launches += 1
     return (out, changed) if return_changed else out
 

@@ -1,4 +1,5 @@
-"""Span tracing for the serving loops (DESIGN.md §14).
+"""Span tracing for the serving loops and the tree and BCC paths
+(DESIGN.md §14).
 
 The port's own copy of ``repro.obs.trace``.
 
@@ -9,6 +10,15 @@ query batch → audit/recover ladder rungs. Each span charges itself the
 ledger delta across its body — inclusive of children, like any sampling
 profiler — so a trace answers "where did the sync budget go" per phase
 AND per wall-clock interval.
+
+Spans also mark the layer boundaries of the tree and BCC paths (``rst``,
+``connectivity``, ``rst.forest``, ``euler.root``, ``bfs.levels``,
+``bcc``, ``bcc.numbering``, ``bcc.core``) and each launch of the two
+doubling kernels (``kernel.pointer_jump_double``,
+``kernel.list_rank_double``, with ``entries`` and ``passes``). While a
+tracer is installed every span also opens
+``torch.profiler.record_function(name)``, so a running profiler records
+it as a ``user_annotation`` range on the clock of the device's kernels.
 
 Two export formats from the same records:
 
@@ -40,6 +50,7 @@ in untraced runs.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import pathlib
 import time
@@ -61,6 +72,17 @@ def span(name: str, *, step: int | None = None, **args):
     if tr is None:
         return contextlib.nullcontext()
     return tr.span(name, step=step, **args)
+
+
+def spanned(name: str):
+    """Decorator: every call of the function is the span ``name``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*a, **k):
+            with span(name):
+                return fn(*a, **k)
+        return call
+    return wrap
 
 
 def event(name: str, *, step: int | None = None, **args) -> None:
@@ -90,10 +112,12 @@ class Tracer:
 
     @contextlib.contextmanager
     def span(self, name: str, *, step: int | None = None, **args):
+        from torch.profiler import record_function
         ts = self._now_us()
         s0 = self.ledger.total()
         try:
-            yield self
+            with record_function(name):
+                yield self
         finally:
             self.records.append({
                 "v": SCHEMA_VERSION, "type": "span", "name": name,
